@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, every ``combblas_tpu_torch/csrc/*.cu`` is compiled with
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, placed in ``combblas_tpu_torch/_build/`` (listed in
+``.gitignore``) under a name keyed on a hash of the sources and flags, and
+loaded with ``ctypes``.  Pointers and the stream are passed as ``c_void_p``
+and sizes as ``c_int64``; every entry point returns ``cudaGetLastError()``,
+which :func:`check` turns into an exception.
+
+Nothing here runs at import: the CPU test suite imports every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+#: C signature of every entry point (all return an int cudaError_t).
+_SIGNATURES = {
+    # a_row, a_col, a_val, offs, n_a, b_rp, b_col, b_val, stride, mul_code,
+    # out_key, out_val, cap, stream
+    "cbt_expand_i32": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
+                       _P, _P, _I64, _P],
+    "cbt_expand_i64": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
+                       _P, _P, _I64, _P],
+    # key, n, block_counts, stream
+    "cbt_compress_count_i32": [_P, _I64, _P, _P],
+    "cbt_compress_count_i64": [_P, _I64, _P, _P],
+    # key, val, n, block_offs, add_code, out_key, out_val, cap, stream
+    "cbt_compress_emit_i32": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
+    "cbt_compress_emit_i64": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
+}
+
+_lib = None
+#: Seconds the last nvcc run took in this process (None: loaded a cached
+#: build, or nothing built yet).
+build_seconds: float | None = None
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                           "from source with the CUDA toolkit")
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    so = BUILD_DIR / f"libcombblas_torch_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(p) for p in _sources() if p.suffix == ".cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cbt_error_string.argtypes = [ctypes.c_int]
+    lib.cbt_error_string.restype = ctypes.c_char_p
+    lib.cbt_compress_tile.argtypes = []
+    lib.cbt_compress_tile.restype = ctypes.c_int64
+    _lib = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        msg = lib.cbt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -40,6 +40,11 @@ import pytest
 _MAP_GUARD_THRESHOLD = 35_000
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU and nvcc; skips without a card")
+
+
 def _n_maps() -> int:
     try:
         with open(f"/proc/{os.getpid()}/maps") as f:

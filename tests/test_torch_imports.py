@@ -1,0 +1,33 @@
+"""The port never imports JAX, and importing it builds nothing."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import combblas_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "combblas_tpu" or m.startswith("combblas_tpu."))
+assert not bad, bad
+assert "triton" not in sys.modules
+from combblas_tpu_torch.ops.kernels import _build
+assert _build._lib is None
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    # every module of the slice was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 11
