@@ -12,10 +12,22 @@ Phases, each raising on failure:
      ``scipy.sparse`` on the host;
   5. the main path at full size: scale-22 SSCA ef-8 R-MAT A² through
      ``seg2_prepare`` / ``seg2_step``, every slab, the kernels' launch counts
-     read around that run, and three slabs re-run with the plain versions.
+     read around that run, and three slabs re-run with the plain versions;
+  6. the SpMM/BFS kernels (ELL-8 sum and max folds, COO SpMM) against their
+     plain versions at the shapes of phases 7 and 8 (d = 128 and d = 8),
+     with kernel, plain and ``torch.sparse.mm`` times;
+  7. SpMM at full size: a scale-21 ef-16 G500 R-MAT times a (n, 128) X
+     through ``spmm(use_kernel=True)``, ``spmm_ell_blocked(nb=6)`` and
+     ``spmm_pallas``, each checked against ``torch.sparse.mm``;
+  8. BFS at full size: 64 roots on the same graph symmetrized, through
+     ``bfs_batch_pull_big(nb=6)``, warm then timed; 4 roots validated
+     Graph500-style against the edge list, 2 held against the push BFS (K1).
 
-The last stdout line is ``{"ok": true, "device": {...}}``, printed only when
-every phase passed.  Per-slab details go to ``chiprun_out/chip_smoke.json``.
+Every bound is the larger of the bytes the function must move (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the card's float32 rate (67 TFLOP/s), both the H100 SXM's published
+peaks.  The last stdout line is ``{"ok": true, "device": {...}}``, printed
+only when every phase passed.  Details go to ``chiprun_out/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py [--seed 42] [--scale 22] [--check-scale 16]
 """
@@ -29,20 +41,34 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+from combblas_tpu_torch.models.bfs import (
+    bfs_batch_pull_big,
+    bfs_push_local,
+    validate_bfs,
+)
 from combblas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
+from combblas_tpu_torch.ops.kernels.ell import ell_fold
 from combblas_tpu_torch.ops.spgemm import spgemm_flops
 from combblas_tpu_torch.ops.spgemm_seg import (
     seg2_prepare,
     seg2_step,
     seg_zero_state,
 )
+from combblas_tpu_torch.ops.spmm_ell import spmm_ell_prepare
+from combblas_tpu_torch.ops.spmm_ell_blocked import (
+    ell_blocked_prepare,
+    spmm_ell_blocked,
+)
+from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas
+from combblas_tpu_torch.ops.spmv import spmm
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_PLUS, PLUS_TIMES
 
 SEMIRINGS = (PLUS_TIMES, MIN_PLUS, MAX_SECOND)
@@ -55,7 +81,19 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                    "combblas_tpu/ops/pallas/expand_kernel.py:505"),
     "compress_i64": ("combblas_tpu_torch/csrc/compress.cu",
                      "combblas_tpu/ops/pallas/compress_kernel.py:496"),
+    "ell_sum": ("combblas_tpu_torch/csrc/ell.cu",
+                "combblas_tpu/ops/pallas/spmm_ell.py:141"),
+    "ell_max": ("combblas_tpu_torch/csrc/ell.cu",
+                "combblas_tpu/ops/pallas/spmm_ell_blocked.py:178"),
+    "spmm_coo": ("combblas_tpu_torch/csrc/spmm_coo.cu",
+                 "combblas_tpu/ops/pallas/spmm_kernel.py:119"),
 }
+#: The H100 SXM's published peaks: HBM bytes/s and float32 FLOP/s outside
+#: the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+#: R-MAT scale of the SpMM and BFS phases: the size of kron_g500-logn21.
+GRAPH_SCALE = 21
 
 
 def log(msg: str) -> None:
@@ -68,6 +106,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -136,10 +183,17 @@ def check_expand(gen, dev, wide: bool, log2: int = 26) -> dict:
                             stream_cap=cap))
     plain_ms = cuda_ms(lambda: fn(*args, PLUS_TIMES, stride=stride,
                                   stream_cap=cap, plain=True), reps=2)
+    # inputs: A's (row, col, val, valid), B's row pointer and (col, val);
+    # outputs: the whole (key, val) stream of cap slots; one multiply each
+    a_row, _a_col, _a_val, _valid, b_rp, b_col, _b_val = args
+    nbytes = (a_row.numel() * 13 + b_rp.numel() * 8 + b_col.numel() * 8
+              + cap * (12 if wide else 8))
+    b = bound(nbytes, t)
     log(f"  expand {'i64' if wide else 'i32'}: {t} products, exact for "
         f"{[s.name for s in SEMIRINGS]}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, elements=t)
+        f"{plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, elements=t,
+                library_ms=None, **b)
 
 
 def _compress_inputs(gen, dev, wide: bool, log2: int):
@@ -209,8 +263,15 @@ def check_compress(gen, dev, wide: bool, log2: int = 26) -> dict:
     log(f"  compress {'i64' if wide else 'i32'}: {keys.numel()} elements -> "
         f"{nnz}; agree for {[s.name for s in SEMIRINGS]} and saturation at "
         f"{small}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # inputs: keys and values; outputs: cap (key, val) slots and the count;
+    # one add per element
+    ksize = keys.element_size()
+    b = bound(keys.numel() * (ksize + 4) + cap * (ksize + 4) + 8,
+              keys.numel())
+    log(f"  compress {'i64' if wide else 'i32'} bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']})")
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               elements=keys.numel())
+               elements=keys.numel(), library_ms=None, **b)
     if wide:
         out["with_split_ms"] = cuda_ms(lambda: kc.compress_sorted_wide(
             keys, vals, PLUS_TIMES, out_capacity=cap, stride=stride))
@@ -298,9 +359,10 @@ def main_path(seed: int, scale: int, dev, details: dict) -> dict:
                         for s, sl in enumerate(slabs)]
     if truncated or nnz_c <= 0 or not math.isfinite(checksum):
         raise AssertionError("scale-22 digest is truncated or not finite")
-    want = {"expand_i32": n_win, "compress_i32": n_win,
-            "expand_i64": len(slabs) - n_win,
-            "compress_i64": len(slabs) - n_win}
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(expand_i32=n_win, compress_i32=n_win,
+                expand_i64=len(slabs) - n_win,
+                compress_i64=len(slabs) - n_win)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     # three slabs again, kernels and plain versions, each from a zero state
@@ -330,6 +392,238 @@ def main_path(seed: int, scale: int, dev, details: dict) -> dict:
             raise AssertionError(f"slab {s}: truncated")
     return launches
 
+# ------------------------------------------------------------ phases 6-8 --
+
+def _csr(a):
+    """``a`` as a torch sparse CSR tensor, for ``torch.sparse.mm``: the
+    yardstick and the independent check, never used by the port."""
+    nnz = int(a.nnz)
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(a.row_ptr(), a.col[:nnz].long(),
+                                       a.val[:nnz], size=a.shape,
+                                       check_invariants=False)
+
+
+def _ell_bound(prep, x, nnz: int) -> dict:
+    """Bytes: the plan (cols + vals over 8*P, flush + base, the run table),
+    X and Y once each; operations: a multiply and an add per entry and
+    column."""
+    p, d = prep["P"], x.shape[1]
+    plan = p * 8 * 8 + p * 8 + prep["run_start"].numel() * 8
+    y_bytes = prep["run_start"].shape[0] * 8 * d * 4
+    return bound(plan + x.numel() * 4 + y_bytes, 2 * nnz * d)
+
+
+def check_ell(label: str, prep, x, op: str, nnz: int, csr=None) -> dict:
+    """The ELL kernel against its plain version on one plan and X: max
+    exact, sum within rtol 1e-5 (another order of additions)."""
+    args = (prep["cols"].t(), prep["vals"].t(), prep["run_start"],
+            prep["run_len"], x)
+    kw = dict(bs_c=prep["bs_c"], op=op)
+    got = ell_fold(*args, **kw)
+    want = ell_fold(*args, plain=True, **kw)
+    if op == "max":
+        if not torch.equal(got, want):
+            raise AssertionError(f"ell_max {label}: kernel and plain differ")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    err = float((got - want).abs().max())
+    # one warp walks each group: the longest group bounds the kernel from
+    # below whatever the card's bandwidth
+    group_len = prep["run_len"].sum(1)
+    out = dict(label=label, max_abs_err=err,
+               max_group_positions=int(group_len.max()),
+               mean_group_positions=float(group_len.float().mean()),
+               pad_ratio=8 * int(group_len.sum()) / nnz,
+               ms=cuda_ms(lambda: ell_fold(*args, **kw)),
+               plain_ms=cuda_ms(lambda: ell_fold(*args, plain=True, **kw),
+                                reps=2),
+               library_ms=None, **_ell_bound(prep, x, nnz))
+    if csr is not None:     # the sum over the plan's own row order is A @ X
+        out["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x))
+    log(f"  ell_{op} {label}: max abs err {err:.3g}; kernel {out['ms']:.3f} "
+        f"ms, plain {out['plain_ms']:.3f} ms, torch.sparse.mm "
+        f"{out['library_ms'] if csr is None else round(out['library_ms'], 3)}"
+        f" ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}); groups "
+        f"of {out['mean_group_positions']:.1f} positions on average, the "
+        f"longest {out['max_group_positions']}, ELL slots / nnz "
+        f"{out['pad_ratio']:.3f}")
+    return out
+
+
+def check_spmm_coo(label: str, a, x, csr) -> dict:
+    got = spmm_pallas(a, x)
+    want = spmm_pallas(a, x, plain=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    err = float((got - want).abs().max())
+    nnz, d = int(a.nnz), x.shape[1]
+    b = bound((a.shape[0] + 1) * 8 + nnz * 8 + x.numel() * 4
+              + a.shape[0] * d * 4, 2 * nnz * d)
+    out = dict(label=label, max_abs_err=err,
+               ms=cuda_ms(lambda: spmm_pallas(a, x)),
+               plain_ms=cuda_ms(lambda: spmm_pallas(a, x, plain=True),
+                                reps=2),
+               library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x)), **b)
+    log(f"  spmm_coo {label}: max abs err {err:.3g}; kernel {out['ms']:.3f} "
+        f"ms, plain {out['plain_ms']:.3f} ms, torch.sparse.mm "
+        f"{out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
+        f"({out['bound_by']})")
+    return out
+
+
+def build_graphs(seed: int, scale: int, dev) -> dict:
+    """The SpMM graph (G500 R-MAT, edgefactor 16), its symmetrized
+    loop-free twin for BFS, the plans, and X; with their set-up seconds."""
+    g = {}
+    t = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g["a"] = rmat_matrix(gen, scale, 16)
+    g["s"] = rmat_matrix(gen, scale, 16, symmetrize=True,
+                         remove_self_loops=True)
+    n = g["a"].shape[1]
+    g["x"] = torch.rand((n, 128), generator=gen, device=dev)
+    g["x8"] = torch.rand((n, 8), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    g["gen_secs"] = time.perf_counter() - t
+    for key, make in (
+            ("ell1", lambda: spmm_ell_prepare(g["a"])),
+            ("ell6", lambda: ell_blocked_prepare(g["a"], 6)),
+            ("bfs6", lambda: ell_blocked_prepare(g["s"], 6, relabel_cols=True,
+                                                 binary=True)),
+            ("bfs1", lambda: ell_blocked_prepare(g["s"], 1, relabel_cols=True,
+                                                 binary=True))):
+        t = time.perf_counter()
+        g[key] = make()
+        torch.cuda.synchronize()
+        g[f"{key}_secs"] = time.perf_counter() - t
+    log(f"  scale {scale}: A nnz {int(g['a'].nnz)}, symmetrized nnz "
+        f"{int(g['s'].nnz)}, generated in {g['gen_secs']:.2f} s; prepare "
+        f"secs: ell nb=1 {g['ell1_secs']:.3f}, nb=6 {g['ell6_secs']:.3f}, "
+        f"bfs nb=6 {g['bfs6_secs']:.3f}, bfs nb=1 {g['bfs1_secs']:.3f}")
+    return g
+
+
+def check_spmm_bfs_kernels(g: dict, dev) -> dict:
+    """Phase 6: every SpMM/BFS kernel against its plain version at the
+    shapes of phases 7 and 8."""
+    a, s = g["a"], g["s"]
+    nnz_a, nnz_s = int(a.nnz), int(s.nnz)
+    csr = _csr(a)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # a BFS-like frontier: original ids + 1 on a tenth of the rows
+    n_pad = g["bfs6"]["n_pad"]
+    f = torch.where(torch.rand((n_pad, 128), generator=gen, device=dev) < 0.1,
+                    torch.randint(1, s.shape[0] + 1, (n_pad, 128),
+                                  generator=gen, device=dev).float(), 0.0)
+    out = {
+        "ell_sum": [check_ell("nb=1 d=128", g["ell1"], g["x"], "sum", nnz_a,
+                              csr),
+                    check_ell("nb=6 d=128", g["ell6"], g["x"], "sum", nnz_a,
+                              csr),
+                    check_ell("nb=1 d=8", g["ell1"], g["x8"], "sum", nnz_a,
+                              csr)],
+        "ell_max": [check_ell("nb=6 d=128", g["bfs6"], f, "max", nnz_s),
+                    check_ell("nb=1 d=128", g["bfs1"], f, "max", nnz_s),
+                    check_ell("nb=6 d=8", g["bfs6"], f[:, :8].contiguous(),
+                              "max", nnz_s)],
+        "spmm_coo": [check_spmm_coo("d=128", a, g["x"], csr),
+                     check_spmm_coo("d=8", a, g["x8"], csr)],
+    }
+    return out
+
+
+def spmm_full(g: dict) -> dict:
+    """Phase 7: SpMM at full size through the port's entry points, launch
+    counts read around one call of each, then timed and checked against
+    ``torch.sparse.mm``."""
+    a, x = g["a"], g["x"]
+    nnz, d = int(a.nnz), x.shape[1]
+    routes = {
+        "spmm_use_kernel": lambda: spmm(a, x, use_kernel=True,
+                                        prep=g["ell1"]),
+        "spmm_ell_blocked_nb6": lambda: spmm_ell_blocked(a, x,
+                                                         prep=g["ell6"]),
+        "spmm_pallas": lambda: spmm_pallas(a, x),
+    }
+    torch.cuda.synchronize()
+    reset_launches()
+    ys = {name: fn() for name, fn in routes.items()}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    ref = torch.sparse.mm(_csr(a), x)
+    bytes_moved = nnz * (4 + 4 + 4) + nnz * d * 4 * 2   # bench_spmm's count
+    out = dict(nnz=nnz, d=d, launches=launches,
+               prepare_secs={"ell_nb1": g["ell1_secs"],
+                             "ell_nb6": g["ell6_secs"]})
+    for name, fn in routes.items():
+        torch.testing.assert_close(ys[name], ref, rtol=1e-4, atol=1e-6)
+        secs = cuda_ms(fn) / 1e3
+        out[name] = dict(secs=secs, gb_per_s=bytes_moved / secs / 1e9,
+                         gflops=2 * nnz * d / secs / 1e9)
+        log(f"  {name}: {secs:.5f} s, {out[name]['gb_per_s']:.1f} GB/s, "
+            f"{out[name]['gflops']:.1f} GFLOP/s; agrees with "
+            f"torch.sparse.mm at rtol 1e-4")
+    log(f"  prepare secs: ell nb=1 {g['ell1_secs']:.3f}, nb=6 "
+        f"{g['ell6_secs']:.3f}; launches {launches}")
+    if launches["ell_sum"] != 2 or launches["spmm_coo"] != 1:
+        raise AssertionError(f"SpMM launch counts {launches}")
+    return out
+
+
+def bfs_full(g: dict, seed: int) -> dict:
+    """Phase 8: 64-root BFS at full size as ``bench_bfs`` runs it: warm
+    once, then timed; the ELL max launches of the first timed run must
+    equal its level sweeps."""
+    s, prep = g["s"], g["bfs6"]
+    rp = s.row_ptr()
+    deg = rp[1:] - rp[:-1]
+    cand = torch.nonzero(deg > 0).reshape(-1).cpu().numpy()
+    roots = np.random.default_rng(seed).choice(cand, size=min(64, len(cand)),
+                                               replace=False)
+    p, lv = bfs_batch_pull_big(s, roots, prep=prep)            # warm
+    torch.cuda.synchronize()
+    times = []
+    for rep in range(2):
+        if rep == 0:
+            reset_launches()
+        t = time.perf_counter()
+        p, lv = bfs_batch_pull_big(s, roots, prep=prep)
+        int(lv[0, 0])                                  # scalar sync
+        times.append(time.perf_counter() - t)
+        if rep == 0:
+            launches = dict(LAUNCHES)
+    batch_secs = min(times)
+    sweeps = int(lv.max()) + 1
+    if launches["ell_max"] != sweeps:
+        raise AssertionError(f"ell_max launched {launches['ell_max']} times "
+                             f"for {sweeps} level sweeps")
+    per_root = batch_secs / len(roots)
+    vis = lv >= 0
+    edges = ((vis.long() * deg[None, :]).sum(1) // 2).tolist()
+    teps = [e / per_root for e in edges]
+    hmean = len(teps) / sum(1.0 / t for t in teps if t > 0)
+    for i, r in enumerate(roots[:4]):
+        if not validate_bfs(s, int(r), p[i], lv[i]):
+            raise AssertionError(f"BFS from root {r} does not validate")
+    for i, r in enumerate(roots[:2]):
+        pp, pl = bfs_push_local(s, int(r))
+        if not torch.equal(pl, lv[i]):
+            raise AssertionError(f"root {r}: pull and push levels differ")
+        if not validate_bfs(s, int(r), pp, pl):
+            raise AssertionError(f"root {r}: push BFS does not validate")
+    out = dict(nnz=int(s.nnz), roots=len(roots), batch_secs=batch_secs,
+               times=times, levels=sweeps - 1, sweeps=sweeps,
+               visited=int(vis[0].sum()), gteps=hmean / 1e9,
+               prepare_secs=g["bfs6_secs"], ell_max_launches=launches[
+                   "ell_max"])
+    log(f"  {len(roots)} roots: batch {batch_secs:.4f} s (runs {times}), "
+        f"{sweeps - 1} levels ({sweeps} sweeps = {launches['ell_max']} "
+        f"ell_max launches), visited {out['visited']}, harmonic-mean "
+        f"{out['gteps']:.3f} GTEPS, prepare {g['bfs6_secs']:.3f} s; 4 roots "
+        f"validate, 2 roots equal the push BFS's levels")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -337,6 +631,8 @@ def main() -> int:
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--check-scale", type=int, default=16)
     args = ap.parse_args()
+    t_start = time.perf_counter()
+    phase_secs = {}
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -357,11 +653,10 @@ def main() -> int:
     build_log = _build.BUILD_DIR / "build.log"
     ptx = build_log.read_text().splitlines() if build_log.exists() else []
     details["ptxas"] = [ln for ln in ptx if "registers" in ln or "spill" in ln]
-    for ln in details["ptxas"]:
-        if "registers" in ln:
-            log("  " + ln.strip())
+    phase_secs["2"] = time.perf_counter() - t
 
     # 3. kernels vs plain versions
+    t = time.perf_counter()
     log("phase 3: kernels vs plain versions at main-path sizes")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     k3 = {"expand_i32": check_expand(gen, dev, wide=False),
@@ -369,24 +664,67 @@ def main() -> int:
           "expand_i64": check_expand(gen, dev, wide=True),
           "compress_i64": check_compress(gen, dev, wide=True)}
     torch.cuda.empty_cache()
+    phase_secs["3"] = time.perf_counter() - t
 
     # 4. independent end-to-end check
+    t = time.perf_counter()
     log("phase 4: port digest vs scipy.sparse")
     check_scipy(args.seed, args.check_scale, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    phase_secs["4"] = time.perf_counter() - t
 
     # 5. the main path at full size
+    t = time.perf_counter()
     log(f"phase 5: scale-{args.scale} A² seg2 digest, every slab")
     launches = main_path(args.seed, args.scale, dev, details)
+    torch.cuda.empty_cache()
+    phase_secs["5"] = time.perf_counter() - t
 
+    # 6. SpMM/BFS kernels vs plain versions at the shapes of phases 7, 8
+    t = time.perf_counter()
+    log(f"phase 6: SpMM/BFS kernels vs plain versions, scale-"
+        f"{GRAPH_SCALE} ef-16 R-MAT")
+    graphs = build_graphs(args.seed, GRAPH_SCALE, dev)
+    k6 = check_spmm_bfs_kernels(graphs, dev)
+    phase_secs["6"] = time.perf_counter() - t
+
+    # 7. SpMM at full size
+    t = time.perf_counter()
+    log(f"phase 7: SpMM, scale-{GRAPH_SCALE} R-MAT x (n, 128)")
+    spmm_line = spmm_full(graphs)
+    log(json.dumps(dict(spmm_line, scale=GRAPH_SCALE)))
+    phase_secs["7"] = time.perf_counter() - t
+
+    # 8. BFS at full size
+    t = time.perf_counter()
+    log(f"phase 8: 64-root BFS, scale-{GRAPH_SCALE} symmetrized R-MAT")
+    bfs_line = bfs_full(graphs, args.seed)
+    log(json.dumps(dict(bfs_line, scale=GRAPH_SCALE)))
+    phase_secs["8"] = time.perf_counter() - t
+    del graphs
+    torch.cuda.empty_cache()
+
+    launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
+                    spmm_coo=spmm_line["launches"]["spmm_coo"],
+                    ell_max=bfs_line["ell_max_launches"])
+    measured = dict(k3)
+    for name, rows in k6.items():
+        measured[name] = dict(rows[0], max_abs_err=max(
+            r["max_abs_err"] for r in rows))
     kernels = [dict(name=name, route="cuda", source=KERNELS[name][0],
                     replaces=KERNELS[name][1], launches=launches[name],
-                    max_abs_err=k3[name]["max_abs_err"], ms=k3[name]["ms"],
-                    plain_ms=k3[name]["plain_ms"])
+                    **{k: measured[name][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")})
                for name in KERNELS]
-    details["kernels"] = kernels
-    details["phase3"] = k3
+    for name, n_launch in launches.items():
+        if n_launch < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+    phase_secs["all"] = time.perf_counter() - t_start
+    log(f"phase seconds: {json.dumps(phase_secs)}")
+    details.update(kernels=kernels, phase3=k3, phase6=k6, spmm=spmm_line,
+                   bfs=bfs_line, phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

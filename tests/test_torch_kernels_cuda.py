@@ -125,3 +125,100 @@ def test_seg2_slice_kernels_match_plain(cuda):
         want = seg2_step(a, prep, s, want, plain=True)
     assert int(got[0]) == int(want[0]) and not got[2] and not want[2]
     assert abs(float(got[1]) - float(want[1])) <= 1e-5 * abs(float(want[1]))
+
+
+def _ragged_coo(seed, m, n, dev):
+    """A sparse (m, n) with power-law row degrees, one hub row, and a third
+    of the rows empty (so degree-sorted groups at the tail are empty)."""
+    import numpy as np
+
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.6, m), n // 4)
+    deg[rng.random(m) < 0.33] = 0
+    deg[m // 2] = int(n * 0.8)                     # the hub row
+    rows = np.repeat(np.arange(m), deg)
+    cols = np.concatenate([rng.choice(n, k, replace=False) for k in deg])
+    vals = rng.random(rows.size) + 0.25
+    return SpCOO.from_arrays(rows, cols, vals, (m, n), device=dev)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("d", [5, 8, 100, 128, 260])
+def test_ell_kernel_matches_plain(cuda, op, nb, d):
+    from combblas_tpu_torch.ops.kernels.ell import ell_fold
+    from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
+
+    relabel = op == "max"        # the BFS sweep's plan; sum: SpMM's
+    a = _ragged_coo(nb * 1000 + d, 3000, 3000 if relabel else 2200, cuda)
+    prep = ell_blocked_prepare(a, nb, relabel_cols=relabel, binary=relabel)
+    assert int(prep["run_len"].sum(1).eq(0).sum()) > 0   # empty groups
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.rand((prep["n_pad"], d), generator=gen, device=cuda)
+    args = (prep["cols"].t(), prep["vals"].t(), prep["run_start"],
+            prep["run_len"], x)
+    tag = f"ell_{op}"
+    before = LAUNCHES[tag]
+    got = ell_fold(*args, bs_c=prep["bs_c"], op=op)
+    torch.cuda.synchronize()
+    assert LAUNCHES[tag] == before + 1
+    want = ell_fold(*args, bs_c=prep["bs_c"], op=op, plain=True)
+    assert LAUNCHES[tag] == before + 1
+    assert got.shape == want.shape == (prep["m_pad"], d)
+    if op == "max":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [5, 8, 128, 260])
+def test_spmm_coo_kernel_matches_plain(cuda, d):
+    from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas
+
+    a = _ragged_coo(d, 3000, 2500, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.rand((2500, d), generator=gen, device=cuda)
+    before = LAUNCHES["spmm_coo"]
+    got = spmm_pallas(a, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spmm_coo"] == before + 1
+    want = spmm_pallas(a, x, plain=True)
+    assert LAUNCHES["spmm_coo"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert not bool(got[a.row_ptr()[1:] == a.row_ptr()[:-1]].any())
+
+
+def test_spmm_bfs_slice_on_card(cuda):
+    """The slice's entry points on the card: spmm's kernel route against
+    its gather route, and the ELL max-sweep BFS against the push BFS
+    (K1) on a symmetrized R-MAT graph."""
+    from combblas_tpu_torch.gen.rmat import rmat_matrix
+    from combblas_tpu_torch.models.bfs import (
+        bfs_batch_pull_big,
+        bfs_push_local,
+        validate_bfs,
+    )
+    from combblas_tpu_torch.ops.spmm_ell_blocked import spmm_ell_blocked
+    from combblas_tpu_torch.ops.spmv import spmm
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = rmat_matrix(gen, 12, 16)
+    x = torch.rand((a.shape[1], 64), generator=gen, device=cuda)
+    ref = spmm(a, x)
+    torch.testing.assert_close(spmm(a, x, use_kernel=True), ref, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(spmm_ell_blocked(a, x, nb=3), ref, rtol=1e-5,
+                               atol=1e-5)
+    g = rmat_matrix(gen, 12, 16, symmetrize=True, remove_self_loops=True)
+    rp = g.row_ptr()
+    roots = torch.nonzero(rp[1:] > rp[:-1])[:3, 0].tolist()
+    before = LAUNCHES["ell_max"]
+    p, lv = bfs_batch_pull_big(g, roots, nb=3)
+    assert LAUNCHES["ell_max"] - before == int(lv.max()) + 1
+    for i, r in enumerate(roots):
+        pp, pl = bfs_push_local(g, r)
+        assert torch.equal(lv[i], pl)
+        assert torch.equal(p[i], pp)
+        assert validate_bfs(g, r, p[i], lv[i])
