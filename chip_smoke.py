@@ -46,6 +46,12 @@ import warnings
 import numpy as np
 import torch
 
+from combblas_tpu_torch.gen.graph500 import (
+    GRAPH_SCALE,
+    bfs_frontier,
+    bfs_roots,
+    spmm_bfs_graphs,
+)
 from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
 from combblas_tpu_torch.models.bfs import (
     bfs_batch_pull_big,
@@ -92,8 +98,6 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 #: the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-#: R-MAT scale of the SpMM and BFS phases: the size of kron_g500-logn21.
-GRAPH_SCALE = 21
 
 
 def log(msg: str) -> None:
@@ -474,16 +478,10 @@ def check_spmm_coo(label: str, a, x, csr) -> dict:
 
 def build_graphs(seed: int, scale: int, dev) -> dict:
     """The SpMM graph (G500 R-MAT, edgefactor 16), its symmetrized
-    loop-free twin for BFS, the plans, and X; with their set-up seconds."""
-    g = {}
+    loop-free twin for BFS and X (``gen/graph500.py``), and the plans;
+    with their set-up seconds."""
     t = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    g["a"] = rmat_matrix(gen, scale, 16)
-    g["s"] = rmat_matrix(gen, scale, 16, symmetrize=True,
-                         remove_self_loops=True)
-    n = g["a"].shape[1]
-    g["x"] = torch.rand((n, 128), generator=gen, device=dev)
-    g["x8"] = torch.rand((n, 8), generator=gen, device=dev)
+    g = spmm_bfs_graphs(seed, dev, scale)
     torch.cuda.synchronize()
     g["gen_secs"] = time.perf_counter() - t
     for key, make in (
@@ -510,12 +508,7 @@ def check_spmm_bfs_kernels(g: dict, dev) -> dict:
     a, s = g["a"], g["s"]
     nnz_a, nnz_s = int(a.nnz), int(s.nnz)
     csr = _csr(a)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    # a BFS-like frontier: original ids + 1 on a tenth of the rows
-    n_pad = g["bfs6"]["n_pad"]
-    f = torch.where(torch.rand((n_pad, 128), generator=gen, device=dev) < 0.1,
-                    torch.randint(1, s.shape[0] + 1, (n_pad, 128),
-                                  generator=gen, device=dev).float(), 0.0)
+    f = bfs_frontier(g["bfs6"]["n_pad"], s.shape[0], dev)
     out = {
         "ell_sum": [check_ell("nb=1 d=128", g["ell1"], g["x"], "sum", nnz_a,
                               csr),
@@ -535,7 +528,9 @@ def check_spmm_bfs_kernels(g: dict, dev) -> dict:
 
 def spmm_full(g: dict) -> dict:
     """Phase 7: SpMM at full size through the port's entry points, launch
-    counts read around one call of each, then timed and checked against
+    counts read around one call of each (each route launches its one
+    kernel once: ``ell_sum`` for the first two, K6 and K7's sum fold,
+    ``spmm_coo`` for the third), then timed and checked against
     ``torch.sparse.mm``."""
     a, x = g["a"], g["x"]
     nnz, d = int(a.nnz), x.shape[1]
@@ -546,14 +541,22 @@ def spmm_full(g: dict) -> dict:
                                                          prep=g["ell6"]),
         "spmm_pallas": lambda: spmm_pallas(a, x),
     }
-    torch.cuda.synchronize()
-    reset_launches()
-    ys = {name: fn() for name, fn in routes.items()}
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    want = {"spmm_use_kernel": "ell_sum", "spmm_ell_blocked_nb6": "ell_sum",
+            "spmm_pallas": "spmm_coo"}
+    ys, by_route = {}, {}
+    for name, fn in routes.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        ys[name] = fn()
+        torch.cuda.synchronize()
+        by_route[name] = {k: v for k, v in LAUNCHES.items() if v}
+        if by_route[name] != {want[name]: 1}:
+            raise AssertionError(f"{name} launched {by_route[name]}")
+    launches = {k: sum(r.get(k, 0) for r in by_route.values())
+                for k in LAUNCHES}
     ref = torch.sparse.mm(_csr(a), x)
     bytes_moved = nnz * (4 + 4 + 4) + nnz * d * 4 * 2   # bench_spmm's count
-    out = dict(nnz=nnz, d=d, launches=launches,
+    out = dict(nnz=nnz, d=d, launches=launches, launches_by_route=by_route,
                prepare_secs={"ell_nb1": g["ell1_secs"],
                              "ell_nb6": g["ell6_secs"]})
     for name, fn in routes.items():
@@ -565,9 +568,7 @@ def spmm_full(g: dict) -> dict:
             f"{out[name]['gflops']:.1f} GFLOP/s; agrees with "
             f"torch.sparse.mm at rtol 1e-4")
     log(f"  prepare secs: ell nb=1 {g['ell1_secs']:.3f}, nb=6 "
-        f"{g['ell6_secs']:.3f}; launches {launches}")
-    if launches["ell_sum"] != 2 or launches["spmm_coo"] != 1:
-        raise AssertionError(f"SpMM launch counts {launches}")
+        f"{g['ell6_secs']:.3f}; launches by route {by_route}")
     return out
 
 
@@ -578,9 +579,7 @@ def bfs_full(g: dict, seed: int) -> dict:
     s, prep = g["s"], g["bfs6"]
     rp = s.row_ptr()
     deg = rp[1:] - rp[:-1]
-    cand = torch.nonzero(deg > 0).reshape(-1).cpu().numpy()
-    roots = np.random.default_rng(seed).choice(cand, size=min(64, len(cand)),
-                                               replace=False)
+    roots = bfs_roots(s, seed)
     p, lv = bfs_batch_pull_big(s, roots, prep=prep)            # warm
     torch.cuda.synchronize()
     times = []

@@ -4,10 +4,10 @@
 Rows are sorted by descending degree and packed 8 per group, each group
 ELL-padded to its longest row.  That plan is the blocked plan of
 ``ops/spmm_ell_blocked.py`` with one block (same P padding, the same
-columns, ``base = g*8``), so :func:`spmm_ell_prepare` builds it there and
-both run the one ELL kernel (``ops/kernels/ell.py``, K6 and K7).  X may
-have any width and stays in device memory: the TPU's VMEM limit and its
-lane padding of d to 128 do not carry over.
+columns, ``base = g*8``), so both names here are that module's with
+``nb = 1``, and both run the one ELL kernel (``ops/kernels/ell.py``, K6
+and K7).  X may have any width and stays in device memory: the TPU's VMEM
+limit and its lane padding of d to 128 do not carry over.
 """
 
 from __future__ import annotations
@@ -15,22 +15,20 @@ from __future__ import annotations
 import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO
-from combblas_tpu_torch.ops.kernels.ell import ell_fold
-from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
+from combblas_tpu_torch.ops.spmm_ell_blocked import (
+    ell_blocked_prepare,
+    spmm_ell_blocked,
+)
 
 __all__ = ["spmm_ell", "spmm_ell_prepare"]
 
-_KEYS = ("cols", "vals", "flush", "base", "inv", "live", "P", "run_start",
-         "run_len", "bs_c")
-
 
 def spmm_ell_prepare(a: SpCOO) -> dict:
-    """ELL-8 plan of ``a`` on its device: the JAX plan's ``cols``, ``vals``
-    ((8, P) views of (P, 8) storage), ``flush``, ``base``, ``inv``,
-    ``live``, ``P`` and ``groups``, plus the kernel's run table."""
-    full = ell_blocked_prepare(a, nb=1)
-    prep = {k: full[k] for k in _KEYS}
-    prep["groups"] = full["m_pad"] // 8
+    """ELL-8 plan of ``a`` on its device: ``ell_blocked_prepare(a, nb=1)``
+    (the JAX plan's ``cols``, ``vals``, ``flush``, ``base``, ``inv``,
+    ``live`` and ``P``, plus the kernel's run table) and ``groups``."""
+    prep = ell_blocked_prepare(a, nb=1)
+    prep["groups"] = prep["m_pad"] // 8
     return prep
 
 
@@ -39,10 +37,4 @@ def spmm_ell(a: SpCOO, x: torch.Tensor, prep: dict | None = None
     """y = A @ X (plus-times) through the ELL-8 fold; the result has X's
     dtype, computed in float32.  Pass ``prep`` (:func:`spmm_ell_prepare`)
     to amortize planning across calls."""
-    if prep is None:
-        prep = spmm_ell_prepare(a)
-    y_perm = ell_fold(prep["cols"].t(), prep["vals"].t(), prep["run_start"],
-                      prep["run_len"], x.float().contiguous(),
-                      bs_c=prep["bs_c"], op="sum")
-    y = torch.where(prep["live"][:, None], y_perm[prep["inv"].long()], 0.0)
-    return y.to(x.dtype)
+    return spmm_ell_blocked(a, x, prep=prep or spmm_ell_prepare(a))

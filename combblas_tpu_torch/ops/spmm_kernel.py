@@ -17,6 +17,10 @@ from combblas_tpu_torch.ops.kernels import LAUNCHES, _build
 
 __all__ = ["spmm_pallas", "spmm_coo_plain"]
 
+#: Entries per chunk of the plain version: bounds its (chunk, d) products
+#: (1.5 GB in float32 and float64 at d = 128).
+_PLAIN_CHUNK = 1 << 20
+
 
 def spmm_coo_plain(row_ptr, col, val, x) -> torch.Tensor:
     """Plain PyTorch version: gather X's rows at the entries' columns,
@@ -28,7 +32,10 @@ def spmm_coo_plain(row_ptr, col, val, x) -> torch.Tensor:
         torch.arange(m, device=x.device), row_ptr[1:] - row_ptr[:-1],
         output_size=nnz)
     y = torch.zeros((m, x.shape[1]), dtype=torch.float64, device=x.device)
-    y.index_add_(0, rows, (val[:nnz, None] * x[col[:nnz].long()]).double())
+    for lo in range(0, nnz, _PLAIN_CHUNK):
+        hi = min(lo + _PLAIN_CHUNK, nnz)
+        prod = val[lo:hi, None] * x[col[lo:hi].long()]
+        y.index_add_(0, rows[lo:hi], prod.double())
     return y.float()
 
 

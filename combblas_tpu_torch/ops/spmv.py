@@ -91,7 +91,8 @@ def spmm(a: SpCOO, x: torch.Tensor, sr: Semiring = PLUS_TIMES,
     row.  ``use_kernel=True`` (JAX: ``use_pallas``) takes the ELL-8 kernel
     (:func:`combblas_tpu_torch.ops.spmm_ell.spmm_ell`) for plus-times with
     a 2-D float X that is not float64, outside ``torch.compile`` tracing
-    (the plan reads the operand on the host).  Pass ``prep`` from
+    (the plan reads ``nnz`` and ``t_seg`` as Python ints, and the kernel
+    is a ctypes call that tracing cannot follow).  Pass ``prep`` from
     ``spmm_ell_prepare`` to amortize planning.  Any (m, n, d): the TPU's
     VMEM-size gate does not carry over."""
     if (use_kernel and sr == PLUS_TIMES and x.dim() == 2

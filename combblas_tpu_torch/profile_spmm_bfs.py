@@ -1,17 +1,17 @@
 """Where the SpMM and BFS time goes on the GPU.
 
-Builds the graphs of ``chip_smoke.py`` phases 6-8 (a scale-``--scale`` G500
-ef-16 R-MAT and, from the same generator, its symmetrized loop-free twin)
-and measures:
+Builds the data of ``chip_smoke.py`` phases 6-8 (``gen/graph500.py``: a
+scale-21 G500 ef-16 R-MAT, its symmetrized loop-free twin, X, the BFS-like
+frontier and the 64 roots) and measures:
 
 - the ELL kernel's tail: one warp walks each 8-row group, so the longest
   groups may end the kernel alone.  For the SpMM plan (nb = 1, sum,
   d = 128) and the BFS plan (nb = 6, relabeled, max, d = 128) it times the
-  kernel on the whole plan (``full_ms``), with the runs of the ``--tail``
+  kernel on the whole plan (``full_ms``), with the runs of the 64
   longest groups emptied (``bulk_ms``), and on those groups alone
   (``tail_ms``); CUDA events, mean of 5 after a warm-up;
-- one 64-root ``bfs_batch_pull_big`` batch: host wall (median of
-  ``--reps`` batches, sync before and after), and under ``torch.profiler``
+- one 64-root ``bfs_batch_pull_big`` batch: host wall (median of 3
+  batches, sync before and after), and under ``torch.profiler``
   the device busy time (union of device intervals, as in
   ``profile_seg2.py``), busy share and device time per kernel name.
 
@@ -19,7 +19,6 @@ Prints one JSON line per measurement and writes everything to
 ``chiprun_out/profile_spmm_bfs.json``.  Needs a CUDA device.
 
 Usage: python3 -m combblas_tpu_torch.profile_spmm_bfs [--seed 42]
-           [--scale 21] [--tail 64] [--reps 3]
 """
 
 from __future__ import annotations
@@ -32,14 +31,22 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
-from combblas_tpu_torch.gen.rmat import rmat_matrix
+from combblas_tpu_torch.gen.graph500 import (
+    GRAPH_SCALE,
+    bfs_frontier,
+    bfs_roots,
+    spmm_bfs_graphs,
+)
 from combblas_tpu_torch.models.bfs import bfs_batch_pull_big
 from combblas_tpu_torch.ops.kernels.ell import ell_fold
 from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
 from combblas_tpu_torch.profile_seg2 import device_events, interval_union_us
+
+#: Groups in the tail split, and timed batches behind the wall median.
+TAIL_GROUPS = 64
+BFS_REPS = 3
 
 
 def split_runs(run_len: torch.Tensor, k: int):
@@ -68,10 +75,9 @@ def _events_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ell_tail(label: str, prep: dict, x: torch.Tensor, op: str,
-             k: int) -> dict:
+def ell_tail(label: str, prep: dict, x: torch.Tensor, op: str) -> dict:
     cols, vals = prep["cols"].t(), prep["vals"].t()
-    bulk, tail = split_runs(prep["run_len"], k)
+    bulk, tail = split_runs(prep["run_len"], TAIL_GROUPS)
     group_len = prep["run_len"].sum(1)
 
     def run(run_len):
@@ -80,20 +86,20 @@ def ell_tail(label: str, prep: dict, x: torch.Tensor, op: str,
 
     return dict(label=label, groups=group_len.numel(),
                 mean_group_positions=float(group_len.float().mean()),
-                tail_groups=k,
+                tail_groups=TAIL_GROUPS,
                 tail_positions=int(tail.sum()),
                 longest_group_positions=int(group_len.max()),
                 full_ms=_events_ms(run(prep["run_len"])),
                 bulk_ms=_events_ms(run(bulk)), tail_ms=_events_ms(run(tail)))
 
 
-def profile_bfs(s, prep: dict, roots, reps: int) -> dict:
+def profile_bfs(s, prep: dict, roots) -> dict:
     def batch():
         return bfs_batch_pull_big(s, roots, prep=prep)
 
     batch()
     walls = []
-    for _ in range(reps):
+    for _ in range(BFS_REPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         batch()
@@ -123,9 +129,6 @@ def profile_bfs(s, prep: dict, roots, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--scale", type=int, default=21)
-    ap.add_argument("--tail", type=int, default=64)
-    ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_spmm_bfs: needs a CUDA device", file=sys.stderr)
@@ -135,28 +138,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps(dict(card=card, scale=args.scale, seed=args.seed)),
+    print(json.dumps(dict(card=card, scale=GRAPH_SCALE, seed=args.seed)),
           flush=True)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    a = rmat_matrix(gen, args.scale, 16)
-    s = rmat_matrix(gen, args.scale, 16, symmetrize=True,
-                    remove_self_loops=True)
-    x = torch.rand((a.shape[1], 128), generator=gen, device=dev)
-    spmm_prep = ell_blocked_prepare(a, 1)
+    g = spmm_bfs_graphs(args.seed, dev)
+    s = g["s"]
+    spmm_prep = ell_blocked_prepare(g["a"], 1)
     bfs_prep = ell_blocked_prepare(s, 6, relabel_cols=True, binary=True)
-    n_pad = bfs_prep["n_pad"]
-    f = torch.where(torch.rand((n_pad, 128), generator=gen, device=dev) < 0.1,
-                    torch.randint(1, s.shape[0] + 1, (n_pad, 128),
-                                  generator=gen, device=dev).float(), 0.0)
-    rows = [ell_tail("spmm nb=1 sum d=128", spmm_prep, x, "sum", args.tail),
-            ell_tail("bfs nb=6 max d=128", bfs_prep, f, "max", args.tail)]
+    f = bfs_frontier(bfs_prep["n_pad"], s.shape[0], dev)
+    rows = [ell_tail("spmm nb=1 sum d=128", spmm_prep, g["x"], "sum"),
+            ell_tail("bfs nb=6 max d=128", bfs_prep, f, "max")]
     for r in rows:
         print(json.dumps(r), flush=True)
-    rp = s.row_ptr()
-    cand = torch.nonzero(rp[1:] > rp[:-1]).reshape(-1).cpu().numpy()
-    roots = np.random.default_rng(args.seed).choice(
-        cand, size=min(64, len(cand)), replace=False)
-    bfs = profile_bfs(s, bfs_prep, roots, args.reps)
+    bfs = profile_bfs(s, bfs_prep, bfs_roots(s, args.seed))
     print(json.dumps({k: v for k, v in bfs.items() if k != "by_name"}),
           flush=True)
     for name, ms in list(bfs.get("by_name", {}).items())[:10]:
@@ -164,7 +157,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_spmm_bfs.json"),
               "w") as fh:
-        json.dump(dict(card=card, scale=args.scale, seed=args.seed, ell=rows,
+        json.dump(dict(card=card, scale=GRAPH_SCALE, seed=args.seed, ell=rows,
                        bfs=bfs), fh, indent=1)
     return 0
 

@@ -1,0 +1,70 @@
+"""The shared data of the SpMM/BFS runs (``gen/graph500.py``) at a small
+scale on the CPU: the same seed gives the same graphs, frontier and roots;
+the BFS graph is symmetric and loop-free; every root has an edge."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from combblas_tpu_torch.gen.graph500 import (  # noqa: E402
+    bfs_frontier,
+    bfs_roots,
+    spmm_bfs_graphs,
+)
+
+CPU = torch.device("cpu")
+SCALE = 8
+
+
+def _dense(a):
+    nnz = int(a.nnz)
+    d = np.zeros(a.shape, np.float32)
+    np.add.at(d, (a.row[:nnz].numpy(), a.col[:nnz].numpy()),
+              a.val[:nnz].numpy())
+    return d
+
+
+@pytest.mark.parametrize("seed", [0, 42])
+def test_spmm_bfs_graphs(seed):
+    g = spmm_bfs_graphs(seed, CPU, SCALE)
+    again = spmm_bfs_graphs(seed, CPU, SCALE)
+    n = 1 << SCALE
+    assert g["a"].shape == g["s"].shape == (n, n)
+    for k in ("x", "x8"):
+        assert torch.equal(g[k], again[k])
+        assert g[k].dtype == torch.float32
+        assert bool(((g[k] >= 0) & (g[k] < 1)).all())
+    assert g["x"].shape == (n, 128) and g["x8"].shape == (n, 8)
+    a, s = _dense(g["a"]), _dense(g["s"])
+    np.testing.assert_array_equal(a, _dense(again["a"]))
+    np.testing.assert_array_equal(s, _dense(again["s"]))
+    # Graph500 edge factor 16 before duplicates are summed
+    assert a.sum() == 16 * n
+    np.testing.assert_array_equal(s, s.T)
+    assert not np.diag(s).any()
+    assert not np.array_equal(a != 0, s != 0)   # the next draw, not A's
+
+
+@pytest.mark.parametrize("d", [8, 128])
+def test_bfs_frontier(d):
+    n, n_pad = 1000, 1152
+    f = bfs_frontier(n_pad, n, CPU, d)
+    assert f.shape == (n_pad, d) and f.dtype == torch.float32
+    assert torch.equal(f, bfs_frontier(n_pad, n, CPU, d))
+    hit = f != 0
+    assert torch.equal(f[hit], f[hit].round())
+    assert float(f.min()) == 0 and float(f.max()) <= n
+    assert bool((f[hit] >= 1).all())
+    assert 0.08 < float(hit.float().mean()) < 0.12
+
+
+@pytest.mark.parametrize("k", [1, 64, 1 << 20])
+def test_bfs_roots(k):
+    s = spmm_bfs_graphs(3, CPU, SCALE)["s"]
+    deg = _dense(s).astype(bool).sum(1)
+    roots = bfs_roots(s, 3, k)
+    assert len(roots) == min(k, int((deg > 0).sum()))
+    assert len(set(roots.tolist())) == len(roots)
+    assert (deg[roots] > 0).all()
+    np.testing.assert_array_equal(roots, bfs_roots(s, 3, k))

@@ -62,3 +62,16 @@ def test_spmm_pallas_empty_and_dtype():
     half = spmm_pallas(_port(_case("small")),
                        torch.ones((12, 3), dtype=torch.float16))
     assert half.dtype == torch.float16
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 20])
+def test_spmm_pallas_plain_chunks(chunk, monkeypatch):
+    """The plain version folds the entries chunk by chunk; any chunk size
+    gives JAX's product, including chunks that split a row."""
+    import combblas_tpu_torch.ops.spmm_kernel as sk
+    monkeypatch.setattr(sk, "_PLAIN_CHUNK", chunk)
+    ja = _case("hub")
+    x = np.random.default_rng(3).random((ja.shape[1], 8)).astype(np.float32)
+    want = np.asarray(spmm_pallas_jax(ja, jnp.asarray(x), interpret=True))
+    got = spmm_pallas(_port(ja), torch.from_numpy(x), plain=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
