@@ -21,7 +21,17 @@ Phases, each raising on failure:
      ``spmm_pallas``, each checked against ``torch.sparse.mm``;
   8. BFS at full size: 64 roots on the same graph symmetrized, through
      ``bfs_batch_pull_big(nb=6)``, warm then timed; 4 roots validated
-     Graph500-style against the edge list, 2 held against the push BFS (K1).
+     Graph500-style against the edge list, 2 held against the push BFS (K1);
+  9. the chunk-padded expansion K5 against its plain version at the shape
+     of phase 10's A², for PLUS_TIMES, MIN_PLUS and MAX_SECOND;
+ 10. the narrow ``spgemm_pallas`` at full width: A² of the scale-15 G500
+     ef-16 R-MAT (the largest square A² whose packed keys fit int32) through
+     both routes, K5 -> sort -> K2 and K1 -> sort -> K2, equal to each other
+     slot for slot and to ``scipy.sparse`` on the host;
+ 11. the materialized ``spgemm_auto`` A² of the scale-17 G500 ef-16 R-MAT in
+     slabs of at most 2^27 products (``bench.py``'s ``bench_spgemm``): a
+     first call with estimate and retry, a timed call with the output sized
+     to nnz, checked against ``scipy.sparse``.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -47,7 +57,11 @@ import numpy as np
 import torch
 
 from combblas_tpu_torch.gen.graph500 import (
+    AUTO_FLOPS_CAP,
+    AUTO_SCALE,
     GRAPH_SCALE,
+    NARROW_SCALE,
+    a2_matrix,
     bfs_frontier,
     bfs_roots,
     spmm_bfs_graphs,
@@ -62,7 +76,15 @@ from combblas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
 from combblas_tpu_torch.ops.kernels.ell import ell_fold
-from combblas_tpu_torch.ops.spgemm import spgemm_flops
+from combblas_tpu_torch.ops.spgemm import (
+    _pallas_slab_plan,
+    round_capacity_frac,
+    spgemm_auto,
+    spgemm_flops,
+    spgemm_pallas,
+    spgemm_pallas_bounds,
+    stream_capacity,
+)
 from combblas_tpu_torch.ops.spgemm_seg import (
     seg2_prepare,
     seg2_step,
@@ -93,6 +115,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                 "combblas_tpu/ops/pallas/spmm_ell_blocked.py:178"),
     "spmm_coo": ("combblas_tpu_torch/csrc/spmm_coo.cu",
                  "combblas_tpu/ops/pallas/spmm_kernel.py:119"),
+    "expand_chunks_i32": ("combblas_tpu_torch/csrc/expand.cu",
+                          "combblas_tpu/ops/pallas/expand_kernel.py:574"),
 }
 #: The H100 SXM's published peaks: HBM bytes/s and float32 FLOP/s outside
 #: the tensor cores.
@@ -624,6 +648,212 @@ def bfs_full(g: dict, seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phases 9-11 --
+
+def check_expand_chunks(a) -> dict:
+    """Phase 9: K5 against its plain version on A²'s inputs (B = A), at
+    the chunk capacity ``spgemm_pallas_bounds`` gives phase 10: keys and
+    values bit for bit."""
+    b_rp = a.row_ptr()
+    chunk_cap, _ = spgemm_pallas_bounds(a, a)
+    stride = a.shape[1] + 1
+    args = (a.row, a.col, a.val, a.mask(), b_rp, a.col, a.val)
+    for sr in SEMIRINGS:
+        key, val = ke.expand_chunks(*args, sr, stride=stride,
+                                    chunk_cap=chunk_cap)
+        pkey, pval = ke.expand_chunks(*args, sr, stride=stride,
+                                      chunk_cap=chunk_cap, plain=True)
+        if not torch.equal(key, pkey):
+            raise AssertionError(f"expand_chunks {sr.name}: keys differ")
+        if not torch.equal(val.view(torch.int32), pval.view(torch.int32)):
+            raise AssertionError(f"expand_chunks {sr.name}: values differ")
+    del key, val, pkey, pval
+    products = spgemm_flops(a, a)
+    ms = cuda_ms(lambda: ke.expand_chunks(*args, PLUS_TIMES, stride=stride,
+                                          chunk_cap=chunk_cap))
+    plain_ms = cuda_ms(lambda: ke.expand_chunks(
+        *args, PLUS_TIMES, stride=stride, chunk_cap=chunk_cap, plain=True),
+        reps=2)
+    # inputs: A's (row, col, val, valid), B's row pointer and the B entries
+    # that some A entry's row reaches; output: the whole chunk-padded
+    # stream, pads included; one multiply a product
+    k = a.shape[1]
+    hit = torch.zeros(k, dtype=torch.bool, device=a.device)
+    hit[a.col[:int(a.nnz)].long()] = True
+    touched = int((b_rp[1:] - b_rp[:-1])[hit].sum())
+    slots = chunk_cap * ke.CH
+    b = bound(a.capacity * 13 + b_rp.numel() * 8 + touched * 8 + slots * 8,
+              products)
+    log(f"  expand_chunks: {products} products in {slots} slots "
+        f"(chunk_cap {chunk_cap}), exact for {[s.name for s in SEMIRINGS]}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']}); library: none (no "
+        f"single PyTorch call expands products)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                products=products, slots=slots, chunk_cap=chunk_cap, **b)
+
+
+def _scipy_square(a):
+    """A @ A by ``scipy.sparse`` on the host from A's arrays, float64, with
+    sorted column indices, and its seconds."""
+    import scipy.sparse as sp
+
+    row, col, val, nnz, shape = a.to_numpy()
+    s = sp.csr_matrix((val[:nnz].astype(np.float64), (row[:nnz], col[:nnz])),
+                      shape=shape)
+    t = time.perf_counter()
+    c = s @ s
+    c.sort_indices()
+    return c, time.perf_counter() - t
+
+
+def check_against_scipy(c, ref, label: str) -> None:
+    """The port's C equals scipy's A @ A: nnz, per-row counts, columns and
+    values exact.  Every value is a sum of integer products; below 2^24
+    every float32 partial sum is exact, in any order."""
+    vmax = float(ref.data.max(initial=0.0))
+    if not vmax < 2 ** 24:
+        raise AssertionError(f"{label}: largest value {vmax} is not below "
+                             "2^24, so float32 sums are not exact")
+    row, col, val, nnz, shape = c.to_numpy()
+    if nnz != ref.nnz:
+        raise AssertionError(f"{label}: nnz {nnz} vs scipy {ref.nnz}")
+    counts = np.bincount(row[:nnz], minlength=shape[0])
+    if not np.array_equal(counts, np.diff(ref.indptr)):
+        raise AssertionError(f"{label}: per-row counts differ from scipy")
+    if not np.array_equal(col[:nnz], ref.indices):
+        raise AssertionError(f"{label}: columns differ from scipy")
+    if not np.array_equal(val[:nnz].astype(np.float64), ref.data):
+        raise AssertionError(f"{label}: values differ from scipy")
+    if not ((row[nnz:] == shape[0]).all() and (col[nnz:] == shape[1]).all()
+            and (val[nnz:] == 0).all()):
+        raise AssertionError(f"{label}: pads past nnz are not (m, n, 0)")
+
+
+def _best_secs(fn, reps: int = 3):
+    """Best host-clock seconds of ``reps`` synchronised calls after a warm
+    one; the last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return min(times), times, out
+
+
+def narrow_full(a) -> dict:
+    """Phase 10: A² through ``spgemm_pallas`` without ``stream_cap`` (K5
+    -> sort -> K2) and with it (K1 -> sort -> K2); the launch counts of one
+    call of each route, read around that call alone."""
+    flops = spgemm_flops(a, a)
+    chunk_cap, out_cap = spgemm_pallas_bounds(a, a)
+    routes = {"k5": dict(), "k1": dict(stream_cap=stream_capacity(flops))}
+    want = {"k5": {"expand_chunks_i32": 1, "compress_i32": 1},
+            "k1": {"expand_i32": 1, "compress_i32": 1}}
+    out, cs = dict(nnz_a=int(a.nnz), flops=flops, chunk_cap=chunk_cap,
+                   out_capacity=out_cap), {}
+    for name, kw in routes.items():
+        def run(kw=kw):
+            return spgemm_pallas(a, a, chunk_cap=chunk_cap,
+                                 out_capacity=out_cap, **kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        cs[name] = run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        if launches != want[name]:
+            raise AssertionError(f"spgemm_pallas {name} launched {launches}")
+        secs, times, _c = _best_secs(run)
+        stream = (chunk_cap * ke.CH if name == "k5"
+                  else kw["stream_cap"])
+        out[name] = dict(secs=secs, times=times, products_per_s=flops / secs,
+                         stream=stream, stream_per_product=stream / flops,
+                         launches=launches)
+        del _c
+        log(f"  spgemm_pallas {name}: best {secs:.4f} s of {times}, "
+            f"{flops / secs:.4g} products/s, stream {stream} = "
+            f"{stream / flops:.3f} x products, launches {launches}")
+    k5, k1 = cs["k5"], cs["k1"]
+    if not (int(k5.nnz) == int(k1.nnz) and torch.equal(k5.row, k1.row)
+            and torch.equal(k5.col, k1.col) and torch.equal(k5.val, k1.val)):
+        raise AssertionError("spgemm_pallas: the K5 and K1 routes differ")
+    ref, sp_secs = _scipy_square(a)
+    check_against_scipy(k1, ref, "spgemm_pallas")
+    out.update(nnz_c=int(k1.nnz), scipy_secs=sp_secs)
+    log(f"  nnz(A) {int(a.nnz)}, {flops} products, nnz(A²) {int(k1.nnz)}; "
+        f"both routes equal slot for slot and equal scipy (nnz, per-row "
+        f"counts, columns, values; scipy took {sp_secs:.1f} s)")
+    return out
+
+
+def auto_full(a) -> dict:
+    """Phase 11: ``spgemm_auto`` as ``bench_spgemm`` runs it: one call with
+    the estimate and retry, then calls with ``out_capacity =
+    round_capacity_frac(nnz)``: one warm, two timed, each of which must
+    launch the expansion and the compress once a slab."""
+    flops = spgemm_flops(a, a)
+    plan = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    c = spgemm_auto(a, a, max_flops_cap=AUTO_FLOPS_CAP, plan=plan)
+    nnz = int(c.nnz)
+    first_secs = time.perf_counter() - t
+    first = dict(LAUNCHES)
+    del c
+    if plan["kind"] != "pallas_slabs":
+        raise AssertionError(f"spgemm_auto took the {plan['kind']} route")
+    bounds = _pallas_slab_plan(a, a, plan["num_slabs"], wide=plan["wide"])[0]
+    slabs = len(bounds) - 1
+    tag = "i64" if plan["wide"] else "i32"
+    calls = first[f"compress_{tag}"] // slabs
+    tight = round_capacity_frac(nnz)
+
+    def run():
+        return spgemm_auto(a, a, max_flops_cap=AUTO_FLOPS_CAP,
+                           out_capacity=tight)
+
+    run()                                                   # warm
+    want = {f"expand_{tag}": slabs, f"compress_{tag}": slabs}
+    times, c = [], None
+    for _ in range(2):
+        c = None                      # release the last C before the next
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        c = run()
+        nnz_t = int(c.nnz)                                  # scalar sync
+        times.append(time.perf_counter() - t)
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        if launches != want:
+            raise AssertionError(f"spgemm_auto launched {launches}, want "
+                                 f"{want}")
+        if nnz_t != nnz:
+            raise AssertionError(f"nnz {nnz_t} with out_capacity {tight}, "
+                                 f"{nnz} before")
+    secs = min(times)
+    peak = torch.cuda.max_memory_allocated()
+    ref, sp_secs = _scipy_square(a)
+    check_against_scipy(c, ref, "spgemm_auto")
+    out = dict(nnz_a=int(a.nnz), flops=flops, nnz_c=nnz, kind=plan["kind"],
+               num_slabs=plan["num_slabs"], slabs=slabs, wide=plan["wide"],
+               first_call_attempts=calls, retries=calls - 1,
+               first_secs=first_secs, first_launches=first,
+               out_capacity=tight, secs=secs, times=times,
+               products_per_s=flops / secs, launches=launches,
+               peak_mem_gb=peak / 2**30, scipy_secs=sp_secs)
+    log(f"  plan {plan['kind']}: {plan['num_slabs']} slabs asked, {slabs} "
+        f"run (wide {plan['wide']}); first call {first_secs:.2f} s with "
+        f"{calls - 1} retries; timed {times} s -> {flops / secs:.4g} "
+        f"products/s; nnz(A) {int(a.nnz)}, {flops} products, nnz(A²) {nnz}; "
+        f"peak {peak / 2**30:.2f} GiB; launches {launches}; equals scipy "
+        f"(scipy took {sp_secs:.1f} s)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -704,10 +934,39 @@ def main() -> int:
     del graphs
     torch.cuda.empty_cache()
 
+    # 9. K5 vs its plain version at phase 10's shape
+    t = time.perf_counter()
+    log(f"phase 9: expand_chunks (K5) vs plain, scale-{NARROW_SCALE} A²")
+    a15 = a2_matrix(args.seed, dev, NARROW_SCALE)
+    k9 = check_expand_chunks(a15)
+    torch.cuda.empty_cache()
+    phase_secs["9"] = time.perf_counter() - t
+
+    # 10. narrow spgemm_pallas, both routes
+    t = time.perf_counter()
+    log(f"phase 10: spgemm_pallas A², scale-{NARROW_SCALE} G500 ef-16")
+    narrow_line = narrow_full(a15)
+    log(json.dumps(dict(narrow_line, scale=NARROW_SCALE)))
+    del a15
+    torch.cuda.empty_cache()
+    phase_secs["10"] = time.perf_counter() - t
+
+    # 11. materialized spgemm_auto in slabs
+    t = time.perf_counter()
+    log(f"phase 11: spgemm_auto A², scale-{AUTO_SCALE} G500 ef-16, "
+        f"max_flops_cap 2^{AUTO_FLOPS_CAP.bit_length() - 1}")
+    torch.cuda.reset_peak_memory_stats()
+    auto_line = auto_full(a2_matrix(args.seed, dev, AUTO_SCALE))
+    log(json.dumps(dict(auto_line, scale=AUTO_SCALE)))
+    torch.cuda.empty_cache()
+    phase_secs["11"] = time.perf_counter() - t
+
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
-                    ell_max=bfs_line["ell_max_launches"])
-    measured = dict(k3)
+                    ell_max=bfs_line["ell_max_launches"],
+                    expand_chunks_i32=narrow_line["k5"]["launches"][
+                        "expand_chunks_i32"])
+    measured = dict(k3, expand_chunks_i32=k9)
     for name, rows in k6.items():
         measured[name] = dict(rows[0], max_abs_err=max(
             r["max_abs_err"] for r in rows))
@@ -723,7 +982,8 @@ def main() -> int:
     phase_secs["all"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps(phase_secs)}")
     details.update(kernels=kernels, phase3=k3, phase6=k6, spmm=spmm_line,
-                   bfs=bfs_line, phase_secs=phase_secs)
+                   bfs=bfs_line, phase9=k9, narrow=narrow_line,
+                   auto=auto_line, phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

@@ -1,11 +1,11 @@
 """SpCOO — capacity-padded coordinate triples (port of ``combblas_tpu/ops/coo.py``).
 
-Only the subset the seg2 SpGEMM slice needs.  The container keeps the JAX
-package's contract: ``row``/``col``/``val`` have a fixed ``capacity``; the
-first ``nnz`` entries are real and row-major (row, col) sorted, the rest are
-sentinels ``(m, n, 0)`` that sort after every real entry.  ``row``/``col``
-stay int32 (so the numpy bridge is exact); ``nnz`` is a 0-d int64 tensor on
-the matrix's device, so device code never has to sync to read it.
+The container keeps the JAX package's contract: ``row``/``col``/``val``
+have a fixed ``capacity``; the first ``nnz`` entries are real and row-major
+(row, col) sorted, the rest are sentinels ``(m, n, 0)`` that sort after
+every real entry.  ``row``/``col`` stay int32 (so the numpy bridge is
+exact); ``nnz`` is a 0-d int64 tensor on the matrix's device, so device
+code never has to sync to read it.
 """
 
 from __future__ import annotations
@@ -18,7 +18,31 @@ import torch
 
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
-__all__ = ["SpCOO", "compress_sorted"]
+__all__ = ["SpCOO", "sort_coo", "compress_sorted", "sort_compress_packed",
+           "sort_compress", "merge", "row_split", "row_concat", "find"]
+
+
+def find(a: "SpCOO"):
+    """Matlab-style ``[i, j, v] = find(A)``: the live triples as host numpy
+    arrays (the JAX ``find``), ready for :meth:`SpCOO.from_arrays`."""
+    row, col, val, nnz, _shape = a.to_numpy()
+    return row[:nnz], col[:nnz], val[:nnz]
+
+
+def _pair_key(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """One int64 key that orders exactly as the int32 pair (row, col)."""
+    return (row.long() << 32) + (col.long() + (1 << 31))
+
+
+def _sort_pairs(row, col, *rest):
+    """Stable sort of (row, col, *rest) by the pair (row, col), as the JAX
+    package's ``lax.sort(..., num_keys=2)``."""
+    order = torch.sort(_pair_key(row, col), stable=True)[1]
+    return tuple(t[order] for t in (row, col, *rest))
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
 
 
 def _round_capacity(n: int) -> int:
@@ -93,6 +117,28 @@ class SpCOO:
                                  capacity=capacity, device=device)
 
     @staticmethod
+    def eye(n: int, value=1.0, dtype=torch.float32,
+            capacity: int | None = None, device=None) -> "SpCOO":
+        """Sparse identity scaled by ``value``, in O(n)."""
+        idx = np.arange(n, dtype=np.int32)
+        return SpCOO.from_arrays(idx, idx, np.full((n,), value, np.float32),
+                                 (n, n), capacity=capacity,
+                                 sum_duplicates=False,
+                                 dtype=_np_dtype(dtype), device=device)
+
+    @staticmethod
+    def empty(shape: Tuple[int, int], capacity: int = 8,
+              dtype=torch.float32, device=None) -> "SpCOO":
+        m, n = shape
+        return SpCOO(
+            row=torch.full((capacity,), m, dtype=torch.int32, device=device),
+            col=torch.full((capacity,), n, dtype=torch.int32, device=device),
+            val=torch.zeros(capacity, dtype=dtype, device=device),
+            nnz=torch.zeros((), dtype=torch.int64, device=device),
+            shape=(int(m), int(n)),
+        )
+
+    @staticmethod
     def from_numpy(row, col, val, nnz: int, shape: Tuple[int, int],
                    device=None) -> "SpCOO":
         """The numpy bridge: padded arrays (as ``np.asarray`` of a JAX
@@ -132,6 +178,47 @@ class SpCOO:
         bounds = torch.arange(m + 1, dtype=self.row.dtype, device=self.device)
         ptr = torch.searchsorted(self.row, bounds, side="left")
         return torch.minimum(ptr, self.nnz)
+
+    def transpose(self) -> "SpCOO":
+        """(n, m) transpose: swap the coordinates and re-sort."""
+        m, n = self.shape
+        valid = self.mask()
+        t = SpCOO(row=torch.where(valid, self.col, n).to(torch.int32),
+                  col=torch.where(valid, self.row, m).to(torch.int32),
+                  val=self.val, nnz=self.nnz, shape=(n, m))
+        return sort_coo(t)
+
+    def astype(self, dtype: torch.dtype) -> "SpCOO":
+        return dataclasses.replace(self, val=self.val.to(dtype))
+
+    def with_capacity(self, capacity: int) -> "SpCOO":
+        """Grow the padding with (m, n, 0) sentinels, or cut the buffer (nnz
+        saturates at the new capacity)."""
+        m, n = self.shape
+        cap = self.capacity
+        if capacity == cap:
+            return self
+        if capacity < cap:
+            return SpCOO(row=self.row[:capacity], col=self.col[:capacity],
+                         val=self.val[:capacity],
+                         nnz=torch.clamp(self.nnz, max=capacity),
+                         shape=self.shape)
+        pad = capacity - cap
+        dev = self.device
+        return SpCOO(
+            row=torch.cat([self.row, torch.full((pad,), m, dtype=torch.int32,
+                                                device=dev)]),
+            col=torch.cat([self.col, torch.full((pad,), n, dtype=torch.int32,
+                                                device=dev)]),
+            val=torch.cat([self.val, torch.zeros(pad, dtype=self.val.dtype,
+                                                 device=dev)]),
+            nnz=self.nnz, shape=self.shape)
+
+
+def sort_coo(a: SpCOO) -> SpCOO:
+    """Restore the (row, col) sorted invariant (stable, as ``lax.sort``)."""
+    row, col, val = _sort_pairs(a.row, a.col, a.val)
+    return dataclasses.replace(a, row=row, col=col, val=val)
 
 
 def compress_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -180,3 +267,94 @@ def compress_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     out_col.scatter_(0, seg_sc, torch.where(valid, col, n).to(torch.int32))
     return SpCOO(row=out_row[:out_cap], col=out_col[:out_cap], val=out_val,
                  nnz=nnz_out.to(torch.int64), shape=(int(m), int(n)))
+
+
+def row_split(a: SpCOO, nsplits: int) -> list:
+    """Split into ``nsplits`` row bands of ``ceil(m / nsplits)`` rows, rows
+    rebased band-local.  As in the JAX package, a band's pads carry the
+    band's row count and an empty band has shape (1, n)."""
+    m, n = a.shape
+    band = -(-m // nsplits)
+    rp = a.row_ptr()
+    idx = torch.arange(a.capacity, device=a.device)
+    zero = torch.zeros((), dtype=a.val.dtype, device=a.device)
+    out = []
+    for s in range(nsplits):
+        lo, hi = rp[min(s * band, m)], rp[min((s + 1) * band, m)]
+        src = torch.clamp(lo + idx, max=a.capacity - 1)
+        rows_here = min(band, m - s * band) if s * band < m else 0
+        sel = idx < (hi - lo)
+        out.append(SpCOO(
+            row=torch.where(sel, a.row[src] - s * band,
+                            rows_here).to(torch.int32),
+            col=torch.where(sel, a.col[src], n).to(torch.int32),
+            val=torch.where(sel, a.val[src], zero),
+            nnz=(hi - lo).to(torch.int64),
+            shape=(max(rows_here, 1), n)))
+    return out
+
+
+def row_concat(parts: list) -> SpCOO:
+    """Inverse of :func:`row_split`: stack the bands' rows and re-sort."""
+    n = parts[0].shape[1]
+    total_m = sum(p.shape[0] for p in parts)
+    rows, cols, vals = [], [], []
+    off = 0
+    for p in parts:
+        valid = p.mask()
+        rows.append(torch.where(valid, p.row + off, total_m).to(torch.int32))
+        cols.append(torch.where(valid, p.col, n).to(torch.int32))
+        vals.append(torch.where(valid, p.val, torch.zeros_like(p.val)))
+        off += p.shape[0]
+    row, col, val = _sort_pairs(torch.cat(rows), torch.cat(cols),
+                                torch.cat(vals))
+    nnz = sum(p.nnz for p in parts)
+    return SpCOO(row=row, col=col, val=val, nnz=nnz.to(torch.int64),
+                 shape=(total_m, n))
+
+
+def sort_compress_packed(key: torch.Tensor, v: torch.Tensor, nvalid,
+                         shape: Tuple[int, int], sr: Semiring = PLUS_TIMES,
+                         out_capacity: int | None = None) -> SpCOO:
+    """Sort a packed int32-key stream (``key = i*(n+1) + j``; pads must sort
+    after every real key) and fold duplicates: the stable sort, then
+    :func:`compress_sorted` on the unpacked pairs.  Slots past ``nnz`` are
+    (m, n, 0), as the JAX package decodes its pad key ``(m+1)*(n+1) - 1``;
+    ``nnz`` saturates at ``out_capacity``."""
+    stride = shape[1] + 1
+    key, order = torch.sort(key, stable=True)
+    return compress_sorted(key // stride, key % stride, v[order], nvalid,
+                           shape, sr=sr, out_capacity=out_capacity)
+
+
+def sort_compress(i: torch.Tensor, j: torch.Tensor, v: torch.Tensor, nvalid,
+                  shape: Tuple[int, int], sr: Semiring = PLUS_TIMES,
+                  out_capacity: int | None = None) -> SpCOO:
+    """Sort a sentinel-padded triple stream and fold duplicates — the ESC
+    back-end.  Packed int32 keys when ``(m+1)*(n+1) < 2^31``, else a sort
+    by the pair (i, j)."""
+    m, n = shape
+    out_cap = i.shape[0] if out_capacity is None else out_capacity
+    stride = n + 1  # the sentinel column n packs without collision
+    if (m + 1) * stride < (1 << 31):
+        key = i.to(torch.int32) * stride + j.to(torch.int32)
+        return sort_compress_packed(key, v, nvalid, shape, sr=sr,
+                                    out_capacity=out_cap)
+    i, j, v = _sort_pairs(i, j, v)
+    return compress_sorted(i, j, v, nvalid, shape, sr=sr,
+                           out_capacity=out_cap)
+
+
+def merge(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES,
+          out_capacity: int | None = None) -> SpCOO:
+    """Merge two matrices of one shape, folding duplicates with the
+    semiring add: concatenate, sort, compress."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {a.shape} vs {b.shape}")
+    row, col, val = _sort_pairs(torch.cat([a.row, b.row]),
+                                torch.cat([a.col, b.col]),
+                                torch.cat([a.val, b.val]))
+    out_cap = (out_capacity if out_capacity is not None
+               else a.capacity + b.capacity)
+    return compress_sorted(row, col, val, a.nnz + b.nnz, a.shape, sr=sr,
+                           out_capacity=out_cap)

@@ -6,7 +6,7 @@ the CUDA kernel (never the plain version): a run reads it to show that its
 main path went through the kernels.
 """
 
-LAUNCHES = {"expand_i32": 0, "expand_i64": 0,
+LAUNCHES = {"expand_i32": 0, "expand_i64": 0, "expand_chunks_i32": 0,
             "compress_i32": 0, "compress_i64": 0,
             "ell_sum": 0, "ell_max": 0, "spmm_coo": 0}
 

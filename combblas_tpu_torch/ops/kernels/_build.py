@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every ``combblas_tpu_torch/csrc/*.cu`` is compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, placed in ``combblas_tpu_torch/_build/`` (listed in
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
+started together, and the objects are linked into one shared library with a
+plain C interface, placed in ``combblas_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed on a hash of the sources and flags, and
 loaded with ``ctypes``.  Pointers and the stream are passed as ``c_void_p``
 and sizes as ``c_int64``; every entry point returns ``cudaGetLastError()``,
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,6 +39,9 @@ _SIGNATURES = {
                        _P, _P, _I64, _P],
     "cbt_expand_i64": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
                        _P, _P, _I64, _P],
+    # as above, offs counting 128-slot chunks
+    "cbt_expand_chunks_i32": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
+                              _P, _P, _I64, _P],
     # key, n, block_counts, stream
     "cbt_compress_count_i32": [_P, _I64, _P, _P],
     "cbt_compress_count_i64": [_P, _I64, _P, _P],
@@ -69,6 +73,41 @@ def _nvcc() -> str:
     return path
 
 
+def _compile_and_link(so: Path) -> None:
+    """nvcc every source to an object in parallel, then link ``so``; the
+    commands and compiler output go to ``build.log``."""
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:  # wait for every job, failed or not
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = so.with_name(f"{tag}.so.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(obj) for _c, obj, _p in jobs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for _cmd, obj, _proc in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _lib, build_seconds
@@ -81,17 +120,8 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libcombblas_torch_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in _sources() if p.suffix == ".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so)
+        _compile_and_link(so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -1,15 +1,19 @@
-"""ESC expansion: the CUDA kernel ``csrc/expand.cu`` and its plain version.
+"""ESC expansion: the CUDA kernels ``csrc/expand.cu`` and their plain
+versions.
 
 Counterpart of ``combblas_tpu/ops/pallas/expand_kernel.py``:
 :func:`expand_chunks_compact` (int32 keys) replaces ``expand_chunks_compact``
-(K1) and :func:`expand_chunks_compact_wide` (int64 keys) replaces
-``expand_chunks_compact_wide`` (K3).  For every live A entry (i, k, a_ik), in
-A-entry order, one product per entry (k, j, b_kj) of B's row k:
-``key = i*stride + j`` and ``val = mul(a_ik, b_kj)`` in f32, compacted with
-no gaps.  Slots past the total hold the key sentinel (INT32_MAX / INT64_MAX)
-and 0.  Write offsets come from an exclusive scan of the per-entry counts
-``b_rp[k+1] - b_rp[k]``, which replaces the TPU kernel's chunk table
-(``build_chunk_meta``) and B's 128-lane tables.
+(K1), :func:`expand_chunks_compact_wide` (int64 keys) replaces
+``expand_chunks_compact_wide`` (K3) and :func:`expand_chunks` (int32 keys,
+chunk-padded) replaces ``expand_chunks`` (K5).  For every live A entry
+(i, k, a_ik), in A-entry order, one product per entry (k, j, b_kj) of B's
+row k: ``key = i*stride + j`` and ``val = mul(a_ik, b_kj)`` in f32.  The
+compacted kernels write the products with no gaps; K5 gives each A entry
+``ceil(cnt/128)`` whole 128-slot chunks.  Every slot no product reaches holds
+the key sentinel (INT32_MAX / INT64_MAX) and 0.  Write offsets come from an
+exclusive scan of the per-entry counts (or chunk counts, for K5), which
+replaces the TPU kernels' chunk table (``build_chunk_meta``) and B's
+128-lane tables.
 """
 
 from __future__ import annotations
@@ -20,46 +24,73 @@ from combblas_tpu_torch.ops.kernels import LAUNCHES, _build
 from combblas_tpu_torch.semiring import Semiring
 
 __all__ = ["expand_chunks_compact", "expand_chunks_compact_wide",
-           "expand_plain", "KEY_SENTINEL"]
+           "expand_chunks", "expand_plain", "expand_chunks_plain",
+           "KEY_SENTINEL", "CH"]
 
 KEY_SENTINEL = {torch.int32: torch.iinfo(torch.int32).max,
                 torch.int64: torch.iinfo(torch.int64).max}
+#: Slots per chunk of the chunk-padded stream (the TPU's lane width).
+CH = 128
 
 
-def _entry_offsets(a_col, a_valid, b_rp):
-    """Exclusive scan of per-A-entry product counts: int64[n_a + 1]."""
+def _entry_counts(a_col, a_valid, b_rp):
+    """Products of each A entry: int64[n_a], 0 for dead entries."""
     kk = b_rp.shape[0] - 1
     acol = torch.clamp(a_col.long(), max=kk - 1)
-    cnt = torch.where(a_valid, b_rp[acol + 1] - b_rp[acol], 0)
+    return torch.where(a_valid, b_rp[acol + 1] - b_rp[acol], 0)
+
+
+def _exclusive_scan(cnt):
+    """int64[n + 1] offsets: 0, cnt[0], cnt[0] + cnt[1], ..."""
     offs = torch.zeros(cnt.shape[0] + 1, dtype=torch.int64,
                        device=cnt.device)
     torch.cumsum(cnt, 0, out=offs[1:])
     return offs
 
 
-def expand_plain(a_row, a_col, a_val, offs, b_rp, b_col, b_val,
-                 sr: Semiring, stride: int, out_key, out_val) -> None:
-    """Plain PyTorch expansion (``repeat_interleave`` and a gather) into the
-    pre-filled ``out_key`` / ``out_val``; products past their capacity are
-    dropped."""
-    n_a = a_row.shape[0]
-    cnt = offs[1:] - offs[:-1]
-    total = int(offs[-1])
-    e = torch.repeat_interleave(torch.arange(n_a, device=a_row.device), cnt,
-                                output_size=total)
-    pos = torch.arange(total, device=a_row.device) - offs[:-1][e]
+def _plain_products(a_row, a_col, a_val, cnt, b_rp, b_col, b_val,
+                    sr: Semiring, stride: int, key_dtype):
+    """Every product in A-entry order (``repeat_interleave`` and a gather):
+    (key, val, its A entry, its position in that entry's B row)."""
+    dev = a_row.device
+    total = int(cnt.sum())
+    e = torch.repeat_interleave(torch.arange(a_row.shape[0], device=dev),
+                                cnt, output_size=total)
+    start = torch.cumsum(cnt, 0) - cnt
+    pos = torch.arange(total, device=dev) - start[e]
     bidx = b_rp[a_col[e].long()] + pos
-    kd = out_key.dtype
-    key = a_row[e].to(kd) * stride + b_col[bidx].to(kd)
-    val = sr.mul(a_val[e], b_val[bidx])
-    t = min(total, out_key.shape[0])
+    key = a_row[e].to(key_dtype) * stride + b_col[bidx].to(key_dtype)
+    return key, sr.mul(a_val[e], b_val[bidx]), e, pos
+
+
+def expand_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val,
+                 sr: Semiring, stride: int, out_key, out_val) -> None:
+    """Plain PyTorch compacted expansion into the pre-filled ``out_key`` /
+    ``out_val``; products past their capacity are dropped."""
+    key, val, _e, _pos = _plain_products(a_row, a_col, a_val, cnt, b_rp,
+                                         b_col, b_val, sr, stride,
+                                         out_key.dtype)
+    t = min(key.shape[0], out_key.shape[0])
     out_key[:t] = key[:t]
     out_val[:t] = val[:t]
 
 
-def _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr: Semiring,
-            *, stride: int, stream_cap: int, key_dtype: torch.dtype,
-            plain: bool):
+def expand_chunks_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val,
+                        sr: Semiring, stride: int, out_key, out_val) -> None:
+    """Plain PyTorch chunk-padded expansion (K5) into the pre-filled
+    ``out_key`` / ``out_val``: A entry e's product l lands in slot
+    ``128 * ch_start[e] + l``; slots past the capacity are dropped."""
+    key, val, e, pos = _plain_products(a_row, a_col, a_val, cnt, b_rp,
+                                       b_col, b_val, sr, stride,
+                                       out_key.dtype)
+    nch = -(-cnt // CH)
+    slot = CH * (torch.cumsum(nch, 0) - nch)[e] + pos
+    keep = slot < out_key.shape[0]
+    out_key[slot[keep]] = key[keep]
+    out_val[slot[keep]] = val[keep]
+
+
+def _check_inputs(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val):
     dev = a_row.device
     for name, t, dt in (("a_row", a_row, torch.int32),
                         ("a_col", a_col, torch.int32),
@@ -76,32 +107,48 @@ def _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr: Semiring,
             raise ValueError(f"{name} must be contiguous")
         if t.dim() != 1:
             raise ValueError(f"{name} must be 1-D")
-    if stream_cap < 1:
-        raise ValueError(f"stream_cap must be positive, got {stream_cap}")
     if not (a_row.shape == a_col.shape == a_val.shape == a_valid.shape):
         raise ValueError("A's row/col/val/valid differ in length")
-    out_key = torch.full((stream_cap,), KEY_SENTINEL[key_dtype],
-                         dtype=key_dtype, device=dev)
-    out_val = torch.zeros(stream_cap, dtype=torch.float32, device=dev)
-    offs = _entry_offsets(a_col, a_valid, b_rp)
-    total = offs[-1]
-    if dev.type == "cpu" or plain:
-        expand_plain(a_row, a_col, a_val, offs, b_rp, b_col, b_val, sr,
-                     stride, out_key, out_val)
-        return out_key, out_val, total
+
+
+def _launch(entry: str, counter: str, a_row, a_col, a_val, offs, b_rp,
+            b_col, b_val, sr: Semiring, stride: int, out_key, out_val):
+    """Launch one ``csrc/expand.cu`` entry point on the tensors' card."""
+    dev = a_row.device
     if dev.type != "cuda":
         raise ValueError(f"no expansion kernel for device {dev}")
     lib = _build.library()
-    tag = "i32" if key_dtype == torch.int32 else "i64"
-    fn = getattr(lib, f"cbt_expand_{tag}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a_row.data_ptr(), a_col.data_ptr(), a_val.data_ptr(),
-                 offs.data_ptr(), a_row.shape[0], b_rp.data_ptr(),
-                 b_col.data_ptr(), b_val.data_ptr(), stride, sr.mul_code,
-                 out_key.data_ptr(), out_val.data_ptr(), stream_cap, stream)
-    _build.check(lib, err, f"expand_{tag}")
-    LAUNCHES[f"expand_{tag}"] += 1
+        err = getattr(lib, entry)(
+            a_row.data_ptr(), a_col.data_ptr(), a_val.data_ptr(),
+            offs.data_ptr(), a_row.shape[0], b_rp.data_ptr(),
+            b_col.data_ptr(), b_val.data_ptr(), stride, sr.mul_code,
+            out_key.data_ptr(), out_val.data_ptr(), out_key.shape[0], stream)
+    _build.check(lib, err, counter)
+    LAUNCHES[counter] += 1
+
+
+def _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr: Semiring,
+            *, stride: int, stream_cap: int, key_dtype: torch.dtype,
+            plain: bool):
+    _check_inputs(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val)
+    if stream_cap < 1:
+        raise ValueError(f"stream_cap must be positive, got {stream_cap}")
+    dev = a_row.device
+    out_key = torch.full((stream_cap,), KEY_SENTINEL[key_dtype],
+                         dtype=key_dtype, device=dev)
+    out_val = torch.zeros(stream_cap, dtype=torch.float32, device=dev)
+    cnt = _entry_counts(a_col, a_valid, b_rp)
+    offs = _exclusive_scan(cnt)
+    total = offs[-1]
+    if dev.type == "cpu" or plain:
+        expand_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val, sr,
+                     stride, out_key, out_val)
+        return out_key, out_val, total
+    tag = "i32" if key_dtype == torch.int32 else "i64"
+    _launch(f"cbt_expand_{tag}", f"expand_{tag}", a_row, a_col, a_val, offs,
+            b_rp, b_col, b_val, sr, stride, out_key, out_val)
     return out_key, out_val, total
 
 
@@ -133,3 +180,35 @@ def expand_chunks_compact_wide(a_row, a_col, a_val, a_valid, b_rp, b_col,
     return _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr,
                    stride=stride, stream_cap=stream_cap,
                    key_dtype=torch.int64, plain=plain)
+
+
+def expand_chunks(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val,
+                  sr: Semiring, *, stride: int, chunk_cap: int,
+                  plain: bool = False):
+    """Chunk-padded expansion with int32 keys ``a_row*stride + b_col`` (K5).
+
+    A entry e's products fill ``ceil(cnt_e/128)`` consecutive 128-slot
+    chunks from chunk ``ch_start[e]`` (the exclusive scan of the chunk
+    counts in A-entry order); slots past a chunk's products and the dummy
+    chunks up to ``chunk_cap`` hold INT32_MAX / 0, and chunks past
+    ``chunk_cap`` are dropped.  The caller keeps ``(rows+1)*stride`` below
+    2^31.  Returns (key int32[chunk_cap*128], val f32[chunk_cap*128]),
+    equal to the JAX ``expand_chunks`` stream slot for slot.  CPU tensors,
+    or ``plain=True`` (the reference run), take :func:`expand_chunks_plain`;
+    CUDA tensors launch ``csrc/expand.cu``."""
+    _check_inputs(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val)
+    if chunk_cap < 1:
+        raise ValueError(f"chunk_cap must be positive, got {chunk_cap}")
+    dev = a_row.device
+    out_key = torch.full((chunk_cap * CH,), KEY_SENTINEL[torch.int32],
+                         dtype=torch.int32, device=dev)
+    out_val = torch.zeros(chunk_cap * CH, dtype=torch.float32, device=dev)
+    cnt = _entry_counts(a_col, a_valid, b_rp)
+    if dev.type == "cpu" or plain:
+        expand_chunks_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val, sr,
+                            stride, out_key, out_val)
+        return out_key, out_val
+    _launch("cbt_expand_chunks_i32", "expand_chunks_i32", a_row, a_col,
+            a_val, _exclusive_scan(-(-cnt // CH)), b_rp, b_col, b_val, sr,
+            stride, out_key, out_val)
+    return out_key, out_val

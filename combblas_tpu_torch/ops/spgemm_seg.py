@@ -368,7 +368,7 @@ def seg2_step(b: SpCOO, prep, s: int, state, sr: Semiring = PLUS_TIMES, *,
             a2, b, b_rp, bounds_dev, s, state, sr,
             span_cap=sl["s_pad"], slab_nnz_cap=sl["nnz_cap"],
             slab_out_cap=slab_out_cap, stream_cap=sl["flat_stream_cap"],
-            plain=plain)
+            wide=True, plain=plain)
     if sl["flops"] + sl["w"] > cfg["stream_cap"]:
         raise ValueError(f"slab {s}: windows of width {sl['w']} would read "
                          f"past the {cfg['stream_cap']}-element stream")

@@ -68,3 +68,17 @@ def test_bfs_roots(k):
     assert len(set(roots.tolist())) == len(roots)
     assert (deg[roots] > 0).all()
     np.testing.assert_array_equal(roots, bfs_roots(s, 3, k))
+
+
+def test_a2_matrix():
+    """The A² runs' matrix: G500 ef 16 from its own seed, summed duplicate
+    counts as values, the same draw as the SpMM graph of that seed."""
+    from combblas_tpu_torch.gen.graph500 import a2_matrix
+
+    a = a2_matrix(42, CPU, SCALE)
+    d = _dense(a)
+    np.testing.assert_array_equal(d, _dense(a2_matrix(42, CPU, SCALE)))
+    assert d.sum() == 16 * (1 << SCALE)
+    assert np.array_equal(d, d.round()) and d.max() > 1
+    np.testing.assert_array_equal(d, _dense(spmm_bfs_graphs(42, CPU,
+                                                            SCALE)["a"]))

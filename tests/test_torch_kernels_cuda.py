@@ -222,3 +222,110 @@ def test_spmm_bfs_slice_on_card(cuda):
         assert torch.equal(lv[i], pl)
         assert torch.equal(p[i], pp)
         assert validate_bfs(g, r, p[i], lv[i])
+
+
+@pytest.mark.parametrize("sr_name", ["plus_times", "min_plus", "max_second"])
+@pytest.mark.parametrize("chunk_cap", [None, 64])
+def test_expand_chunks_kernel_matches_plain(cuda, sr_name, chunk_cap):
+    """K5 on ragged B rows (0, 1, 127, 128, 129 entries and a hub row of
+    5000), dead A entries, and dummy chunks past the last live one (or, at
+    chunk_cap 64, chunks past the capacity dropped): exact."""
+    gen = torch.Generator().manual_seed(7)
+    lengths = torch.tensor([0, 1, 127, 128, 129, 5000])
+    deg = torch.cat([lengths, torch.randint(0, 300, (400,), generator=gen)])
+    k, n = deg.shape[0], 6000
+    b_rp = torch.zeros(k + 1, dtype=torch.int64)
+    b_rp[1:] = torch.cumsum(deg, 0)
+    b_col = torch.randint(0, n, (int(b_rp[-1]),), generator=gen,
+                          dtype=torch.int32)
+    b_val = torch.rand(b_col.shape[0], generator=gen) + 0.5
+    na = 3000
+    a_row = torch.sort(torch.randint(0, 300, (na,), generator=gen,
+                                     dtype=torch.int32))[0]
+    a_col = torch.randint(0, k, (na,), generator=gen, dtype=torch.int32)
+    a_col[:len(lengths)] = torch.arange(len(lengths), dtype=torch.int32)
+    a_val = torch.rand(na, generator=gen) - 0.5
+    valid = torch.arange(na) < na - 50
+    args = [t.to(cuda) for t in (a_row, a_col, a_val, valid, b_rp, b_col,
+                                 b_val)]
+    cnt = (b_rp[a_col.long() + 1] - b_rp[a_col.long()])[valid]
+    chunks = int((-(-cnt // 128)).sum())
+    cap = chunks + 100 if chunk_cap is None else chunk_cap
+    sr = tsr.get_semiring(sr_name)
+    before = LAUNCHES["expand_chunks_i32"]
+    key, val = texp.expand_chunks(*args, sr, stride=n + 1, chunk_cap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["expand_chunks_i32"] == before + 1
+    pk, pv = texp.expand_chunks(*args, sr, stride=n + 1, chunk_cap=cap,
+                                plain=True)
+    assert LAUNCHES["expand_chunks_i32"] == before + 1
+    assert key.shape == (cap * 128,)
+    assert torch.equal(key, pk)
+    assert torch.equal(val.view(torch.int32), pv.view(torch.int32))
+    if chunk_cap is None:         # the 100 dummy chunks are all pads
+        assert bool((key[chunks * 128:] == torch.iinfo(torch.int32).max)
+                    .all())
+
+
+@pytest.mark.parametrize("route", ["k5", "k1"])
+def test_spgemm_pallas_on_card_matches_plain(cuda, route):
+    """Both narrow routes of spgemm_pallas on the card against the plain
+    run, slot for slot (integer values: exact sums)."""
+    from combblas_tpu_torch.gen.rmat import rmat_matrix
+    from combblas_tpu_torch.ops.spgemm import (
+        spgemm_flops,
+        spgemm_pallas,
+        spgemm_pallas_bounds,
+        stream_capacity,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = rmat_matrix(gen, 11, 16)
+    chunk_cap, out_cap = spgemm_pallas_bounds(a, a)
+    kw = dict(chunk_cap=chunk_cap, out_capacity=out_cap)
+    if route == "k1":
+        kw["stream_cap"] = stream_capacity(spgemm_flops(a, a))
+    tag = "expand_chunks_i32" if route == "k5" else "expand_i32"
+    before = dict(LAUNCHES)
+    got = spgemm_pallas(a, a, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[tag] == before[tag] + 1
+    assert LAUNCHES["compress_i32"] == before["compress_i32"] + 1
+    want = spgemm_pallas(a, a, plain=True, **kw)
+    assert int(got.nnz) == int(want.nnz) > 0
+    for g, w in ((got.row, want.row), (got.col, want.col),
+                 (got.val, want.val)):
+        assert torch.equal(g, w)
+
+
+def test_spgemm_auto_takes_the_kernel_route(cuda):
+    """A product too wide for packed keys in one pass: spgemm_auto runs
+    slabs on the expansion and compress kernels, once a slab, and agrees
+    with the plain run of the same slabs."""
+    from combblas_tpu_torch.gen.rmat import rmat_matrix
+    from combblas_tpu_torch.ops.spgemm import (
+        _pallas_slab_plan,
+        spgemm_auto,
+        spgemm_pallas_rowchunked,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    a = rmat_matrix(gen, 16, 2)      # (m+1)*(n+1) >= 2^31: no single pass
+    plan = {}
+    before = dict(LAUNCHES)
+    c = spgemm_auto(a, a, max_flops_cap=1 << 20, plan=plan)
+    torch.cuda.synchronize()
+    assert plan["kind"] == "pallas_slabs"
+    tag = "i64" if plan["wide"] else "i32"
+    slabs = len(_pallas_slab_plan(a, a, plan["num_slabs"],
+                                  wide=plan["wide"])[0]) - 1
+    launched = LAUNCHES[f"expand_{tag}"] - before[f"expand_{tag}"]
+    assert launched > 0 and launched % slabs == 0
+    assert (LAUNCHES[f"compress_{tag}"] - before[f"compress_{tag}"]
+            == launched)
+    want = spgemm_pallas_rowchunked(a, a, num_slabs=plan["num_slabs"],
+                                    out_capacity=plan["out_cap"],
+                                    wide=plan["wide"], plain=True)
+    assert int(c.nnz) == int(want.nnz) > 0
+    for g, w in ((c.row, want.row), (c.col, want.col), (c.val, want.val)):
+        assert torch.equal(g, w)
