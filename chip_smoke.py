@@ -31,7 +31,20 @@ Phases, each raising on failure:
  11. the materialized ``spgemm_auto`` A² of the scale-17 G500 ef-16 R-MAT in
      slabs of at most 2^27 products (``bench.py``'s ``bench_spgemm``): a
      first call with estimate and retry, a timed call with the output sized
-     to nnz, checked against ``scipy.sparse``.
+     to nnz, checked against ``scipy.sparse``; its C stays on the card (as
+     sorted int64 keys row*n+col and values) as the reference of 13 and 14;
+ 12. the ring push K9 against its plain version, bit for bit: the 4x4 block
+     stacks of that A along both axes, phase 14's one launch that moves both
+     operands, and a 2^26-element stack, with kernel, plain and
+     ``torch.roll`` times;
+ 13. the distributed SUMMA on block grids on the card, A² of the same
+     matrix: ``summa_spgemm_auto`` on a 2x2 grid (the wide route, K3 and K4)
+     and a 4x4 grid (packed keys, K1 and K2), and ``summa_spgemm_staged`` on
+     the 4x4 grid with ``summa_bounds``' caps; each C, through ``to_local``,
+     equal to phase 11's C exactly;
+ 14. the ring SUMMA ``summa_spgemm_rma`` on the 4x4 grid (K9, p - 1 = 3
+     launches a call) and ``summa3d_spgemm`` on a (2, 2, 2) grid, each C
+     equal to phase 11's C exactly.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -76,6 +89,7 @@ from combblas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
 from combblas_tpu_torch.ops.kernels.ell import ell_fold
+from combblas_tpu_torch.ops.kernels.ring import ring_shift
 from combblas_tpu_torch.ops.spgemm import (
     _pallas_slab_plan,
     round_capacity_frac,
@@ -97,6 +111,9 @@ from combblas_tpu_torch.ops.spmm_ell_blocked import (
 )
 from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas
 from combblas_tpu_torch.ops.spmv import spmm
+from combblas_tpu_torch.parallel.dist import DistSpMat
+from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.profile_summa import grid_cells
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_PLUS, PLUS_TIMES
 
 SEMIRINGS = (PLUS_TIMES, MIN_PLUS, MAX_SECOND)
@@ -117,6 +134,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                  "combblas_tpu/ops/pallas/spmm_kernel.py:119"),
     "expand_chunks_i32": ("combblas_tpu_torch/csrc/expand.cu",
                           "combblas_tpu/ops/pallas/expand_kernel.py:574"),
+    "ring_shift": ("combblas_tpu_torch/csrc/ring.cu",
+                   "combblas_tpu/parallel/rma.py:47"),
 }
 #: The H100 SXM's published peaks: HBM bytes/s and float32 FLOP/s outside
 #: the tensor cores.
@@ -838,6 +857,8 @@ def auto_full(a) -> dict:
     peak = torch.cuda.max_memory_allocated()
     ref, sp_secs = _scipy_square(a)
     check_against_scipy(c, ref, "spgemm_auto")
+    c_ref = c_keys(c)
+    del c
     out = dict(nnz_a=int(a.nnz), flops=flops, nnz_c=nnz, kind=plan["kind"],
                num_slabs=plan["num_slabs"], slabs=slabs, wide=plan["wide"],
                first_call_attempts=calls, retries=calls - 1,
@@ -851,6 +872,157 @@ def auto_full(a) -> dict:
         f"products/s; nnz(A) {int(a.nnz)}, {flops} products, nnz(A²) {nnz}; "
         f"peak {peak / 2**30:.2f} GiB; launches {launches}; equals scipy "
         f"(scipy took {sp_secs:.1f} s)")
+    return out, c_ref
+
+
+# ---------------------------------------------------------- phases 12-14 --
+
+def c_keys(c):
+    """C's live entries as int64 keys ``row*n + col`` and values, on C's
+    device (sorted when C is)."""
+    nnz = int(c.nnz)
+    return (c.row[:nnz].long() * c.shape[1] + c.col[:nnz].long(),
+            c.val[:nnz])
+
+
+def check_against_ref(c, ref, label: str) -> None:
+    """A product equals phase 11's C (itself equal to scipy's): nnz, keys
+    and values exact."""
+    keys, vals = c_keys(c)
+    if keys.shape != ref[0].shape:
+        raise AssertionError(f"{label}: nnz {keys.shape[0]} vs phase 11's "
+                             f"{ref[0].shape[0]}")
+    if not torch.equal(keys, ref[0]):
+        raise AssertionError(f"{label}: entries differ from phase 11's C")
+    if not torch.equal(vals, ref[1]):
+        raise AssertionError(f"{label}: values differ from phase 11's C")
+
+
+def _bitwise_equal(got, want) -> bool:
+    return all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want))
+
+
+def _roll_all(stacks, axes):
+    """``torch.roll`` of every stack one block along its axis: the
+    yardstick, never used by the port."""
+    return [torch.roll(x, 1, dims=1 if ax == "c" else 0)
+            for x, ax in zip(stacks, axes)]
+
+
+def _time_ring(stacks, axes) -> dict:
+    """K9, its plain version and ``torch.roll`` on one set of stacks; the
+    bound is every byte read once and written once."""
+    nbytes = sum(x.numel() * x.element_size() for x in stacks)
+    out = dict(ms=cuda_ms(lambda: ring_shift(stacks, axes)),
+               plain_ms=cuda_ms(lambda: ring_shift(stacks, axes, plain=True),
+                                reps=2),
+               library_ms=cuda_ms(lambda: _roll_all(stacks, axes)),
+               bytes=nbytes, max_abs_err=0.0, **bound(2 * nbytes, 0))
+    out["share"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def check_ring(dm: DistSpMat, gen) -> dict:
+    """Phase 12: K9 against its plain version, bit for bit: A's 4x4 block
+    stacks (row ids, column ids, values, nnz) along each axis; phase 14's
+    launch (A's stacks along 'c' and B's along 'r' at once, B = A); and one
+    2^26-element float32 stack along each axis, whose bound share can be
+    read.  Each launch also equals ``torch.roll``."""
+    stacks = [dm.row, dm.col, dm.val, dm.nnz]
+    cases = {f"a_{ax}": (stacks, [ax] * 4) for ax in ("c", "r")}
+    cases["phase14"] = (stacks * 2, ["c"] * 4 + ["r"] * 4)
+    big = torch.rand((4, 4, 1 << 22), generator=gen, device=dm.row.device)
+    cases.update({f"big_{ax}": ([big], [ax]) for ax in ("c", "r")})
+    out = {}
+    for name, (srcs, axes) in cases.items():
+        got = ring_shift(srcs, axes)
+        if not _bitwise_equal(got, ring_shift(srcs, axes, plain=True)):
+            raise AssertionError(f"ring_shift {name}: kernel and plain differ")
+        if not _bitwise_equal(got, _roll_all(srcs, axes)):
+            raise AssertionError(f"ring_shift {name}: differs from roll")
+        del got
+        out[name] = _time_ring(srcs, axes)
+        r = out[name]
+        log(f"  ring_shift {name}: {len(srcs)} stacks, {r['bytes']} bytes, "
+            f"bit for bit; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.roll {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+            f"{100 * r['share']:.1f} %")
+    return out
+
+
+def _grid_call(label: str, run, ref, flops: int) -> dict:
+    """One warm call of ``run``, then two timed, the launch counts read
+    around each (they must agree); the last C, through ``to_local``, equal
+    to phase 11's C."""
+    c = run()
+    torch.cuda.synchronize()
+    del c
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, c = [], None, None
+    for _ in range(2):
+        c = None                      # release the last C before the next
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        c = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        if launches is not None and got != launches:
+            raise AssertionError(f"{label}: launches {got} then {launches}")
+        launches = got
+    peak = torch.cuda.max_memory_allocated()
+    nnz = c.nnz.reshape(-1)
+    out = dict(secs=min(times), times=times, products_per_s=flops / min(
+        times), launches=launches, peak_mem_gb=peak / 2**30,
+        capacity=c.row.shape[-1], block_nnz_max=int(nnz.max()),
+        block_nnz_min=int(nnz.min()),
+        imbalance=float(nnz.max().float() / nnz.float().mean()))
+    local = c.to_local()
+    del c
+    check_against_ref(local, ref, label)
+    out["nnz"] = int(local.nnz)
+    del local
+    torch.cuda.empty_cache()
+    log(f"  {label}: best {out['secs']:.4f} s of {times}, "
+        f"{out['products_per_s']:.4g} products/s, launches {launches}, "
+        f"block nnz {out['block_nnz_min']}-{out['block_nnz_max']} "
+        f"(imbalance {out['imbalance']:.3f}), capacity {out['capacity']}, "
+        f"peak {out['peak_mem_gb']:.2f} GiB; equals phase 11's C")
+    return out
+
+
+def grid_phase(cells, ref, flops: int) -> dict:
+    """Phases 13 and 14: each grid product of ``profile_summa.grid_cells``
+    timed (:func:`_grid_call`), its C equal to phase 11's, and its launches
+    those of its route: ``summa_spgemm_auto`` the expansion and compress
+    once a block an attempt, the staged SUMMA once a block a stage, the
+    ring SUMMA K9 p - 1 times, the 3D SUMMA (plain ESC) none."""
+    out = {}
+    for label, call, info in cells:
+        line = dict(info, **_grid_call(label, call, ref, flops))
+        got, kind = line["launches"], label.split()[0]
+        side = info["grid"][-1]
+        blocks = side * side
+        tag = "i64" if info["impl"] == "wide" else "i32"
+        if kind == "summa_spgemm_auto":
+            line["attempts"] = got.get(f"expand_{tag}", 0) // blocks
+            line["retries"] = line["attempts"] - 1
+            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}"),
+                                 blocks * line["attempts"])
+        elif kind == "summa_spgemm_staged":
+            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}"),
+                                 blocks * side)
+        elif kind == "summa_spgemm_rma":
+            want = {"ring_shift": side - 1}
+        else:
+            want = {}
+        if got != want or line.get("attempts", 1) < 1:
+            raise AssertionError(f"{label} launched {got}, want {want}")
+        out[label] = line
     return out
 
 
@@ -956,17 +1128,48 @@ def main() -> int:
     log(f"phase 11: spgemm_auto A², scale-{AUTO_SCALE} G500 ef-16, "
         f"max_flops_cap 2^{AUTO_FLOPS_CAP.bit_length() - 1}")
     torch.cuda.reset_peak_memory_stats()
-    auto_line = auto_full(a2_matrix(args.seed, dev, AUTO_SCALE))
+    a17 = a2_matrix(args.seed, dev, AUTO_SCALE)
+    auto_line, c_ref = auto_full(a17)
     log(json.dumps(dict(auto_line, scale=AUTO_SCALE)))
     torch.cuda.empty_cache()
     phase_secs["11"] = time.perf_counter() - t
+
+    # 12. K9 vs its plain version at phase 14's shapes and at 2^26 elements
+    t = time.perf_counter()
+    log(f"phase 12: ring_shift (K9) vs plain, scale-{AUTO_SCALE} A's 4x4 "
+        f"blocks and a 2^26-element stack")
+    k12 = check_ring(DistSpMat.from_local(
+        a17, ProcGrid.make(4, 4, device=dev)), gen)
+    torch.cuda.empty_cache()
+    phase_secs["12"] = time.perf_counter() - t
+
+    # 13. SUMMA on block grids
+    t = time.perf_counter()
+    log(f"phase 13: summa_spgemm_auto / summa_spgemm_staged A², scale-"
+        f"{AUTO_SCALE} G500 ef-16, on 2x2 and 4x4 block grids")
+    cells = grid_cells(a17, dev)
+    summa_line = grid_phase(cells[:3], c_ref, auto_line["flops"])
+    log(json.dumps(dict(summa_line, scale=AUTO_SCALE)))
+    phase_secs["13"] = time.perf_counter() - t
+
+    # 14. ring SUMMA (K9) and 3D SUMMA
+    t = time.perf_counter()
+    log(f"phase 14: summa_spgemm_rma 4x4 and summa3d_spgemm 2x2x2 A², "
+        f"scale-{AUTO_SCALE}")
+    ring_line = grid_phase(cells[3:], c_ref, auto_line["flops"])
+    log(json.dumps(dict(ring_line, scale=AUTO_SCALE)))
+    del cells, a17, c_ref
+    torch.cuda.empty_cache()
+    phase_secs["14"] = time.perf_counter() - t
 
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
                     ell_max=bfs_line["ell_max_launches"],
                     expand_chunks_i32=narrow_line["k5"]["launches"][
-                        "expand_chunks_i32"])
-    measured = dict(k3, expand_chunks_i32=k9)
+                        "expand_chunks_i32"],
+                    ring_shift=ring_line["summa_spgemm_rma 4x4"][
+                        "launches"]["ring_shift"])
+    measured = dict(k3, expand_chunks_i32=k9, ring_shift=k12["phase14"])
     for name, rows in k6.items():
         measured[name] = dict(rows[0], max_abs_err=max(
             r["max_abs_err"] for r in rows))
@@ -983,7 +1186,8 @@ def main() -> int:
     log(f"phase seconds: {json.dumps(phase_secs)}")
     details.update(kernels=kernels, phase3=k3, phase6=k6, spmm=spmm_line,
                    bfs=bfs_line, phase9=k9, narrow=narrow_line,
-                   auto=auto_line, phase_secs=phase_secs)
+                   auto=auto_line, phase12=k12, summa=summa_line,
+                   ring_3d=ring_line, phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

@@ -16,6 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from combblas_tpu_torch.device import resolve_device
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
 __all__ = ["SpCOO", "sort_coo", "compress_sorted", "sort_compress_packed",
@@ -81,7 +82,8 @@ class SpCOO:
                     capacity: int | None = None, sum_duplicates: bool = True,
                     dtype=None, device=None) -> "SpCOO":
         """Host-side constructor from numpy arrays: sorts, optionally sums
-        duplicates, pads — the same steps as the JAX ``from_arrays``."""
+        duplicates, pads — the same steps as the JAX ``from_arrays``.  The
+        tensors go to ``device``, the card when it is None."""
         row = np.asarray(row, np.int32)
         col = np.asarray(col, np.int32)
         val = np.asarray(val, dtype if dtype is not None else None)
@@ -130,6 +132,7 @@ class SpCOO:
     def empty(shape: Tuple[int, int], capacity: int = 8,
               dtype=torch.float32, device=None) -> "SpCOO":
         m, n = shape
+        device = resolve_device(device)
         return SpCOO(
             row=torch.full((capacity,), m, dtype=torch.int32, device=device),
             col=torch.full((capacity,), n, dtype=torch.int32, device=device),
@@ -142,7 +145,10 @@ class SpCOO:
     def from_numpy(row, col, val, nnz: int, shape: Tuple[int, int],
                    device=None) -> "SpCOO":
         """The numpy bridge: padded arrays (as ``np.asarray`` of a JAX
-        SpCOO's fields gives them) to a port SpCOO, bit for bit."""
+        SpCOO's fields gives them) to a port SpCOO, bit for bit, on
+        ``device`` (the card when it is None)."""
+        device = resolve_device(device)
+
         def dev(x):  # copy: the source may be a read-only JAX buffer view
             return torch.from_numpy(np.array(x, copy=True)).to(device)
 
@@ -231,40 +237,34 @@ def compress_sorted(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     ``nnz`` saturates at ``out_capacity``; segments past it are dropped."""
     m, n = shape
     dev = row.device
-    cap = row.shape[0]
-    out_cap = cap if out_capacity is None else out_capacity
-    idx = torch.arange(cap, device=dev)
-    valid = idx < nvalid
-    prev_row = torch.cat([torch.full((1,), -1, dtype=row.dtype, device=dev),
-                          row[:-1]])
-    prev_col = torch.cat([torch.full((1,), -1, dtype=col.dtype, device=dev),
-                          col[:-1]])
-    is_new = ((row != prev_row) | (col != prev_col)) & valid
+    out_cap = row.shape[0] if out_capacity is None else out_capacity
+    # Only the real entries fold (one host sync to cut them): every pad sent
+    # to one dropped slot would serialise the fold's atomics on that slot.
+    k = min(max(int(nvalid), 0), row.shape[0])
+    row, col, val = row[:k], col[:k], val[:k]
+    is_new = torch.ones(k, dtype=torch.bool, device=dev)
+    is_new[1:] = (row[1:] != row[:-1]) | (col[1:] != col[:-1])
     seg = torch.cumsum(is_new, 0) - 1
-    nseg = torch.clamp(seg[-1] + 1, min=0) if cap else torch.zeros(
-        (), dtype=torch.int64, device=dev)
-    nnz_out = torch.clamp(nseg, max=out_cap)
-    # out-of-range segments land on a dropped slot at index out_cap
-    seg_sc = torch.where(valid & (seg < out_cap), seg, out_cap)
+    nnz_out = (torch.clamp(seg[-1] + 1, max=out_cap) if k else
+               torch.zeros((), dtype=torch.int64, device=dev))
+    # segments past out_cap land on a dropped slot at index out_cap
+    seg_sc = torch.clamp(seg, max=out_cap)
     if sr.add_kind == "sum":
         out_val = torch.zeros(out_cap + 1, dtype=val.dtype, device=dev)
-        out_val.index_add_(0, seg_sc, torch.where(valid, val,
-                                                  torch.zeros_like(val)))
+        out_val.index_add_(0, seg_sc, val)
     else:
-        ident = sr.zero(val.dtype).to(dev)
-        out_val = ident.repeat(out_cap + 1)
+        out_val = sr.zero(val.dtype).to(dev).repeat(out_cap + 1)
         out_val.scatter_reduce_(
-            0, seg_sc, torch.where(valid, val, ident),
-            reduce="amin" if sr.add_kind == "min" else "amax")
+            0, seg_sc, val, reduce="amin" if sr.add_kind == "min" else "amax")
     out_val = out_val[:out_cap]
     live = torch.arange(out_cap, device=dev) < nnz_out
     out_val = torch.where(live, out_val, torch.zeros_like(out_val))
     # every entry of a segment carries the same (row, col): the scatter is
     # deterministic whichever write lands
     out_row = torch.full((out_cap + 1,), m, dtype=torch.int32, device=dev)
-    out_row.scatter_(0, seg_sc, torch.where(valid, row, m).to(torch.int32))
+    out_row.scatter_(0, seg_sc, row.to(torch.int32))
     out_col = torch.full((out_cap + 1,), n, dtype=torch.int32, device=dev)
-    out_col.scatter_(0, seg_sc, torch.where(valid, col, n).to(torch.int32))
+    out_col.scatter_(0, seg_sc, col.to(torch.int32))
     return SpCOO(row=out_row[:out_cap], col=out_col[:out_cap], val=out_val,
                  nnz=nnz_out.to(torch.int64), shape=(int(m), int(n)))
 

@@ -8,7 +8,7 @@ main path went through the kernels.
 
 LAUNCHES = {"expand_i32": 0, "expand_i64": 0, "expand_chunks_i32": 0,
             "compress_i32": 0, "compress_i64": 0,
-            "ell_sum": 0, "ell_max": 0, "spmm_coo": 0}
+            "ell_sum": 0, "ell_max": 0, "spmm_coo": 0, "ring_shift": 0}
 
 
 def reset_launches() -> None:

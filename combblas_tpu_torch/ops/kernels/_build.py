@@ -53,6 +53,9 @@ _SIGNATURES = {
                      _P],
     # row_ptr, col, val, m, x, d, y, stream
     "cbt_spmm_coo": [_P, _P, _P, _I64, _P, _I64, _P, _P],
+    # table (host int64[6 * n]: src, dst, words, outer, ring, inner), n,
+    # stream
+    "cbt_ring_shift": [_P, _I32, _P],
 }
 
 _lib = None

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from combblas_tpu_torch.device import resolve_device
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.kernels.compress import compress_sorted_packed
 from combblas_tpu_torch.ops.kernels.expand import (
@@ -70,7 +71,9 @@ def _row_flops_exact(a: SpCOO, b_rp: torch.Tensor, span_cap: int):
 
 
 def seg_zero_state(device=None):
-    """Digest state (nnz int64, checksum f32, truncated bool), zeroed."""
+    """Digest state (nnz int64, checksum f32, truncated bool), zeroed, on
+    ``device`` (the card when it is None)."""
+    device = resolve_device(device)
     return (torch.zeros((), dtype=torch.int64, device=device),
             torch.zeros((), dtype=torch.float32, device=device),
             torch.zeros((), dtype=torch.bool, device=device))

@@ -56,19 +56,21 @@ STAGES = (("expand", ("expand_kernel",)),
           ("assembly", ("Memcpy DtoD",)))
 
 
-def stage_of(name: str) -> str:
-    for stage, parts in STAGES:
+def stage_of(name: str, stages=STAGES) -> str:
+    for stage, parts in stages:
         if any(p in name for p in parts):
             return stage
     return "other"
 
 
-def split_by_stage(events) -> dict:
+def split_by_stage(events, stages=STAGES) -> dict:
     """{stage: {"ms": total, "kernels": {name: ms}}} over (name, start_us,
-    end_us) device events."""
+    end_us) device events, each kernel in the first of ``stages`` whose name
+    parts it contains."""
     out: dict = {}
     for name, t0, t1 in events:
-        st = out.setdefault(stage_of(name), {"ms": 0.0, "kernels": {}})
+        st = out.setdefault(stage_of(name, stages),
+                            {"ms": 0.0, "kernels": {}})
         ms = (t1 - t0) / 1e3
         st["ms"] += ms
         st["kernels"][name] = st["kernels"].get(name, 0.0) + ms

@@ -33,7 +33,8 @@ def graph():
     ja = rmat_matrix(jax.random.PRNGKey(9), scale=9, edgefactor=8,
                      symmetrize=True, remove_self_loops=True)
     ta = TCOO.from_numpy(np.asarray(ja.row), np.asarray(ja.col),
-                         np.asarray(ja.val), int(ja.nnz), ja.shape)
+                         np.asarray(ja.val), int(ja.nnz), ja.shape,
+                         device="cpu")
     return ja, ta
 
 
@@ -80,7 +81,8 @@ def test_bfs_push_local_path_graph():
         d[i, i + 1] = d[i + 1, i] = 1.0
     ja = JCOO.from_dense(d)
     ta = TCOO.from_numpy(np.asarray(ja.row), np.asarray(ja.col),
-                         np.asarray(ja.val), int(ja.nnz), ja.shape)
+                         np.asarray(ja.val), int(ja.nnz), ja.shape,
+                         device="cpu")
     p, lv = tbfs.bfs_push_local(ta, 0)
     np.testing.assert_array_equal(lv.numpy(), np.arange(n))
     np.testing.assert_array_equal(p.numpy(), np.maximum(np.arange(n) - 1, 0))
@@ -141,7 +143,8 @@ def test_validate_bfs_rejects_bad_trees(graph):
 def test_bfs_rejects_large_n_and_too_many_roots(graph):
     big = TCOO.from_numpy(np.full(8, 1 << 24, np.int32),
                           np.full(8, 1 << 24, np.int32),
-                          np.zeros(8, np.float32), 0, (1 << 24, 1 << 24))
+                          np.zeros(8, np.float32), 0, (1 << 24, 1 << 24),
+                          device="cpu")
     with pytest.raises(ValueError):
         tbfs.bfs_push_prepare(big)
     with pytest.raises(ValueError):

@@ -20,7 +20,8 @@ from combblas_tpu_torch import semiring as tsr  # noqa: E402
 def _port(a):
     """JAX SpCOO -> port SpCOO through the numpy bridge."""
     return tcoo.SpCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                                 np.asarray(a.val), int(a.nnz), a.shape)
+                                 np.asarray(a.val), int(a.nnz), a.shape,
+                                 device="cpu")
 
 
 def _assert_same(t, j):
@@ -40,7 +41,7 @@ def test_from_arrays_matches_jax(seed):
     c = rng.integers(0, n, e)
     v = rng.random(e).astype(np.float32)
     j = jcoo.SpCOO.from_arrays(r, c, v, (m, n))
-    t = tcoo.SpCOO.from_arrays(r, c, v, (m, n))
+    t = tcoo.SpCOO.from_arrays(r, c, v, (m, n), device="cpu")
     _assert_same(t, j)
     np.testing.assert_array_equal(t.mask().numpy(), np.asarray(j.mask()))
     np.testing.assert_array_equal(t.row_ptr().numpy(),
@@ -54,7 +55,7 @@ def test_from_dense_and_empty_rows():
     d[0, 4] = 1.5
     d[3, [0, 2]] = [2.0, -1.0]
     j = jcoo.SpCOO.from_dense(d)
-    t = tcoo.SpCOO.from_dense(d)
+    t = tcoo.SpCOO.from_dense(d, device="cpu")
     _assert_same(t, j)
     np.testing.assert_array_equal(t.row_ptr().numpy(), [0, 1, 1, 1, 3, 3, 3])
     np.testing.assert_array_equal(t.to_dense().numpy(), d)
@@ -68,7 +69,7 @@ def test_numpy_bridge_round_trip():
     t = _port(j)
     assert t.capacity == 256
     _assert_same(t, j)
-    back = tcoo.SpCOO.from_numpy(*t.to_numpy())
+    back = tcoo.SpCOO.from_numpy(*t.to_numpy(), device="cpu")
     _assert_same(back, j)
     assert back.nnz.dtype == torch.int64
 
@@ -96,6 +97,36 @@ def test_compress_sorted_matches_jax(sr_name, out_cap):
                              torch.from_numpy(V), e, (m, n),
                              sr=tsr.get_semiring(sr_name),
                              out_capacity=out_cap)
+    row, col, val, nnz, _ = t.to_numpy()
+    assert nnz == int(j.nnz)
+    np.testing.assert_array_equal(row, np.asarray(j.row))
+    np.testing.assert_array_equal(col, np.asarray(j.col))
+    np.testing.assert_allclose(val, np.asarray(j.val), rtol=1e-6)
+
+
+@pytest.mark.parametrize("sr_name", ["plus_times", "max_second"])
+@pytest.mark.parametrize("nvalid", [0, 1, 50, 96, 500])
+def test_compress_sorted_folds_only_nvalid(sr_name, nvalid):
+    """Entries past ``nvalid`` never fold, even where they are not pads
+    (nvalid 50 of 80 real entries), and an ``nvalid`` past the capacity
+    counts the whole stream: as the JAX package's."""
+    rng = np.random.default_rng(12)
+    m, n, cap = 12, 9, 96
+    r = np.sort(rng.integers(0, m, 80)).astype(np.int32)
+    c = rng.integers(0, n, 80).astype(np.int32)
+    order = np.lexsort((c, r))
+    R = np.full(cap, m, np.int32)
+    C = np.full(cap, n, np.int32)
+    V = np.zeros(cap, np.float32)
+    R[:80], C[:80] = r[order], c[order]
+    V[:80] = rng.random(80).astype(np.float32) + 0.5
+    j = jcoo.compress_sorted(jnp.asarray(R), jnp.asarray(C), jnp.asarray(V),
+                             jnp.asarray(nvalid), (m, n),
+                             sr=jsr.get_semiring(sr_name), out_capacity=40)
+    t = tcoo.compress_sorted(torch.from_numpy(R), torch.from_numpy(C),
+                             torch.from_numpy(V), torch.tensor(nvalid),
+                             (m, n), sr=tsr.get_semiring(sr_name),
+                             out_capacity=40)
     row, col, val, nnz, _ = t.to_numpy()
     assert nnz == int(j.nnz)
     np.testing.assert_array_equal(row, np.asarray(j.row))
@@ -158,3 +189,27 @@ def test_rmat_matrix_sorted_dedup():
     assert np.all(np.diff(key) > 0)
     assert float(val[:nnz].sum()) == 8 * 256
     assert np.all(row[nnz:] == 256) and np.all(col[nnz:] == 256)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tcoo.SpCOO.from_arrays([0, 1], [1, 0], [1.0, 2.0], (2, 2)),
+    lambda: tcoo.SpCOO.from_dense(np.eye(3, dtype=np.float32)),
+    lambda: tcoo.SpCOO.eye(4),
+    lambda: tcoo.SpCOO.empty((3, 5)),
+    lambda: tcoo.SpCOO.from_numpy(np.zeros(8, np.int32),
+                                  np.zeros(8, np.int32),
+                                  np.zeros(8, np.float32), 0, (1, 1)),
+    lambda: __import__("combblas_tpu_torch.ops.spgemm_seg", fromlist=["_"])
+    .seg_zero_state()[0],
+], ids=["from_arrays", "from_dense", "eye", "empty", "from_numpy",
+        "seg_zero_state"])
+def test_constructors_default_to_the_card(make):
+    """Without a device the constructors put their tensors on the card;
+    with no card they raise rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        out = make()
+        dev = out.device if isinstance(out, torch.Tensor) else out.row.device
+        assert dev.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

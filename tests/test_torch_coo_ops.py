@@ -21,7 +21,8 @@ SEMIRINGS = ["plus_times", "min_plus", "max_second"]
 
 def _port(a):
     return tcoo.SpCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                                 np.asarray(a.val), int(a.nnz), a.shape)
+                                 np.asarray(a.val), int(a.nnz), a.shape,
+                                 device="cpu")
 
 
 def _same(t, j, exact=True):
@@ -144,7 +145,8 @@ def test_transpose_astype_find_match_jax():
     for tx, jx in zip(tcoo.find(ta), jcoo.find(ja)):
         np.testing.assert_array_equal(tx, jx)
     r, c, v = tcoo.find(ta)
-    back = tcoo.SpCOO.from_arrays(r, c, v, ta.shape, capacity=ta.capacity)
+    back = tcoo.SpCOO.from_arrays(r, c, v, ta.shape, capacity=ta.capacity,
+                                  device="cpu")
     _same(back, ja)
 
 
@@ -156,9 +158,9 @@ def test_with_capacity_matches_jax(cap):
 
 
 def test_eye_and_empty_match_jax():
-    _same(tcoo.SpCOO.eye(9, value=2.5, capacity=16),
+    _same(tcoo.SpCOO.eye(9, value=2.5, capacity=16, device="cpu"),
           jcoo.SpCOO.eye(9, value=2.5, capacity=16))
-    _same(tcoo.SpCOO.eye(5), jcoo.SpCOO.eye(5))
-    e = tcoo.SpCOO.empty((7, 4), capacity=12)
+    _same(tcoo.SpCOO.eye(5, device="cpu"), jcoo.SpCOO.eye(5))
+    e = tcoo.SpCOO.empty((7, 4), capacity=12, device="cpu")
     _same(e, jcoo.SpCOO.empty((7, 4), capacity=12))
     assert e.nnz.dtype == torch.int64

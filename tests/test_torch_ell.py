@@ -52,7 +52,8 @@ def _graph(kind):
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["s7", "s9sym", "s10", "rect"])

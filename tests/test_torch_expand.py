@@ -46,7 +46,8 @@ def _operands(seed):
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 def _jax_meta(ja, jb, stride):

@@ -329,3 +329,91 @@ def test_spgemm_auto_takes_the_kernel_route(cuda):
     assert int(c.nnz) == int(want.nnz) > 0
     for g, w in ((c.row, want.row), (c.col, want.col), (c.val, want.val)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("axis", ["r", "c"])
+@pytest.mark.parametrize("grid", [(1, 1), (1, 8), (4, 4), (2, 3)])
+@pytest.mark.parametrize("payload", [(13,), (8,), (1000,), (4096,), ()])
+def test_ring_shift_kernel_matches_plain(cuda, axis, grid, payload):
+    """K9 on int32, float32 and int64 stacks at once (one launch), ragged
+    and 16-byte block lengths, both axes: bit for bit its plain version."""
+    from combblas_tpu_torch.ops.kernels.ring import ring_shift
+
+    gen = torch.Generator().manual_seed(5)
+    shape = grid + payload
+    srcs = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                          dtype=torch.int32).to(cuda),
+            torch.randn(shape, generator=gen).to(cuda),
+            torch.randint(-2**62, 2**62, shape, generator=gen,
+                          dtype=torch.int64).to(cuda)]
+    before = LAUNCHES["ring_shift"]
+    got = ring_shift(srcs, [axis] * 3)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ring_shift"] == before + 1
+    want = ring_shift(srcs, [axis] * 3, plain=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    if grid == (1, 8) and axis == "c":   # device d receives from d - 1
+        assert torch.equal(got[0][0, 3], srcs[0][0, 2])
+
+
+def _grid_operands(cuda, grid_side, scale=10):
+    from combblas_tpu_torch.gen.rmat import rmat_matrix
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    a = rmat_matrix(gen, scale, 16)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = ProcGrid.make(grid_side, grid_side, device=dev)
+        out[dev.type] = DistSpMat.from_local(a, g)
+    return out
+
+
+def _same_blocks(got, want):
+    assert int(got.total_nnz()) == int(want.total_nnz()) > 0
+    for f in ("row", "col", "val", "nnz"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+
+
+@pytest.mark.parametrize("side", [2, 4])
+def test_summa_rma_on_card_matches_plain(cuda, side):
+    """The ring SUMMA on the card launches K9 p - 1 times and equals the
+    CPU run (the plain ring push) block for block (integer values)."""
+    from combblas_tpu_torch.parallel.rma import summa_spgemm_rma
+    from combblas_tpu_torch.parallel.summa import summa_bounds
+
+    ops = _grid_operands(cuda, side)
+    fc, oc = summa_bounds(ops["cuda"], ops["cuda"])
+    before = LAUNCHES["ring_shift"]
+    got = summa_spgemm_rma(ops["cuda"], ops["cuda"], stage_flops_cap=fc,
+                           out_capacity=oc)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ring_shift"] == before + side - 1
+    want = summa_spgemm_rma(ops["cpu"], ops["cpu"], stage_flops_cap=fc,
+                            out_capacity=oc)
+    _same_blocks(got, want)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "wide"])
+def test_summa_kernel_routes_on_card_match_plain(cuda, impl):
+    """summa_spgemm's kernel routes launch the expansion and compress once
+    a block and equal the CPU run (the plain versions) block for block."""
+    from combblas_tpu_torch.parallel.summa import (
+        summa_bounds,
+        summa_chunk_bound,
+        summa_spgemm,
+    )
+
+    ops = _grid_operands(cuda, 2)
+    fc, oc = summa_bounds(ops["cuda"], ops["cuda"])
+    kw = dict(flops_cap=fc, out_capacity=oc, impl=impl,
+              chunk_cap=summa_chunk_bound(ops["cuda"], ops["cuda"], fc))
+    tag = "i64" if impl == "wide" else "i32"
+    before = dict(LAUNCHES)
+    got = summa_spgemm(ops["cuda"], ops["cuda"], **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"expand_{tag}"] == before[f"expand_{tag}"] + 4
+    assert LAUNCHES[f"compress_{tag}"] == before[f"compress_{tag}"] + 4
+    _same_blocks(got, summa_spgemm(ops["cpu"], ops["cpu"], **kw))

@@ -65,7 +65,8 @@ def _tall_operands(seed=1):
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 def _same(t, j):

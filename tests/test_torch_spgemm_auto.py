@@ -75,7 +75,8 @@ def _tall_pair():
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 def _same(t, j):

@@ -28,7 +28,8 @@ def _jax_rmat(scale, seed=42):
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("scale", [8, 9])
@@ -69,7 +70,7 @@ def test_seg2_digest_matches_jax_every_slab():
     assert [s["flat"] for s in slabs] == [False, True, True]
     assert tprep[4] == jprep[5]  # slab_out_cap
     jstate = jseg.seg_zero_state()
-    tstate = tseg.seg_zero_state()
+    tstate = tseg.seg_zero_state("cpu")
     for s in range(len(slabs)):
         jstate = jseg.seg2_step(ja, jprep, s, jstate, J_PT, interpret=True)
         tstate = tseg.seg2_step(ta, tprep, s, tstate, T_PT)
@@ -102,7 +103,8 @@ def test_streamed_seg2_matches_dense_reference(sr_name):
         np.float32)
     sr = tsr.get_semiring(sr_name)
     nnz, cks, trunc = tseg.spgemm_streamed_seg2(
-        TCOO.from_dense(ad), TCOO.from_dense(bd), sr, flops_cap=1 << 12,
+        TCOO.from_dense(ad, device="cpu"),
+        TCOO.from_dense(bd, device="cpu"), sr, flops_cap=1 << 12,
         pad_cap=1 << 16, max_widths=3)
     am = ad != 0
     bm = bd != 0
@@ -126,7 +128,7 @@ def test_seg2_truncation_flag():
     rng = np.random.default_rng(1)
     d = ((rng.random((64, 64)) < 0.3) * rng.random((64, 64))).astype(
         np.float32)
-    a = TCOO.from_dense(d)
+    a = TCOO.from_dense(d, device="cpu")
     full = int(((d @ d) != 0).sum())
     assert full > 2048
     nnz, _cks, trunc = tseg.spgemm_streamed_seg2(a, a, T_PT)

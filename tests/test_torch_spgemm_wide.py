@@ -40,7 +40,8 @@ def test_spgemm_wide_matches_jax(sr_name):
     jc = spgemm_pallas_wide(ja, jb, jsr.get_semiring(sr_name),
                             chunk_cap=chunk_cap, out_capacity=out_cap,
                             stream_cap=scap, interpret=True)
-    tc = tsp.spgemm_wide(TCOO.from_dense(ad), TCOO.from_dense(bd),
+    tc = tsp.spgemm_wide(TCOO.from_dense(ad, device="cpu"),
+                         TCOO.from_dense(bd, device="cpu"),
                          tsr.get_semiring(sr_name), out_capacity=out_cap,
                          stream_cap=scap)
     nnz = int(jc.nnz)

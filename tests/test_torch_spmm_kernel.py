@@ -22,7 +22,8 @@ from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas  # noqa: E402
 
 def _port(a):
     return TCOO.from_numpy(np.asarray(a.row), np.asarray(a.col),
-                           np.asarray(a.val), int(a.nnz), a.shape)
+                           np.asarray(a.val), int(a.nnz), a.shape,
+                           device="cpu")
 
 
 def _case(kind):

@@ -35,7 +35,8 @@ def _matrix(seed, m=60, n=45):
     ad[:, 5] = 0.0
     ja = JCOO.from_dense(ad.astype(np.float32))
     ta = TCOO.from_numpy(np.asarray(ja.row), np.asarray(ja.col),
-                         np.asarray(ja.val), int(ja.nnz), ja.shape)
+                         np.asarray(ja.val), int(ja.nnz), ja.shape,
+                         device="cpu")
     return ja, ta
 
 
