@@ -15,7 +15,8 @@ Phases, each raising on failure:
      read around that run, and three slabs re-run with the plain versions;
   6. the SpMM/BFS kernels (ELL-8 sum and max folds, COO SpMM) against their
      plain versions at the shapes of phases 7 and 8 (d = 128 and d = 8),
-     with kernel, plain and ``torch.sparse.mm`` times;
+     at the default piece length and at ``SMALL_PIECE`` (every hub split
+     into many pieces), with kernel, plain and ``torch.sparse.mm`` times;
   7. SpMM at full size: a scale-21 ef-16 G500 R-MAT times a (n, 128) X
      through ``spmm(use_kernel=True)``, ``spmm_ell_blocked(nb=6)`` and
      ``spmm_pallas``, each checked against ``torch.sparse.mm``;
@@ -88,7 +89,7 @@ from combblas_tpu_torch.models.bfs import (
 from combblas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
 from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
-from combblas_tpu_torch.ops.kernels.ell import ell_fold
+from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
 from combblas_tpu_torch.ops.kernels.ring import ring_shift
 from combblas_tpu_torch.ops.spgemm import (
     _pallas_slab_plan,
@@ -109,7 +110,11 @@ from combblas_tpu_torch.ops.spmm_ell_blocked import (
     ell_blocked_prepare,
     spmm_ell_blocked,
 )
-from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas
+from combblas_tpu_torch.ops.spmm_kernel import (
+    PIECE_LEN,
+    _spmm_coo,
+    spmm_pallas,
+)
 from combblas_tpu_torch.ops.spmv import spmm
 from combblas_tpu_torch.parallel.dist import DistSpMat
 from combblas_tpu_torch.parallel.grid import ProcGrid
@@ -137,6 +142,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "ring_shift": ("combblas_tpu_torch/csrc/ring.cu",
                    "combblas_tpu/parallel/rma.py:47"),
 }
+#: The forced small piece length of phase 6's second check (positions of
+#: an ELL piece, entries of a K8 range).
+SMALL_PIECE = 32
 #: The H100 SXM's published peaks: HBM bytes/s and float32 FLOP/s outside
 #: the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -453,69 +461,101 @@ def _csr(a):
 
 
 def _ell_bound(prep, x, nnz: int) -> dict:
-    """Bytes: the plan (cols + vals over 8*P, flush + base, the run table),
-    X and Y once each; operations: a multiply and an add per entry and
+    """Bytes: what the fold takes and gives (cols + vals over 8*P, the run
+    table, X and Y once each); the piece table is the kernel's own
+    bookkeeping.  Operations: a multiply and an add per entry and
     column."""
     p, d = prep["P"], x.shape[1]
-    plan = p * 8 * 8 + p * 8 + prep["run_start"].numel() * 8
+    plan = p * 8 * 8 + prep["run_start"].numel() * 8
     y_bytes = prep["run_start"].shape[0] * 8 * d * 4
     return bound(plan + x.numel() * 4 + y_bytes, 2 * nnz * d)
 
 
+def _same(got, want, op: str, what: str) -> float:
+    """Max exact, sum within rtol 1e-5 (another order of additions); the
+    largest absolute difference."""
+    if op == "max":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: kernel and plain differ")
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0, msg=what)
+    return float((got - want).abs().max())
+
+
+def _pieces_line(pieces, d: int, op: str) -> dict:
+    tiles = pieces.folds[:, 2]
+    return dict(piece_len=pieces.piece_len, pieces=pieces.table.shape[0],
+                split_groups=int((tiles > 0).sum()),
+                scratch_bytes=pieces.tiles * 8 * d * (8 if op == "sum" else 4))
+
+
 def check_ell(label: str, prep, x, op: str, nnz: int, csr=None) -> dict:
-    """The ELL kernel against its plain version on one plan and X: max
-    exact, sum within rtol 1e-5 (another order of additions)."""
+    """The ELL kernel against its plain version on one plan and X, on the
+    plan's piece table and on pieces of ``SMALL_PIECE`` positions."""
     args = (prep["cols"].t(), prep["vals"].t(), prep["run_start"],
             prep["run_len"], x)
     kw = dict(bs_c=prep["bs_c"], op=op)
-    got = ell_fold(*args, **kw)
     want = ell_fold(*args, plain=True, **kw)
-    if op == "max":
-        if not torch.equal(got, want):
-            raise AssertionError(f"ell_max {label}: kernel and plain differ")
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    err = float((got - want).abs().max())
-    # one warp walks each group: the longest group bounds the kernel from
-    # below whatever the card's bandwidth
+    small = ell_pieces(prep["run_start"], prep["run_len"], SMALL_PIECE)
+    err = max(_same(ell_fold(*args, pieces=pieces, **kw), want, op,
+                    f"ell_{op} {label} L={pieces.piece_len}")
+              for pieces in (prep["pieces"], small))
+    d = x.shape[1]
     group_len = prep["run_len"].sum(1)
     out = dict(label=label, max_abs_err=err,
                max_group_positions=int(group_len.max()),
                mean_group_positions=float(group_len.float().mean()),
                pad_ratio=8 * int(group_len.sum()) / nnz,
-               ms=cuda_ms(lambda: ell_fold(*args, **kw)),
+               **_pieces_line(prep["pieces"], d, op),
+               small=_pieces_line(small, d, op),
+               ms=cuda_ms(lambda: ell_fold(*args, pieces=prep["pieces"],
+                                           **kw)),
                plain_ms=cuda_ms(lambda: ell_fold(*args, plain=True, **kw),
                                 reps=2),
                library_ms=None, **_ell_bound(prep, x, nnz))
     if csr is not None:     # the sum over the plan's own row order is A @ X
         out["library_ms"] = cuda_ms(lambda: torch.sparse.mm(csr, x))
-    log(f"  ell_{op} {label}: max abs err {err:.3g}; kernel {out['ms']:.3f} "
+    log(f"  ell_{op} {label}: max abs err {err:.3g} (L = "
+        f"{out['piece_len']} and {SMALL_PIECE}); kernel {out['ms']:.3f} "
         f"ms, plain {out['plain_ms']:.3f} ms, torch.sparse.mm "
         f"{out['library_ms'] if csr is None else round(out['library_ms'], 3)}"
         f" ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}); groups "
         f"of {out['mean_group_positions']:.1f} positions on average, the "
         f"longest {out['max_group_positions']}, ELL slots / nnz "
-        f"{out['pad_ratio']:.3f}")
+        f"{out['pad_ratio']:.3f}; {out['pieces']} pieces, "
+        f"{out['split_groups']} groups split, scratch "
+        f"{out['scratch_bytes']} B (L = {SMALL_PIECE}: {out['small']})")
     return out
 
 
 def check_spmm_coo(label: str, a, x, csr) -> dict:
-    got = spmm_pallas(a, x)
+    """K8 against its plain version, at the default range length and at
+    ``SMALL_PIECE`` entries."""
     want = spmm_pallas(a, x, plain=True)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
-    err = float((got - want).abs().max())
+    small = _spmm_coo(a.row_ptr(), a.col, a.val.float().contiguous(), x,
+                      plain=False, piece_len=SMALL_PIECE)
+    err = max(_same(got, want, "sum", f"spmm_coo {label} L={n}")
+              for got, n in ((spmm_pallas(a, x), PIECE_LEN),
+                             (small, SMALL_PIECE)))
     nnz, d = int(a.nnz), x.shape[1]
+    rp = a.row_ptr()
+    deg = rp[1:] - rp[:-1]
     b = bound((a.shape[0] + 1) * 8 + nnz * 8 + x.numel() * 4
               + a.shape[0] * d * 4, 2 * nnz * d)
     out = dict(label=label, max_abs_err=err,
+               max_row_entries=int(deg.max()), piece_len=PIECE_LEN,
+               split_rows=int((deg > PIECE_LEN).sum()),
+               scratch_bytes=2 * -(-nnz // PIECE_LEN) * d * 8,
                ms=cuda_ms(lambda: spmm_pallas(a, x)),
                plain_ms=cuda_ms(lambda: spmm_pallas(a, x, plain=True),
                                 reps=2),
                library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x)), **b)
-    log(f"  spmm_coo {label}: max abs err {err:.3g}; kernel {out['ms']:.3f} "
-        f"ms, plain {out['plain_ms']:.3f} ms, torch.sparse.mm "
+    log(f"  spmm_coo {label}: max abs err {err:.3g} (L = {PIECE_LEN} and "
+        f"{SMALL_PIECE}); kernel {out['ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, torch.sparse.mm "
         f"{out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
-        f"({out['bound_by']})")
+        f"({out['bound_by']}); longest row {out['max_row_entries']}, "
+        f"{out['split_rows']} rows split, scratch {out['scratch_bytes']} B")
     return out
 
 

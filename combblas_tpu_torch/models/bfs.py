@@ -265,7 +265,8 @@ def _bfs_pull_big(prep: dict, roots_s: torch.Tensor, roots: torch.Tensor):
     while True:
         f = torch.where(levels == depth, ids, 0.0)
         y = ell_fold(cols, vals, prep["run_start"], prep["run_len"], f,
-                     bs_c=prep["bs_c"], op="max")[:n_pad]
+                     bs_c=prep["bs_c"], op="max",
+                     pieces=prep["pieces"])[:n_pad]
         new = (y > 0) & (levels < 0)
         parents = torch.where(new, y - 1.0, parents)
         levels = torch.where(new, depth + 1.0, levels)

@@ -48,11 +48,12 @@ _SIGNATURES = {
     # key, val, n, block_offs, add_code, out_key, out_val, cap, stream
     "cbt_compress_emit_i32": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
     "cbt_compress_emit_i64": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
-    # cols, vals, run_start, run_len, groups, nb, bs_c, x, d, op, y, stream
-    "cbt_ell_fold": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _I64, _I32, _P,
-                     _P],
-    # row_ptr, col, val, m, x, d, y, stream
-    "cbt_spmm_coo": [_P, _P, _P, _I64, _P, _I64, _P, _P],
+    # cols, vals, run_start, run_len, pieces, n_pieces, folds, n_folds, nb,
+    # bs_c, x, d, op, part, y, stream
+    "cbt_ell_fold": [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P,
+                     _I64, _I32, _P, _P, _P],
+    # row_ptr, col, val, m, ranges, piece_len, x, d, part, y, stream
+    "cbt_spmm_coo": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _P],
     # table (host int64[6 * n]: src, dst, words, outer, ring, inner), n,
     # stream
     "cbt_ring_shift": [_P, _I32, _P],

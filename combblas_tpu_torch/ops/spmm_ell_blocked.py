@@ -16,9 +16,10 @@ the JAX arrays it holds the run table the CUDA kernel walks (``run_start``,
 ``run_len``: (G, nb) int32, per group and column block), which the TPU
 kernel recovered from ``flush`` instead.
 
-The fold (sum, or max from 0) is ``ops/kernels/ell.py``: one warp per
-8-row group walks the group's runs over every column block and writes its
-8 rows of Y once.
+The fold (sum, or max from 0) is ``ops/kernels/ell.py``: the kernel walks
+the plan's piece table (``pieces``, built once here): each group's runs cut
+into pieces of at most ``piece_len_for`` the plan's positions, so a hub
+group is folded by many warps, its partial tiles combined in a second pass.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO
-from combblas_tpu_torch.ops.kernels.ell import ell_fold
+from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
 
 __all__ = ["ell_blocked_prepare", "spmm_ell_blocked"]
 
@@ -50,7 +51,8 @@ def ell_blocked_prepare(a: SpCOO, nb: int = 6, *, relabel_cols: bool = False,
     ``vals`` ((8, P) views of (P, 8) storage), ``flush``, ``base``,
     ``order``, ``inv``, ``live`` and statics ``P``, ``t_seg``, ``nb``,
     ``bs_r``, ``bs_c``, ``m_pad``, ``n_pad``, ``relabel_cols``, plus the
-    run table ``run_start`` / ``run_len``."""
+    run table ``run_start`` / ``run_len`` and the kernel's piece table
+    ``pieces`` (:func:`ell_pieces` of it)."""
     m, n = a.shape
     if relabel_cols and m != n:
         raise ValueError(f"relabel_cols needs a square operand, got {a.shape}")
@@ -123,12 +125,14 @@ def ell_blocked_prepare(a: SpCOO, nb: int = 6, *, relabel_cols: bool = False,
         return (t.reshape(nb, nb, g_rb).transpose(1, 2)
                 .reshape(groups, nb).to(torch.int32).contiguous())
 
+    run_start, run_len = by_group(g_start), by_group(lens)
     return dict(
         cols=cols_pt.t(), vals=vals_pt.t(),
         flush=flush[:p_pad], base=base[:p_pad],
         order=order.to(torch.int32), inv=rank.to(torch.int32),
         live=deg > 0,
-        run_start=by_group(g_start), run_len=by_group(lens),
+        run_start=run_start, run_len=run_len,
+        pieces=ell_pieces(run_start, run_len),
         P=p_pad, t_seg=t_seg, nb=nb, bs_r=bs_r, bs_c=bs_c,
         m_pad=m_pad, n_pad=n_pad, relabel_cols=relabel_cols,
     )
@@ -150,7 +154,7 @@ def spmm_ell_blocked(a: SpCOO, x: torch.Tensor, prep: dict | None = None, *,
         xp = torch.cat([xp, xp.new_zeros((short, xp.shape[1]))])
     y_perm = ell_fold(prep["cols"].t(), prep["vals"].t(), prep["run_start"],
                       prep["run_len"], xp.contiguous(), bs_c=prep["bs_c"],
-                      op=op)
+                      op=op, pieces=prep["pieces"])
     if prep["relabel_cols"]:
         return y_perm.to(x.dtype)
     y = torch.where(prep["live"][:, None], y_perm[prep["inv"].long()], 0.0)

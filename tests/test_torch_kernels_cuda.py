@@ -147,21 +147,29 @@ def _ragged_coo(seed, m, n, dev):
 @pytest.mark.parametrize("op", ["sum", "max"])
 @pytest.mark.parametrize("nb", [1, 3])
 @pytest.mark.parametrize("d", [5, 8, 100, 128, 260])
-def test_ell_kernel_matches_plain(cuda, op, nb, d):
-    from combblas_tpu_torch.ops.kernels.ell import ell_fold
+@pytest.mark.parametrize("piece_len", [None, 16, 1 << 30])
+def test_ell_kernel_matches_plain(cuda, op, nb, d, piece_len):
+    """The ELL kernel on the default piece table (built by the wrapper),
+    on pieces of 16 positions (the hub group, 0.8 n positions, in many),
+    and on pieces longer than any group (nothing split)."""
+    from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
     from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
 
     relabel = op == "max"        # the BFS sweep's plan; sum: SpMM's
     a = _ragged_coo(nb * 1000 + d, 3000, 3000 if relabel else 2200, cuda)
     prep = ell_blocked_prepare(a, nb, relabel_cols=relabel, binary=relabel)
     assert int(prep["run_len"].sum(1).eq(0).sum()) > 0   # empty groups
+    pieces = None
+    if piece_len is not None:
+        pieces = ell_pieces(prep["run_start"], prep["run_len"], piece_len)
+        assert (pieces.tiles > 0) == (piece_len == 16)
     gen = torch.Generator(device=cuda).manual_seed(d)
     x = torch.rand((prep["n_pad"], d), generator=gen, device=cuda)
     args = (prep["cols"].t(), prep["vals"].t(), prep["run_start"],
             prep["run_len"], x)
     tag = f"ell_{op}"
     before = LAUNCHES[tag]
-    got = ell_fold(*args, bs_c=prep["bs_c"], op=op)
+    got = ell_fold(*args, bs_c=prep["bs_c"], op=op, pieces=pieces)
     torch.cuda.synchronize()
     assert LAUNCHES[tag] == before + 1
     want = ell_fold(*args, bs_c=prep["bs_c"], op=op, plain=True)
@@ -173,15 +181,61 @@ def test_ell_kernel_matches_plain(cuda, op, nb, d):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("d", [8, 128])
+def test_ell_kernel_every_group_split(cuda, op, d):
+    """Pieces of one position on a plan whose every group holds at least
+    two: no group is written directly, every one through pass 2."""
+    import numpy as np
+
+    from combblas_tpu_torch.ops.coo import SpCOO
+    from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
+    from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
+
+    rng = np.random.default_rng(d)
+    n = 1992                     # m_pad = n at nb = 3: no padding group
+    deg = rng.integers(2, 40, n)
+    rows = np.repeat(np.arange(n), deg)
+    cols = np.concatenate([rng.choice(n, k, replace=False) for k in deg])
+    a = SpCOO.from_arrays(rows, cols, rng.random(rows.size) + 0.25, (n, n),
+                          device=cuda)
+    relabel = op == "max"
+    prep = ell_blocked_prepare(a, 3, relabel_cols=relabel, binary=relabel)
+    pieces = ell_pieces(prep["run_start"], prep["run_len"], 1)
+    assert bool((pieces.table[:, 3] >= 0).all())
+    assert pieces.folds.shape[0] == prep["m_pad"] // 8
+    assert bool((pieces.folds[:, 2] >= 2).all())
+    x = torch.rand((prep["n_pad"], d), device=cuda)
+    args = (prep["cols"].t(), prep["vals"].t(), prep["run_start"],
+            prep["run_len"], x)
+    got = ell_fold(*args, bs_c=prep["bs_c"], op=op, pieces=pieces)
+    want = ell_fold(*args, bs_c=prep["bs_c"], op=op, plain=True)
+    if op == "max":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("d", [5, 8, 128, 260])
-def test_spmm_coo_kernel_matches_plain(cuda, d):
-    from combblas_tpu_torch.ops.spmm_kernel import spmm_pallas
+@pytest.mark.parametrize("piece_len", [None, 16, 1 << 30])
+def test_spmm_coo_kernel_matches_plain(cuda, d, piece_len):
+    """K8 at the default range length, at 16 entries (the hub row, 0.8 n
+    entries, cut into many ranges; most other rows cross a range bound),
+    and with every row whole."""
+    from combblas_tpu_torch.ops.spmm_kernel import (
+        _spmm_coo,
+        spmm_pallas,
+    )
 
     a = _ragged_coo(d, 3000, 2500, cuda)
     gen = torch.Generator(device=cuda).manual_seed(d)
     x = torch.rand((2500, d), generator=gen, device=cuda)
     before = LAUNCHES["spmm_coo"]
-    got = spmm_pallas(a, x)
+    if piece_len is None:
+        got = spmm_pallas(a, x)
+    else:
+        got = _spmm_coo(a.row_ptr(), a.col, a.val.float().contiguous(), x,
+                        plain=False, piece_len=piece_len)
     torch.cuda.synchronize()
     assert LAUNCHES["spmm_coo"] == before + 1
     want = spmm_pallas(a, x, plain=True)
