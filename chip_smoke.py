@@ -7,7 +7,10 @@ Phases, each raising on failure:
   3. every kernel of the seg2 path against its plain PyTorch version on the
      card, at the main path's stream sizes (2^26 elements), for PLUS_TIMES,
      MIN_PLUS and MAX_SECOND, plus one saturating output capacity, with
-     kernel and plain times from CUDA events;
+     kernel and plain times from CUDA events; then the adversarial cases of
+     the tiled designs, every output slot after poisoning the caching
+     allocator: K1/K3 with a B row of 2^20 entries, 2^20 dead A entries and
+     entries on empty B rows, K2/K4 with a run of 2^20 equal keys;
   4. an independent check: the port's scale-16 SSCA R-MAT A² digest against
      ``scipy.sparse`` on the host;
   5. the main path at full size: scale-22 SSCA ef-8 R-MAT A² through
@@ -86,7 +89,12 @@ from combblas_tpu_torch.models.bfs import (
     bfs_push_local,
     validate_bfs,
 )
-from combblas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
+from combblas_tpu_torch.ops.kernels import (
+    LAUNCHES,
+    _build,
+    poison_allocator,
+    reset_launches,
+)
 from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
 from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
@@ -333,6 +341,130 @@ def check_compress(gen, dev, wide: bool, log2: int = 26) -> dict:
         log(f"  compress i64 with the (row, col) split of "
             f"compress_sorted_wide: {out['with_split_ms']:.3f} ms")
     return out
+
+
+def _quarters(gen, size, dev):
+    """Values in {0.25, 0.5, 0.75, 1}: every run's sum is exact in float32
+    whatever the fold order (the kernel folds a long run in its own order,
+    the plain version's scatter_reduce in the card's)."""
+    return torch.randint(1, 5, (size,), generator=gen, device=dev) / 4
+
+
+def _adversarial_expand(gen, dev, wide: bool, log2: int = 20) -> dict:
+    """K1/K3 on a B row of 2^log2 entries taken by 4 A entries, 2^log2
+    consecutive dead A entries and 2^(log2-2) entries on empty B rows,
+    between 2^log2 entries on rows of 0..16 each side: every slot against
+    the plain version after poisoning, at a capacity past the total and one
+    that cuts inside the first hub entry."""
+    k = n = 1 << (log2 - 4)
+    deg = torch.randint(0, 17, (k,), generator=gen, device=dev)
+    deg[3] = 0
+    deg[7] = 1 << log2
+    b_rp = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+    b_rp[1:] = torch.cumsum(deg, 0)
+    nb = int(b_rp[-1])
+    b_col = torch.randint(0, n, (nb,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    b_val = torch.rand(nb, generator=gen, device=dev) + 0.5
+    live, empty = 1 << log2, 1 << (log2 - 2)
+    a_col = torch.cat([
+        torch.randint(0, k, (live,), generator=gen, device=dev),
+        torch.randint(0, k, (live,), generator=gen, device=dev),  # dead
+        torch.full((empty,), 3, device=dev),                      # B row 0
+        torch.randint(0, k, (live,), generator=gen, device=dev)])
+    a_col = torch.where(a_col == 7, 8, a_col)  # the hub takes 4 entries
+    a_col[[live // 2, 2 * live + empty + 5, 2 * live + empty + 7, -1]] = 7
+    a_col = a_col.to(torch.int32)
+    na = a_col.shape[0]
+    valid = torch.ones(na, dtype=torch.bool, device=dev)
+    valid[live:2 * live] = False
+    rows = (1 << 10) if wide else (1 << 8)
+    a_row = torch.sort(torch.randint(0, rows, (na,), generator=gen,
+                                     device=dev, dtype=torch.int32))[0]
+    a_val = torch.rand(na, generator=gen, device=dev) + 0.5
+    args = (a_row, a_col, a_val, valid, b_rp, b_col, b_val)
+    fn = ke.expand_chunks_compact_wide if wide else ke.expand_chunks_compact
+    cnt = torch.where(valid, deg[a_col.long()], 0)
+    total = int(cnt.sum())
+    first_hub = int(cnt[:live // 2].sum())
+    ksize = 8 if wide else 4
+    caps = [total + 12345, first_hub + live // 2 + 3]
+    for sr in SEMIRINGS:
+        for cap in caps:
+            poison_allocator([cap * ksize, cap * 4], dev)
+            key, val, tot = fn(*args, sr, stride=n + 1, stream_cap=cap)
+            pkey, pval, ptot = fn(*args, sr, stride=n + 1, stream_cap=cap,
+                                  plain=True)
+            if int(tot) != int(ptot) or int(tot) != total:
+                raise AssertionError(f"adversarial expand wide={wide}: total "
+                                     f"{int(tot)} vs {int(ptot)}")
+            if not (torch.equal(key, pkey) and torch.equal(
+                    val.view(torch.int32), pval.view(torch.int32))):
+                raise AssertionError(f"adversarial expand wide={wide} "
+                                     f"{sr.name} cap {cap}: slots differ")
+    ms = cuda_ms(lambda: fn(*args, PLUS_TIMES, stride=n + 1,
+                            stream_cap=caps[0]))
+    log(f"  adversarial expand {'i64' if wide else 'i32'}: "
+        f"{total} products (hub row 2^{log2} x 4, 2^{log2} dead, "
+        f"2^{log2 - 2} on empty rows), every slot equal to plain at caps "
+        f"{caps}; kernel {ms:.3f} ms")
+    return dict(products=total, caps=caps, ms=ms)
+
+
+def _adversarial_compress(gen, dev, wide: bool, log2: int = 20) -> dict:
+    """K2/K4 on a stream of about 2^(log2+2) elements with a run of 2^log2
+    equal keys in its middle, sentinel stretches between sorted stretches,
+    and n not a multiple of the tile: every slot against the plain version
+    after poisoning, at a capacity with room and one that cuts."""
+    side = 3 << (log2 - 1)
+    left = torch.sort(torch.randint(0, 1 << log2, (side,), generator=gen,
+                                    device=dev))[0]
+    right = torch.sort(torch.randint(2 << log2, 4 << log2, (side,),
+                                     generator=gen, device=dev))[0]
+    sent = torch.iinfo(torch.int64).max
+    keys = torch.cat([left, torch.full((777,), sent, device=dev),
+                      torch.full((1 << log2,), (1 << log2) + 7, device=dev),
+                      right, torch.full((1001,), sent, device=dev),
+                      left[:4093]])
+    if not wide:
+        keys = torch.where(keys == sent, torch.iinfo(torch.int32).max,
+                           keys).to(torch.int32)
+    vals = _quarters(gen, keys.shape[0], dev)
+    fn = kc.compress_sorted_wide_keys if wide else kc.compress_sorted_packed
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    nnz = int((head & (keys != ke.KEY_SENTINEL[keys.dtype])).sum())
+    caps = [nnz + 4096, nnz // 2 + 1]
+    for sr in SEMIRINGS:
+        for cap in caps:
+            poison_allocator([cap * keys.element_size(), cap * 4], dev)
+            gk, gv, gn = fn(keys, vals, sr, out_capacity=cap)
+            pk, pv, pn = fn(keys, vals, sr, out_capacity=cap, plain=True)
+            if int(gn) != int(pn) or int(gn) != min(nnz, cap):
+                raise AssertionError(f"adversarial compress wide={wide}: nnz "
+                                     f"{int(gn)} vs {int(pn)}")
+            if not torch.equal(gk, pk):
+                raise AssertionError(f"adversarial compress wide={wide} "
+                                     f"{sr.name} cap {cap}: keys differ")
+            if sr.add_kind == "sum":
+                torch.testing.assert_close(gv, pv, rtol=1e-6, atol=0)
+            elif not torch.equal(gv, pv):
+                raise AssertionError(f"adversarial compress wide={wide} "
+                                     f"{sr.name} cap {cap}: values differ")
+    ms = cuda_ms(lambda: fn(keys, vals, PLUS_TIMES, out_capacity=caps[0]))
+    log(f"  adversarial compress {'i64' if wide else 'i32'}: "
+        f"{keys.shape[0]} elements -> {nnz} (one run of 2^{log2}), every slot "
+        f"equal to plain at caps {caps}; kernel {ms:.3f} ms")
+    return dict(elements=keys.shape[0], nnz=nnz, caps=caps, ms=ms)
+
+
+def check_adversarial(gen, dev, log2: int = 20) -> dict:
+    """Phase 3's adversarial cases for K1-K4 (tiles crossed by hub rows,
+    long runs and dead stretches)."""
+    return {f"{kind}_{'i64' if wide else 'i32'}": fn(gen, dev, wide, log2)
+            for kind, fn in (("expand", _adversarial_expand),
+                             ("compress", _adversarial_compress))
+            for wide in (False, True)}
 
 
 # ------------------------------------------------------------ phases 4, 5 --
@@ -1093,7 +1225,8 @@ def main() -> int:
         f"s (nvcc {_build.build_seconds})")
     build_log = _build.BUILD_DIR / "build.log"
     ptx = build_log.read_text().splitlines() if build_log.exists() else []
-    details["ptxas"] = [ln for ln in ptx if "registers" in ln or "spill" in ln]
+    details["ptxas"] = [ln for ln in ptx if "registers" in ln
+                        or "spill" in ln or "Compiling entry" in ln]
     phase_secs["2"] = time.perf_counter() - t
 
     # 3. kernels vs plain versions
@@ -1104,6 +1237,8 @@ def main() -> int:
           "compress_i32": check_compress(gen, dev, wide=False),
           "expand_i64": check_expand(gen, dev, wide=True),
           "compress_i64": check_compress(gen, dev, wide=True)}
+    torch.cuda.empty_cache()
+    details["phase3_adversarial"] = check_adversarial(gen, dev)
     torch.cuda.empty_cache()
     phase_secs["3"] = time.perf_counter() - t
 

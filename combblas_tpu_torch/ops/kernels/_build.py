@@ -33,21 +33,24 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
 #: C signature of every entry point (all return an int cudaError_t).
 _SIGNATURES = {
+    # a_row, a_val, offs, n_a, bstart, b_col, b_val, stride, mul_code,
+    # splits (int64 scratch, one per tile and one more), out_key, out_val,
+    # cap, stream
+    "cbt_expand_i32": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I32, _P, _P, _P,
+                       _I64, _P],
+    "cbt_expand_i64": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I32, _P, _P, _P,
+                       _I64, _P],
+    # a_col, a_valid, n_a, b_rp, offs (int64[n_a + 1]: 0, then counts),
+    # bstart (int64[n_a]: each entry's B row start), stream
+    "cbt_expand_counts": [_P, _P, _I64, _P, _P, _P, _P],
     # a_row, a_col, a_val, offs, n_a, b_rp, b_col, b_val, stride, mul_code,
-    # out_key, out_val, cap, stream
-    "cbt_expand_i32": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
-                       _P, _P, _I64, _P],
-    "cbt_expand_i64": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
-                       _P, _P, _I64, _P],
-    # as above, offs counting 128-slot chunks
+    # out_key, out_val, cap, stream; offs counting 128-slot chunks
     "cbt_expand_chunks_i32": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
                               _P, _P, _I64, _P],
-    # key, n, block_counts, stream
-    "cbt_compress_count_i32": [_P, _I64, _P, _P],
-    "cbt_compress_count_i64": [_P, _I64, _P, _P],
-    # key, val, n, block_offs, add_code, out_key, out_val, cap, stream
-    "cbt_compress_emit_i32": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
-    "cbt_compress_emit_i64": [_P, _P, _I64, _P, _I32, _P, _P, _I64, _P],
+    # key, val, n, add_code, out_key, out_val, cap, state (int64 zeros:
+    # tile counter, nnz, one status word per tile), stream
+    "cbt_compress_i32": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P],
+    "cbt_compress_i64": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P],
     # cols, vals, run_start, run_len, pieces, n_pieces, folds, n_folds, nb,
     # bs_c, x, d, op, part, y, stream
     "cbt_ell_fold": [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I64, _P,
@@ -134,8 +137,17 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cbt_error_string.argtypes = [ctypes.c_int]
     lib.cbt_error_string.restype = ctypes.c_char_p
-    lib.cbt_compress_tile.argtypes = []
-    lib.cbt_compress_tile.restype = ctypes.c_int64
+    # the wrappers size their scratch by the kernels' tiles (imported here:
+    # both wrapper modules import this one)
+    from combblas_tpu_torch.ops.kernels.compress import COMPRESS_TILE
+    from combblas_tpu_torch.ops.kernels.expand import EXPAND_TILE
+    for name, tile in (("cbt_expand_tile", EXPAND_TILE),
+                       ("cbt_compress_tile", COMPRESS_TILE)):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int64
+        if fn() != tile:
+            raise RuntimeError(f"{name}() = {fn()}, the wrapper's tile {tile}")
     _lib = lib
     return lib
 

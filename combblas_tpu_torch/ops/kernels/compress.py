@@ -6,11 +6,15 @@ Counterpart of ``combblas_tpu/ops/pallas/compress_kernel.py``:
 ``compress_sorted_packed_pallas`` (K2) and :func:`compress_sorted_wide`
 (int64 keys ``row*stride + col``, split back into (row, col)) replaces
 ``compress_sorted_wide_pallas`` (K4); :func:`compress_sorted_wide_keys` is
-K4 without the split.  One logical pass: each run of equal keys folds with the semiring add
-in f32, sentinel keys are dropped wherever they stand, and the survivors are
-compacted.  ``nnz`` saturates at ``out_capacity`` and survivors past it are
-dropped (the retry / truncation signal); entries past ``nnz`` are sentinel /
-0.
+K4 without the split.  One logical pass: each run of equal keys folds with
+the semiring add in f32, sentinel keys are dropped wherever they stand, and
+the survivors are compacted.  ``nnz`` saturates at ``out_capacity`` and
+survivors past it are dropped (the retry / truncation signal); entries past
+``nnz`` are sentinel / 0.  On the card one pass over tiles of
+``COMPRESS_TILE`` elements writes the survivors at offsets from a
+decoupled look-back and a second launch writes the pads from the ``nnz`` it
+reads on the device, so the outputs are allocated with ``torch.empty`` and
+nothing waits on the host.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from combblas_tpu_torch.ops.kernels.expand import KEY_SENTINEL
 from combblas_tpu_torch.semiring import Semiring
 
 __all__ = ["compress_sorted_packed", "compress_sorted_wide_keys",
-           "compress_sorted_wide", "compress_plain"]
+           "compress_sorted_wide", "compress_plain", "COMPRESS_TILE"]
+
+#: Elements per tile of the compress kernel, as ``csrc/compress.cu`` kTile.
+COMPRESS_TILE = 1024
 
 
 def compress_plain(key, val, sr: Semiring, out_key, out_val) -> torch.Tensor:
@@ -67,10 +74,10 @@ def _compress(key, val, sr: Semiring, *, out_capacity: int, plain: bool):
         raise ValueError("empty stream")
     if out_capacity < 1:
         raise ValueError(f"out_capacity must be positive, got {out_capacity}")
-    out_key = torch.full((out_capacity,), KEY_SENTINEL[key.dtype],
-                         dtype=key.dtype, device=dev)
-    out_val = torch.zeros(out_capacity, dtype=torch.float32, device=dev)
     if dev.type == "cpu" or plain:
+        out_key = torch.full((out_capacity,), KEY_SENTINEL[key.dtype],
+                             dtype=key.dtype, device=dev)
+        out_val = torch.zeros(out_capacity, dtype=torch.float32, device=dev)
         nnz = compress_plain(key, val, sr, out_key, out_val)
         return out_key, out_val, nnz
     if dev.type != "cuda":
@@ -78,22 +85,21 @@ def _compress(key, val, sr: Semiring, *, out_capacity: int, plain: bool):
     lib = _build.library()
     tag = "i32" if key.dtype == torch.int32 else "i64"
     n = key.shape[0]
-    tile = lib.cbt_compress_tile()
-    counts = torch.empty(-(-n // tile), dtype=torch.int64, device=dev)
+    # the kernels write every slot: survivors, then pads from nnz on
+    out_key = torch.empty(out_capacity, dtype=key.dtype, device=dev)
+    out_val = torch.empty(out_capacity, dtype=torch.float32, device=dev)
+    # tile counter, nnz, one look-back status word per tile
+    state = torch.zeros(2 + -(-n // COMPRESS_TILE), dtype=torch.int64,
+                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"cbt_compress_count_{tag}")(
-            key.data_ptr(), n, counts.data_ptr(), stream)
-        _build.check(lib, err, f"compress_count_{tag}")
-        block_offs = torch.cumsum(counts, 0) - counts
-        err = getattr(lib, f"cbt_compress_emit_{tag}")(
-            key.data_ptr(), val.data_ptr(), n, block_offs.data_ptr(),
-            sr.add_code, out_key.data_ptr(), out_val.data_ptr(),
-            out_capacity, stream)
-        _build.check(lib, err, f"compress_emit_{tag}")
+        err = getattr(lib, f"cbt_compress_{tag}")(
+            key.data_ptr(), val.data_ptr(), n, sr.add_code,
+            out_key.data_ptr(), out_val.data_ptr(), out_capacity,
+            state.data_ptr(), stream)
+    _build.check(lib, err, f"compress_{tag}")
     LAUNCHES[f"compress_{tag}"] += 1
-    nnz = torch.clamp(counts.sum(), max=out_capacity)
-    return out_key, out_val, nnz
+    return out_key, out_val, state[1]
 
 
 def compress_sorted_packed(key, val, sr: Semiring, *, out_capacity: int,

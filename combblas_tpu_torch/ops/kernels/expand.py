@@ -13,7 +13,10 @@ compacted kernels write the products with no gaps; K5 gives each A entry
 the key sentinel (INT32_MAX / INT64_MAX) and 0.  Write offsets come from an
 exclusive scan of the per-entry counts (or chunk counts, for K5), which
 replaces the TPU kernels' chunk table (``build_chunk_meta``) and B's
-128-lane tables.
+128-lane tables.  K1 and K3 write every slot of the stream, pads included,
+from a merge-path split of the entries against the slots (``EXPAND_TILE``
+merge items a tile), so their outputs are allocated with ``torch.empty``;
+K5 keeps the wrapper's sentinel fill.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ from combblas_tpu_torch.semiring import Semiring
 
 __all__ = ["expand_chunks_compact", "expand_chunks_compact_wide",
            "expand_chunks", "expand_plain", "expand_chunks_plain",
-           "KEY_SENTINEL", "CH"]
+           "KEY_SENTINEL", "CH", "EXPAND_TILE"]
 
 KEY_SENTINEL = {torch.int32: torch.iinfo(torch.int32).max,
                 torch.int64: torch.iinfo(torch.int64).max}
 #: Slots per chunk of the chunk-padded stream (the TPU's lane width).
 CH = 128
+#: Merge items (A entries and stream slots) per tile of K1/K3, as
+#: ``csrc/expand.cu`` kTile; a tile holds at most this many of each.
+EXPAND_TILE = 1024
 
 
 def _entry_counts(a_col, a_valid, b_rp):
@@ -111,24 +117,6 @@ def _check_inputs(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val):
         raise ValueError("A's row/col/val/valid differ in length")
 
 
-def _launch(entry: str, counter: str, a_row, a_col, a_val, offs, b_rp,
-            b_col, b_val, sr: Semiring, stride: int, out_key, out_val):
-    """Launch one ``csrc/expand.cu`` entry point on the tensors' card."""
-    dev = a_row.device
-    if dev.type != "cuda":
-        raise ValueError(f"no expansion kernel for device {dev}")
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            a_row.data_ptr(), a_col.data_ptr(), a_val.data_ptr(),
-            offs.data_ptr(), a_row.shape[0], b_rp.data_ptr(),
-            b_col.data_ptr(), b_val.data_ptr(), stride, sr.mul_code,
-            out_key.data_ptr(), out_val.data_ptr(), out_key.shape[0], stream)
-    _build.check(lib, err, counter)
-    LAUNCHES[counter] += 1
-
-
 def _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr: Semiring,
             *, stride: int, stream_cap: int, key_dtype: torch.dtype,
             plain: bool):
@@ -136,20 +124,45 @@ def _expand(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val, sr: Semiring,
     if stream_cap < 1:
         raise ValueError(f"stream_cap must be positive, got {stream_cap}")
     dev = a_row.device
-    out_key = torch.full((stream_cap,), KEY_SENTINEL[key_dtype],
-                         dtype=key_dtype, device=dev)
-    out_val = torch.zeros(stream_cap, dtype=torch.float32, device=dev)
-    cnt = _entry_counts(a_col, a_valid, b_rp)
-    offs = _exclusive_scan(cnt)
-    total = offs[-1]
     if dev.type == "cpu" or plain:
+        cnt = _entry_counts(a_col, a_valid, b_rp)
+        total = cnt.sum()
+        out_key = torch.full((stream_cap,), KEY_SENTINEL[key_dtype],
+                             dtype=key_dtype, device=dev)
+        out_val = torch.zeros(stream_cap, dtype=torch.float32, device=dev)
         expand_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val, sr,
                      stride, out_key, out_val)
         return out_key, out_val, total
+    if dev.type != "cuda":
+        raise ValueError(f"no expansion kernel for device {dev}")
+    lib = _build.library()
+    n_a = a_row.shape[0]
     tag = "i32" if key_dtype == torch.int32 else "i64"
-    _launch(f"cbt_expand_{tag}", f"expand_{tag}", a_row, a_col, a_val, offs,
-            b_rp, b_col, b_val, sr, stride, out_key, out_val)
-    return out_key, out_val, total
+    # the kernel writes every slot, pads included; the outputs come first,
+    # so that they take the blocks a caller freed just before for them
+    out_key = torch.empty(stream_cap, dtype=key_dtype, device=dev)
+    out_val = torch.empty(stream_cap, dtype=torch.float32, device=dev)
+    # write offsets (each entry's product count from a kernel, then a scan)
+    # and each entry's B row start
+    offs = torch.empty(n_a + 1, dtype=torch.int64, device=dev)
+    bstart = torch.empty(n_a, dtype=torch.int64, device=dev)
+    splits = torch.empty(-(-(n_a + stream_cap) // EXPAND_TILE) + 1,
+                         dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cbt_expand_counts(a_col.data_ptr(), a_valid.data_ptr(),
+                                    n_a, b_rp.data_ptr(), offs.data_ptr(),
+                                    bstart.data_ptr(), stream)
+        _build.check(lib, err, f"expand_{tag} counts")
+        offs[1:].cumsum_(0)
+        err = getattr(lib, f"cbt_expand_{tag}")(
+            a_row.data_ptr(), a_val.data_ptr(), offs.data_ptr(), n_a,
+            bstart.data_ptr(), b_col.data_ptr(), b_val.data_ptr(), stride,
+            sr.mul_code, splits.data_ptr(), out_key.data_ptr(),
+            out_val.data_ptr(), stream_cap, stream)
+    _build.check(lib, err, f"expand_{tag}")
+    LAUNCHES[f"expand_{tag}"] += 1
+    return out_key, out_val, offs[-1]
 
 
 def expand_chunks_compact(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val,
@@ -208,7 +221,17 @@ def expand_chunks(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val,
         expand_chunks_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val, sr,
                             stride, out_key, out_val)
         return out_key, out_val
-    _launch("cbt_expand_chunks_i32", "expand_chunks_i32", a_row, a_col,
-            a_val, _exclusive_scan(-(-cnt // CH)), b_rp, b_col, b_val, sr,
-            stride, out_key, out_val)
+    if dev.type != "cuda":
+        raise ValueError(f"no expansion kernel for device {dev}")
+    lib = _build.library()
+    ch_offs = _exclusive_scan(-(-cnt // CH))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cbt_expand_chunks_i32(
+            a_row.data_ptr(), a_col.data_ptr(), a_val.data_ptr(),
+            ch_offs.data_ptr(), a_row.shape[0], b_rp.data_ptr(),
+            b_col.data_ptr(), b_val.data_ptr(), stride, sr.mul_code,
+            out_key.data_ptr(), out_val.data_ptr(), out_key.shape[0], stream)
+    _build.check(lib, err, "expand_chunks_i32")
+    LAUNCHES["expand_chunks_i32"] += 1
     return out_key, out_val

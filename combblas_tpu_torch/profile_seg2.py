@@ -13,6 +13,16 @@ windowed, the largest flat) measures:
   (``aten::*``) are host-side and never counted;
 - ``busy_share = busy_ms / wall_ms`` and the device time per kernel name.
 
+Then one whole pass (every slab, one scalar sync per slab as in
+``chip_smoke.py``) under the profiler: the device time summed by kernel
+name over the pass, and by stage (:data:`STAGES`: K1/K3's count, split and
+expansion kernels, K2/K4's compress and pad kernels, the sorts, the
+device-to-device copies, the rest), printed on a line of its own.  That is
+K1's and K2's time on the main path at the real slab sizes.
+
+:data:`STAGES` and :func:`split_by_stage` are the one stage split of the
+profilers (``profile_spgemm``, ``profile_summa``).
+
 Prints one JSON line per slab and writes everything to
 ``chiprun_out/profile_seg2.json``.  Needs a CUDA device.
 
@@ -58,6 +68,58 @@ def device_events(prof):
     cuda = torch.autograd.DeviceType.CUDA
     return [(e.name, e.time_range.start, e.time_range.end)
             for e in prof.events() if e.device_type == cuda]
+
+
+#: Stage of a device event, in the profilers' splits: (stage, base names,
+#: name parts).  The port's kernels match by their whole base name
+#: (:func:`kernel_base`, so ``count_kernel`` is K1's and not any longer name
+#: ending in it), library kernels and copies by a part of their name; an
+#: event that matches no stage is "other".
+STAGES = (
+    ("expand", ("count_kernel", "split_kernel", "expand_kernel",
+                "expand_chunks_kernel"), ()),
+    ("compress", ("compress_kernel", "pad_kernel"), ()),
+    ("sort", (), ("RadixSort", "radix_sort")),
+    ("assembly", (), ("Memcpy DtoD",)),
+)
+
+
+def kernel_base(name: str) -> str:
+    """``void (anonymous namespace)::expand_kernel<int>(int const*, ...)``
+    -> ``expand_kernel``."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def stage_of(name: str, stages=STAGES) -> str:
+    """The first of ``stages`` that a device event's name matches."""
+    base = kernel_base(name)
+    for stage, bases, parts in stages:
+        if base in bases or any(p in name for p in parts):
+            return stage
+    return "other"
+
+
+def split_by_stage(events, stages=STAGES) -> dict:
+    """{stage: {"ms": total, "kernels": {name: ms}}} over (name, start_us,
+    end_us) device events, each event in the stage :func:`stage_of` gives."""
+    out: dict = {}
+    for name, t0, t1 in events:
+        st = out.setdefault(stage_of(name, stages),
+                            {"ms": 0.0, "kernels": {}})
+        ms = (t1 - t0) / 1e3
+        st["ms"] += ms
+        st["kernels"][name] = st["kernels"].get(name, 0.0) + ms
+    return out
+
+
+def by_name_ms(events) -> dict:
+    """Device milliseconds summed by name over (name, start_us, end_us)
+    events, largest first."""
+    out: dict[str, float] = {}
+    for name, t0, t1 in events:
+        out[name] = out.get(name, 0.0) + (t1 - t0) / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def pick_slabs(slabs) -> dict:
@@ -110,6 +172,27 @@ def profile_slab(a, prep, s: int, dev, reps: int) -> dict:
     return out
 
 
+def profile_pass(a, prep, dev) -> dict:
+    """One whole pass under the profiler: device busy time and the device
+    time by kernel name and by stage."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        state = seg_zero_state(dev)
+        for s in range(len(prep[1]["slabs"])):
+            state = seg2_step(a, prep, s, state)
+            int(state[0])
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    names = by_name_ms(ev)
+    return dict(device_events=len(ev), nnz_c=int(state[0]),
+                busy_ms=interval_union_us([(t0, t1) for _n, t0, t1 in ev])
+                / 1e3, sum_ms=sum(names.values()),
+                stage_ms={k: v["ms"] for k, v in split_by_stage(ev).items()},
+                by_name=names)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -134,6 +217,13 @@ def main() -> int:
     print(json.dumps(dict(scale=args.scale, seed=args.seed,
                           slabs=len(slabs), pass_secs=pass_secs,
                           nnz_c=int(state[0]))), flush=True)
+    whole = profile_pass(a, prep, dev)
+    print(json.dumps(dict(
+        pass_profile=True, device_events=whole["device_events"],
+        busy_ms=whole["busy_ms"], sum_ms=whole["sum_ms"],
+        stage_ms=whole["stage_ms"],
+        by_name={k[:80]: v for k, v in list(whole["by_name"].items())[:12]})),
+        flush=True)
     rows = {}
     for label, s in pick_slabs(slabs).items():
         r = profile_slab(a, prep, s, dev, args.reps)
@@ -146,7 +236,8 @@ def main() -> int:
             print(f"    {ms:9.3f} ms  {name[:100]}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "profile_seg2.json"), "w") as fh:
-        json.dump(dict(pass_secs=pass_secs, slabs=rows), fh, indent=1)
+        json.dump(dict(pass_secs=pass_secs, pass_profile=whole, slabs=rows),
+                  fh, indent=1)
     return 0
 
 

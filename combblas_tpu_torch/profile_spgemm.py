@@ -10,12 +10,14 @@ and one call under ``torch.profiler``, of which it reports
 - ``busy_ms``: the union of the call's device intervals (kernels, memcpy,
   memset; host-side operator rows never count) and ``busy_share =
   busy_ms / wall_ms`` against the median unprofiled wall;
-- device time per stage: ``expand`` (``expand_kernel``), ``sort``
-  (``torch.sort``'s radix-sort kernels), ``compress`` (the compress kernels'
-  head count and emit), ``assembly`` (device-to-device copies: each slab's
-  C block into the output, and any other such copy of the call), and
-  ``other`` (fills, aranges, masks, the value gather after the sort, the
-  slab plan and extraction), with the kernels of each by name.
+- device time per stage (``profile_seg2.STAGES``): ``expand`` (K1/K3/K5:
+  ``count_kernel``, ``split_kernel``, ``expand_kernel``,
+  ``expand_chunks_kernel``), ``sort`` (``torch.sort``'s radix-sort
+  kernels), ``compress`` (K2/K4: ``compress_kernel``, ``pad_kernel``),
+  ``assembly`` (device-to-device copies: each slab's C block into the
+  output, and any other such copy of the call), and ``other`` (fills,
+  aranges, masks, the value gather after the sort, the slab plan and
+  extraction), with the kernels of each by name.
 
 Prints JSON lines and writes everything to ``chiprun_out/profile_spgemm.json``.
 Needs a CUDA device.
@@ -44,37 +46,14 @@ from combblas_tpu_torch.ops.spgemm import (
     spgemm_auto,
     spgemm_flops,
 )
-from combblas_tpu_torch.profile_seg2 import device_events, interval_union_us
+from combblas_tpu_torch.profile_seg2 import (
+    device_events,
+    interval_union_us,
+    split_by_stage,
+)
 
 #: Timed calls without the profiler.
 REPS = 3
-#: Stage of a device kernel: the first stage one of whose name parts the
-#: kernel's name contains; "other" when none does.
-STAGES = (("expand", ("expand_kernel",)),
-          ("compress", ("head_count_kernel", "emit_kernel")),
-          ("sort", ("RadixSort", "radix_sort")),
-          ("assembly", ("Memcpy DtoD",)))
-
-
-def stage_of(name: str, stages=STAGES) -> str:
-    for stage, parts in stages:
-        if any(p in name for p in parts):
-            return stage
-    return "other"
-
-
-def split_by_stage(events, stages=STAGES) -> dict:
-    """{stage: {"ms": total, "kernels": {name: ms}}} over (name, start_us,
-    end_us) device events, each kernel in the first of ``stages`` whose name
-    parts it contains."""
-    out: dict = {}
-    for name, t0, t1 in events:
-        st = out.setdefault(stage_of(name, stages),
-                            {"ms": 0.0, "kernels": {}})
-        ms = (t1 - t0) / 1e3
-        st["ms"] += ms
-        st["kernels"][name] = st["kernels"].get(name, 0.0) + ms
-    return out
 
 
 def main() -> int:

@@ -10,8 +10,8 @@ reports
 
 - ``busy_ms``: the union of the call's device intervals and ``busy_share =
   busy_ms / wall_ms`` against the warm call's wall;
-- device time per stage: the stages of ``profile_spgemm`` (``expand``,
-  ``compress``, ``sort``, ``assembly``) plus ``ring`` (K9's
+- device time per stage: the stages of ``profile_seg2.STAGES``
+  (``expand``, ``compress``, ``sort``, ``assembly``) plus ``ring`` (K9's
   ``ring_shift_kernel``) and ``scatter`` (``index_add_`` / ``scatter_`` /
   ``index_put_`` kernels: the plain fold of ``compress_sorted`` and the
   block gathers), the rest ``other``; with the kernels of each by name.
@@ -46,17 +46,20 @@ from combblas_tpu_torch.parallel.summa import (
     summa_spgemm_auto,
 )
 from combblas_tpu_torch.parallel.summa3d import Dist3DSpMat, summa3d_spgemm
-from combblas_tpu_torch.profile_seg2 import device_events, interval_union_us
-from combblas_tpu_torch.profile_spgemm import STAGES as SPGEMM_STAGES
-from combblas_tpu_torch.profile_spgemm import split_by_stage
+from combblas_tpu_torch.profile_seg2 import STAGES as SPGEMM_STAGES
+from combblas_tpu_torch.profile_seg2 import (
+    device_events,
+    interval_union_us,
+    split_by_stage,
+)
 
 #: Sides of the square grids, and the (layers, pr, pc) of the 3D grid.
 GRID_SIDES = (2, 4)
 GRID3D = (2, 2, 2)
-#: As ``profile_spgemm``'s stages, plus K9 and the plain scatter folds.
+#: The SpGEMM stages, plus K9 and the plain scatter folds.
 STAGES = SPGEMM_STAGES + (
-    ("ring", ("ring_shift_kernel",)),
-    ("scatter", ("indexFunc", "scatter_gather", "index_put")))
+    ("ring", ("ring_shift_kernel",), ()),
+    ("scatter", (), ("indexFunc", "scatter_gather", "index_put")))
 
 
 def layer_bounds(a3: Dist3DSpMat, b3: Dist3DSpMat):

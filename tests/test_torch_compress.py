@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _torch_kernel_cases as cases  # noqa: E402
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.ops.pallas.compress_kernel import (  # noqa: E402
     compress_sorted_packed_pallas,
@@ -142,3 +143,66 @@ def test_compress_wrapper_rejects_bad_inputs():
                                     out_capacity=4)
     with pytest.raises(ValueError):
         tcmp.compress_sorted_packed(K, V, tsr.PLUS_TIMES, out_capacity=0)
+
+
+def _jax_compress(keys64, vals, sr_name, wide):
+    """JAX's K2 (or K4) on an edge case, the stream sentinel-padded to its
+    32768-element tiles (sentinels are dropped wherever they stand), at the
+    smallest capacity it takes: (int64 keys, values, nnz)."""
+    pad = -(-keys64.shape[0] // TILE) * TILE - keys64.shape[0]
+    keys64 = np.r_[keys64, np.full(pad, SENT64)]
+    vals = np.r_[vals, np.zeros(pad, np.float32)]
+    cap = max(2048, -(-cases.compress_nnz(keys64) // 128) * 128)
+    sr = jsr.get_semiring(sr_name)
+    if wide:
+        stride = 1 << 20
+        live = keys64 != SENT64
+        hi = np.where(live, keys64 // stride, SENT32).astype(np.int32)
+        lo = np.where(live, keys64 % stride, SENT32).astype(np.int32)
+        jh, jl, jv, jn = compress_sorted_wide_pallas(
+            jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals), sr,
+            out_capacity=cap, interpret=True)
+        jh, jl = np.asarray(jh), np.asarray(jl)
+        key = np.where(jh == SENT32, SENT64,
+                       jh.astype(np.int64) * stride + jl)
+    else:
+        jk, jv, jn = compress_sorted_packed_pallas(
+            jnp.asarray(cases.as_int32(keys64)), jnp.asarray(vals), sr,
+            out_capacity=cap, interpret=True)
+        key = np.where(np.asarray(jk) == SENT32, SENT64,
+                       np.asarray(jk).astype(np.int64))
+    return key, np.asarray(jv), int(jn)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name, sr_name", [
+    ("run_lengths", "plus_times"), ("run_lengths", "min_plus"),
+    ("run_lengths", "max_second"), ("one_run", "plus_times"),
+    ("one_run", "max_second"), ("single", "plus_times"),
+    ("single_sentinel", "plus_times"), ("all_sentinel", "plus_times"),
+])
+def test_compress_edge_cases_match_jax(name, sr_name, wide):
+    """The tiled kernel's edge cases (runs of 1, T-1, T, T+1, 5T around the
+    tile edges, sentinels between runs, one run over the whole stream, n = 1,
+    n not a multiple of T) through the port's plain version at capacities
+    with room, exactly nnz and cutting, against JAX's compress: keys and nnz
+    exact, values within this file's tolerance, the slots past nnz sentinel
+    / 0."""
+    keys64, vals = cases.compress_case(name, tcmp.COMPRESS_TILE)
+    jkey, jval, jnnz = _jax_compress(keys64, vals, sr_name, wide)
+    nnz = cases.compress_nnz(keys64)
+    assert jnnz == nnz
+    key = keys64 if wide else cases.as_int32(keys64)
+    fn = (tcmp.compress_sorted_wide_keys if wide
+          else tcmp.compress_sorted_packed)
+    sent = SENT64 if wide else SENT32
+    for cap in cases.compress_caps(nnz):
+        tk, tv, tn = fn(torch.from_numpy(key), torch.from_numpy(vals),
+                        tsr.get_semiring(sr_name), out_capacity=cap)
+        keep = min(cap, nnz)
+        assert int(tn) == keep
+        np.testing.assert_array_equal(tk.numpy()[:keep].astype(np.int64),
+                                      jkey[:keep])
+        _check_vals(sr_name, tv.numpy()[:keep], jval[:keep])
+        assert np.all(tk.numpy()[keep:] == sent)
+        assert np.all(tv.numpy()[keep:] == 0)

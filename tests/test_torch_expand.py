@@ -3,6 +3,8 @@
 interpret mode on shared numpy inputs.  Keys and counts must be exact and
 f32 values bitwise equal (one multiply per product, in the same type)."""
 
+import types
+
 import numpy as np
 import pytest
 
@@ -11,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import _torch_kernel_cases as cases  # noqa: E402
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.ops.coo import SpCOO as JCOO  # noqa: E402
 from combblas_tpu.ops.pallas.expand_kernel import (  # noqa: E402
@@ -158,3 +161,73 @@ def test_expand_wrapper_rejects_bad_inputs():
         texp.expand_chunks_compact(*strided, stride=0, stream_cap=256)
     with pytest.raises(ValueError):
         texp.expand_chunks_compact(*args, stride=0, stream_cap=0)
+
+
+# ------------------------------------------------- tiled-kernel edge cases --
+
+def _jax_case_stream(case, wide):
+    """JAX's K1 (or K3) stream of an edge case at its own minimum capacity,
+    as int64 keys ``row*(n+1) + col`` (sentinel INT64_MAX for K3, INT32_MAX
+    for K1), f32 values and the total."""
+    n = case["n"]
+    stride = n + 1
+    rp = jnp.asarray(case["b_rp"].astype(np.int32))
+    total = cases.expand_total(case)
+    cnt = np.where(case["a_valid"],
+                   np.diff(case["b_rp"])[case["a_col"]], 0)
+    chunks = int((-(-cnt // CH)).sum())
+    meta, metaf, _, flops = build_chunk_meta(
+        jnp.asarray(case["a_row"]), jnp.asarray(case["a_col"]),
+        jnp.asarray(case["a_val"]), jnp.asarray(case["a_valid"]), rp[:-1],
+        rp[1:], 0 if wide else stride, max(-(-chunks // 16) * 16, 16))
+    assert int(flops) == total
+    bc2, bv2 = _tables_2d(types.SimpleNamespace(
+        shape=(rp.shape[0] - 1, n), col=jnp.asarray(case["b_col"]),
+        val=jnp.asarray(case["b_val"])))
+    cap = stream_capacity(total)
+    if wide:
+        jr, jc, jv, jt = expand_chunks_compact_wide(
+            meta, metaf, bc2, bv2, jsr.PLUS_TIMES, stream_cap=cap,
+            interpret=True)
+        jr, jc = np.asarray(jr), np.asarray(jc)
+        key = np.where(jr == np.iinfo(np.int32).max, np.iinfo(np.int64).max,
+                       jr.astype(np.int64) * stride + jc)
+    else:
+        jk, jv, jt = expand_chunks_compact(meta, metaf, bc2, bv2,
+                                           jsr.PLUS_TIMES, stream_cap=cap,
+                                           interpret=True)
+        key = np.asarray(jk).astype(np.int64)
+    assert int(jt) == total
+    return key, np.asarray(jv), total
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name", cases.EXPAND_CASES)
+def test_expand_edge_cases_match_jax(name, wide):
+    """The tiled kernels' edge cases (a B row of several tiles, 10^4 dead
+    entries, B rows of 0, no products at all) through the port's plain
+    version at capacities that cut inside an entry, exceed the total, or
+    hold one slot, against JAX's stream: keys and total exact, values bit
+    for bit, the slots past the total sentinel / 0."""
+    case = cases.expand_case(name, texp.EXPAND_TILE)
+    jkey, jval, total = _jax_case_stream(case, wide)
+    fn = (texp.expand_chunks_compact_wide if wide
+          else texp.expand_chunks_compact)
+    sent = np.iinfo(np.int64 if wide else np.int32).max
+    t = {k: torch.from_numpy(case[k]) for k in (
+        "a_row", "a_col", "a_val", "a_valid", "b_rp", "b_col", "b_val")}
+    for cap in [jkey.shape[0]] + cases.expand_caps(case):
+        tk, tv, tt = fn(t["a_row"], t["a_col"], t["a_val"], t["a_valid"],
+                        t["b_rp"], t["b_col"], t["b_val"], tsr.PLUS_TIMES,
+                        stride=case["n"] + 1, stream_cap=cap)
+        assert int(tt) == total
+        keep = min(cap, total)
+        np.testing.assert_array_equal(tk.numpy()[:keep].astype(np.int64),
+                                      jkey[:keep])
+        np.testing.assert_array_equal(_bits(tv.numpy()[:keep]),
+                                      _bits(jval[:keep]))
+        assert np.all(tk.numpy()[keep:] == sent)
+        assert np.all(tv.numpy()[keep:] == 0)
+        if cap <= jkey.shape[0]:
+            assert np.all(jkey[keep:cap] == (sent if wide else
+                                             np.iinfo(np.int32).max))

@@ -5,12 +5,17 @@ These need an NVIDIA GPU and nvcc (the kernels are built from
 them on the card with ``python -m pytest tests/test_torch_kernels_cuda.py``.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_kernel_cases as cases  # noqa: E402
 from combblas_tpu_torch import semiring as tsr  # noqa: E402
-from combblas_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
+from combblas_tpu_torch.ops.kernels import (  # noqa: E402
+    LAUNCHES,
+    poison_allocator,
+)
 from combblas_tpu_torch.ops.kernels import compress as tcmp  # noqa: E402
 from combblas_tpu_torch.ops.kernels import expand as texp  # noqa: E402
 
@@ -106,6 +111,98 @@ def test_compress_kernel_matches_plain(cuda, sr_name, wide, out_cap):
         torch.testing.assert_close(got[-2], want[-2], rtol=1e-6, atol=0)
     else:
         assert torch.equal(got[-2], want[-2])
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_poisoned_blocks_come_back_to_the_outputs(cuda, wide):
+    """The allocator poisoning the edge-case tests rely on: after it, the
+    outputs a wrapper allocates first read back the 0xA5 pattern."""
+    cap = 123457
+    ksize = 8 if wide else 4
+    kdt = torch.int64 if wide else torch.int32
+    poison_allocator([cap * ksize, cap * 4], cuda)
+    key = torch.empty(cap, dtype=kdt, device=cuda)
+    val = torch.empty(cap, dtype=torch.float32, device=cuda)
+    assert bool((key.view(torch.uint8) == 0xA5).all())
+    assert bool((val.view(torch.uint8) == 0xA5).all())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name", cases.EXPAND_CASES)
+def test_expand_edge_cases_on_card(cuda, name, wide):
+    """K1/K3 against the plain version on the tiled design's edge cases (a
+    B row of several tiles, 10^4 dead entries, B rows of 0, no products) at
+    capacities that cut inside an entry, exceed the total or hold one slot:
+    every slot, pads included, bit for bit, and the unclamped total."""
+    case = cases.expand_case(name, texp.EXPAND_TILE)
+    t = [torch.from_numpy(case[k]).to(cuda) for k in (
+        "a_row", "a_col", "a_val", "a_valid", "b_rp", "b_col", "b_val")]
+    fn = (texp.expand_chunks_compact_wide if wide
+          else texp.expand_chunks_compact)
+    ksize = 8 if wide else 4
+    for sr_name in ("plus_times", "max_second"):
+        sr = tsr.get_semiring(sr_name)
+        for cap in cases.expand_caps(case):
+            poison_allocator([cap * ksize, cap * 4], cuda)
+            key, val, total = fn(*t, sr, stride=case["n"] + 1,
+                                 stream_cap=cap)
+            torch.cuda.synchronize()
+            pk, pv, ptotal = fn(*t, sr, stride=case["n"] + 1,
+                                stream_cap=cap, plain=True)
+            assert int(total) == int(ptotal) == cases.expand_total(case)
+            assert torch.equal(key, pk), (sr_name, cap)
+            assert torch.equal(val.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("name", cases.COMPRESS_CASES)
+def test_compress_edge_cases_on_card(cuda, name, wide):
+    """K2/K4 against the plain version on the tiled design's edge cases
+    (runs of 1, T-1, T, T+1, 5T around the tile edges, sentinels between
+    runs, one run over the stream, n = 1, n not a multiple of T) at
+    capacities with room, exactly nnz and cutting: every slot, pads
+    included; keys and nnz exact, min and max bit for bit, sums within
+    rtol 1e-6; and the same bits on a second run."""
+    keys64, vals = cases.compress_case(name, tcmp.COMPRESS_TILE)
+    nnz = cases.compress_nnz(keys64)
+    key = torch.from_numpy(keys64 if wide else cases.as_int32(keys64))
+    key, val = key.to(cuda), torch.from_numpy(vals).to(cuda)
+    fn = (tcmp.compress_sorted_wide_keys if wide
+          else tcmp.compress_sorted_packed)
+    for sr_name in ("plus_times", "min_plus", "max_second"):
+        sr = tsr.get_semiring(sr_name)
+        for cap in cases.compress_caps(nnz):
+            poison_allocator([cap * key.element_size(), cap * 4], cuda)
+            gk, gv, gn = fn(key, val, sr, out_capacity=cap)
+            torch.cuda.synchronize()
+            pk, pv, pn = fn(key, val, sr, out_capacity=cap, plain=True)
+            assert int(gn) == int(pn) == min(nnz, cap)
+            assert torch.equal(gk, pk), (sr_name, cap)
+            if sr.add_kind == "sum":
+                torch.testing.assert_close(gv, pv, rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(gv, pv)
+            again = fn(key, val, sr, out_capacity=cap)
+            assert torch.equal(again[1].view(torch.int32),
+                               gv.view(torch.int32))
+
+
+def test_compress_kernel_is_deterministic(cuda):
+    """A long stream with long runs, folded twice: the same bits."""
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.integers(0, 2000, 1 << 20)).astype(np.int32)
+    key = torch.from_numpy(keys).to(cuda)
+    val = (torch.rand(1 << 20, generator=torch.Generator().manual_seed(3))
+           .to(cuda))
+    first = tcmp.compress_sorted_packed(key, val, tsr.PLUS_TIMES,
+                                        out_capacity=4096)
+    for _ in range(3):
+        again = tcmp.compress_sorted_packed(key, val, tsr.PLUS_TIMES,
+                                            out_capacity=4096)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1].view(torch.int32),
+                           first[1].view(torch.int32))
+        assert int(again[2]) == int(first[2]) == 2000
 
 
 def test_seg2_slice_kernels_match_plain(cuda):

@@ -26,3 +26,44 @@ def test_pick_slabs():
     assert prof.pick_slabs(slabs) == {
         "heaviest_windowed": 1, "mid_windowed": 2, "last_windowed": 3,
         "largest_flat": 5}
+
+
+@pytest.mark.parametrize("name, base", [
+    ("void (anonymous namespace)::expand_kernel<int>(int const*, float "
+     "const*, long const*, long)", "expand_kernel"),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<cub::"
+     "DeviceRadixSortPolicy<int>::Policy900>(int*)",
+     "DeviceRadixSortOnesweepKernel"),
+    ("(anonymous namespace)::split_kernel(long const*, long, long, long, "
+     "long*)", "split_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<int> >(int, at::native::FillFunctor<int>)",
+     "vectorized_elementwise_kernel"),
+    ("Memcpy DtoH (Device -> Pinned)", "Memcpy DtoH"),
+])
+def test_kernel_base(name, base):
+    assert prof.kernel_base(name) == base
+
+
+def test_pass_aggregation_by_name_and_stage():
+    """The whole-pass summary adds every launch of a name (never the union)
+    and sums each stage's kernels."""
+    ev = [("void (anonymous namespace)::expand_kernel<int>(int)", 0.0, 2000.0),
+          ("void (anonymous namespace)::expand_kernel<int>(int)", 500.0,
+           1500.0),
+          ("(anonymous namespace)::split_kernel(long)", 0.0, 100.0),
+          ("void (anonymous namespace)::count_kernel(int)", 0.0, 50.0),
+          ("void (anonymous namespace)::compress_kernel<int>(int)", 0.0,
+           700.0),
+          ("void (anonymous namespace)::pad_kernel<int>(int)", 0.0, 300.0),
+          ("void at::native::vectorized_elementwise_kernel<4>(int)", 0.0,
+           100.0),
+          ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<x>(y)",
+           0.0, 4000.0)]
+    names = prof.by_name_ms(ev)
+    assert list(names)[0].startswith("void at_cuda_detail::cub::")
+    assert names["void (anonymous namespace)::expand_kernel<int>(int)"] == 3.0
+    stages = {k: v["ms"] for k, v in prof.split_by_stage(ev).items()}
+    assert stages == pytest.approx({"expand": 3.15, "compress": 1.0,
+                                    "sort": 4.0, "other": 0.1})
+    assert sum(names.values()) == pytest.approx(8.25)

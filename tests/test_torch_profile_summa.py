@@ -9,12 +9,12 @@ torch = pytest.importorskip("torch")
 from combblas_tpu_torch import profile_summa as prof  # noqa: E402
 from combblas_tpu_torch.gen.graph500 import a2_matrix  # noqa: E402
 from combblas_tpu_torch.ops.spgemm import spgemm_auto  # noqa: E402
-from combblas_tpu_torch.profile_spgemm import stage_of  # noqa: E402
+from combblas_tpu_torch.profile_seg2 import stage_of  # noqa: E402
 
 
 @pytest.mark.parametrize("name, stage", [
     ("void (anonymous namespace)::ring_shift_kernel(RingArgs)", "ring"),
-    ("void (anonymous namespace)::expand_kernel<long, false>(int const*)",
+    ("void (anonymous namespace)::expand_kernel<long>(int const*)",
      "expand"),
     ("void at::native::indexFuncLargeIndex<float, long, unsigned int>",
      "scatter"),
