@@ -27,7 +27,10 @@ Phases, each raising on failure:
      ``bfs_batch_pull_big(nb=6)``, warm then timed; 4 roots validated
      Graph500-style against the edge list, 2 held against the push BFS (K1);
   9. the chunk-padded expansion K5 against its plain version at the shape
-     of phase 10's A², for PLUS_TIMES, MIN_PLUS and MAX_SECOND;
+     of phase 10's A², for PLUS_TIMES, MIN_PLUS and MAX_SECOND, then on
+     phase 3's adversarial K1 inputs (a hub row of 2^13 chunks taken 4
+     times), every slot after poisoning, at a chunk capacity past the last
+     live chunk and one that cuts inside the first hub entry;
  10. the narrow ``spgemm_pallas`` at full width: A² of the scale-15 G500
      ef-16 R-MAT (the largest square A² whose packed keys fit int32) through
      both routes, K5 -> sort -> K2 and K1 -> sort -> K2, equal to each other
@@ -350,12 +353,11 @@ def _quarters(gen, size, dev):
     return torch.randint(1, 5, (size,), generator=gen, device=dev) / 4
 
 
-def _adversarial_expand(gen, dev, wide: bool, log2: int = 20) -> dict:
-    """K1/K3 on a B row of 2^log2 entries taken by 4 A entries, 2^log2
-    consecutive dead A entries and 2^(log2-2) entries on empty B rows,
-    between 2^log2 entries on rows of 0..16 each side: every slot against
-    the plain version after poisoning, at a capacity past the total and one
-    that cuts inside the first hub entry."""
+def _adversarial_expand_inputs(gen, dev, wide: bool, log2: int):
+    """A B row of 2^log2 entries taken by 4 A entries, 2^log2 consecutive
+    dead A entries and 2^(log2-2) entries on empty B rows, between 2^log2
+    entries on rows of 0..16 each side: (args, B's columns, each entry's
+    products, the A entries before the first hub entry)."""
     k = n = 1 << (log2 - 4)
     deg = torch.randint(0, 17, (k,), generator=gen, device=dev)
     deg[3] = 0
@@ -382,13 +384,20 @@ def _adversarial_expand(gen, dev, wide: bool, log2: int = 20) -> dict:
     a_row = torch.sort(torch.randint(0, rows, (na,), generator=gen,
                                      device=dev, dtype=torch.int32))[0]
     a_val = torch.rand(na, generator=gen, device=dev) + 0.5
-    args = (a_row, a_col, a_val, valid, b_rp, b_col, b_val)
-    fn = ke.expand_chunks_compact_wide if wide else ke.expand_chunks_compact
     cnt = torch.where(valid, deg[a_col.long()], 0)
+    return (a_row, a_col, a_val, valid, b_rp, b_col, b_val), n, cnt, live // 2
+
+
+def _adversarial_expand(gen, dev, wide: bool, log2: int = 20) -> dict:
+    """K1/K3 on :func:`_adversarial_expand_inputs`: every slot against the
+    plain version after poisoning, at a capacity past the total and one
+    that cuts inside the first hub entry."""
+    args, n, cnt, hub = _adversarial_expand_inputs(gen, dev, wide, log2)
+    fn = ke.expand_chunks_compact_wide if wide else ke.expand_chunks_compact
     total = int(cnt.sum())
-    first_hub = int(cnt[:live // 2].sum())
+    first_hub = int(cnt[:hub].sum())
     ksize = 8 if wide else 4
-    caps = [total + 12345, first_hub + live // 2 + 3]
+    caps = [total + 12345, first_hub + hub + 3]
     for sr in SEMIRINGS:
         for cap in caps:
             poison_allocator([cap * ksize, cap * 4], dev)
@@ -884,6 +893,37 @@ def check_expand_chunks(a) -> dict:
                 products=products, slots=slots, chunk_cap=chunk_cap, **b)
 
 
+def adversarial_expand_chunks(gen, dev, log2: int = 20) -> dict:
+    """K5 on phase 3's adversarial inputs (a B row of 2^log2 entries, so
+    2^(log2-7) chunks, taken by 4 A entries; 2^log2 dead entries; 2^(log2-2)
+    entries on empty B rows): every slot against the plain version after
+    poisoning, for every semiring, at a chunk capacity past the last live
+    chunk and one that cuts inside the first hub entry."""
+    args, n, cnt, hub = _adversarial_expand_inputs(gen, dev, False, log2)
+    nch = -(-cnt // ke.CH)
+    chunks = int(nch.sum())
+    caps = [chunks + 97, int(nch[:hub].sum()) + (1 << (log2 - 8)) + 3]
+    for sr in SEMIRINGS:
+        for cap in caps:
+            poison_allocator([cap * ke.CH * 4] * 2, dev)
+            key, val = ke.expand_chunks(*args, sr, stride=n + 1,
+                                        chunk_cap=cap)
+            pkey, pval = ke.expand_chunks(*args, sr, stride=n + 1,
+                                          chunk_cap=cap, plain=True)
+            if not (torch.equal(key, pkey) and torch.equal(
+                    val.view(torch.int32), pval.view(torch.int32))):
+                raise AssertionError(f"adversarial expand_chunks {sr.name} "
+                                     f"chunk_cap {cap}: slots differ")
+    del key, val, pkey, pval
+    ms = [cuda_ms(lambda cap=cap: ke.expand_chunks(
+        *args, PLUS_TIMES, stride=n + 1, chunk_cap=cap)) for cap in caps]
+    log(f"  adversarial expand_chunks: {int(cnt.sum())} products in {chunks} "
+        f"chunks (hub row 2^{log2} x 4, 2^{log2} dead, 2^{log2 - 2} on "
+        f"empty rows), every slot equal to plain at chunk caps {caps}; "
+        f"kernel {ms[0]:.3f} / {ms[1]:.3f} ms")
+    return dict(products=int(cnt.sum()), chunks=chunks, caps=caps, ms=ms)
+
+
 def _scipy_square(a):
     """A @ A by ``scipy.sparse`` on the host from A's arrays, float64, with
     sorted column indices, and its seconds."""
@@ -1286,6 +1326,8 @@ def main() -> int:
     log(f"phase 9: expand_chunks (K5) vs plain, scale-{NARROW_SCALE} A²")
     a15 = a2_matrix(args.seed, dev, NARROW_SCALE)
     k9 = check_expand_chunks(a15)
+    torch.cuda.empty_cache()
+    details["phase9_adversarial"] = adversarial_expand_chunks(gen, dev)
     torch.cuda.empty_cache()
     phase_secs["9"] = time.perf_counter() - t
 

@@ -43,10 +43,14 @@ _SIGNATURES = {
     # a_col, a_valid, n_a, b_rp, offs (int64[n_a + 1]: 0, then counts),
     # bstart (int64[n_a]: each entry's B row start), stream
     "cbt_expand_counts": [_P, _P, _I64, _P, _P, _P, _P],
-    # a_row, a_col, a_val, offs, n_a, b_rp, b_col, b_val, stride, mul_code,
-    # out_key, out_val, cap, stream; offs counting 128-slot chunks
-    "cbt_expand_chunks_i32": [_P, _P, _P, _P, _I64, _P, _P, _P, _I64, _I32,
-                              _P, _P, _I64, _P],
+    # a_col, a_valid, n_a, b_rp, ch_offs (int64[n_a + 1]: 0, then 128-slot
+    # chunk counts), bstart, blen (int64[n_a]: each entry's products), stream
+    "cbt_expand_chunk_counts": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    # a_row, a_val, ch_offs, n_a, bstart, blen, b_col, b_val, stride,
+    # mul_code, splits (int64 scratch, one per tile and one more), out_key,
+    # out_val, cap (in chunks), stream
+    "cbt_expand_chunks_i32": [_P, _P, _P, _I64, _P, _P, _P, _P, _I64, _I32,
+                              _P, _P, _P, _I64, _P],
     # key, val, n, add_code, out_key, out_val, cap, state (int64 zeros:
     # tile counter, nnz, one status word per tile), stream
     "cbt_compress_i32": [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P],
@@ -140,8 +144,10 @@ def library() -> ctypes.CDLL:
     # the wrappers size their scratch by the kernels' tiles (imported here:
     # both wrapper modules import this one)
     from combblas_tpu_torch.ops.kernels.compress import COMPRESS_TILE
-    from combblas_tpu_torch.ops.kernels.expand import EXPAND_TILE
+    from combblas_tpu_torch.ops.kernels.expand import (EXPAND_CHUNKS_TILE,
+                                                       EXPAND_TILE)
     for name, tile in (("cbt_expand_tile", EXPAND_TILE),
+                       ("cbt_expand_chunks_tile", EXPAND_CHUNKS_TILE),
                        ("cbt_compress_tile", COMPRESS_TILE)):
         fn = getattr(lib, name)
         fn.argtypes = []

@@ -13,10 +13,11 @@ compacted kernels write the products with no gaps; K5 gives each A entry
 the key sentinel (INT32_MAX / INT64_MAX) and 0.  Write offsets come from an
 exclusive scan of the per-entry counts (or chunk counts, for K5), which
 replaces the TPU kernels' chunk table (``build_chunk_meta``) and B's
-128-lane tables.  K1 and K3 write every slot of the stream, pads included,
+128-lane tables.  The kernels write every slot of the stream, pads
+included, so their outputs are allocated with ``torch.empty``: K1 and K3
 from a merge-path split of the entries against the slots (``EXPAND_TILE``
-merge items a tile), so their outputs are allocated with ``torch.empty``;
-K5 keeps the wrapper's sentinel fill.
+merge items a tile), K5 from one of the entries against the chunks
+(``EXPAND_CHUNKS_TILE`` merge items a tile, one warp a chunk).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from combblas_tpu_torch.semiring import Semiring
 
 __all__ = ["expand_chunks_compact", "expand_chunks_compact_wide",
            "expand_chunks", "expand_plain", "expand_chunks_plain",
-           "KEY_SENTINEL", "CH", "EXPAND_TILE"]
+           "KEY_SENTINEL", "CH", "EXPAND_TILE", "EXPAND_CHUNKS_TILE"]
 
 KEY_SENTINEL = {torch.int32: torch.iinfo(torch.int32).max,
                 torch.int64: torch.iinfo(torch.int64).max}
@@ -37,6 +38,9 @@ CH = 128
 #: Merge items (A entries and stream slots) per tile of K1/K3, as
 #: ``csrc/expand.cu`` kTile; a tile holds at most this many of each.
 EXPAND_TILE = 1024
+#: Merge items (A entries and 128-slot chunks) per tile of K5, as
+#: ``csrc/expand.cu`` kChunkTile.
+EXPAND_CHUNKS_TILE = 128
 
 
 def _entry_counts(a_col, a_valid, b_rp):
@@ -44,14 +48,6 @@ def _entry_counts(a_col, a_valid, b_rp):
     kk = b_rp.shape[0] - 1
     acol = torch.clamp(a_col.long(), max=kk - 1)
     return torch.where(a_valid, b_rp[acol + 1] - b_rp[acol], 0)
-
-
-def _exclusive_scan(cnt):
-    """int64[n + 1] offsets: 0, cnt[0], cnt[0] + cnt[1], ..."""
-    offs = torch.zeros(cnt.shape[0] + 1, dtype=torch.int64,
-                       device=cnt.device)
-    torch.cumsum(cnt, 0, out=offs[1:])
-    return offs
 
 
 def _plain_products(a_row, a_col, a_val, cnt, b_rp, b_col, b_val,
@@ -213,25 +209,43 @@ def expand_chunks(a_row, a_col, a_val, a_valid, b_rp, b_col, b_val,
     if chunk_cap < 1:
         raise ValueError(f"chunk_cap must be positive, got {chunk_cap}")
     dev = a_row.device
-    out_key = torch.full((chunk_cap * CH,), KEY_SENTINEL[torch.int32],
-                         dtype=torch.int32, device=dev)
-    out_val = torch.zeros(chunk_cap * CH, dtype=torch.float32, device=dev)
-    cnt = _entry_counts(a_col, a_valid, b_rp)
+    slots = chunk_cap * CH
     if dev.type == "cpu" or plain:
-        expand_chunks_plain(a_row, a_col, a_val, cnt, b_rp, b_col, b_val, sr,
-                            stride, out_key, out_val)
+        out_key = torch.full((slots,), KEY_SENTINEL[torch.int32],
+                             dtype=torch.int32, device=dev)
+        out_val = torch.zeros(slots, dtype=torch.float32, device=dev)
+        expand_chunks_plain(a_row, a_col, a_val,
+                            _entry_counts(a_col, a_valid, b_rp), b_rp, b_col,
+                            b_val, sr, stride, out_key, out_val)
         return out_key, out_val
     if dev.type != "cuda":
         raise ValueError(f"no expansion kernel for device {dev}")
     lib = _build.library()
-    ch_offs = _exclusive_scan(-(-cnt // CH))
+    n_a = a_row.shape[0]
+    # the kernel writes every slot, pads and dummy chunks included; the
+    # outputs come first, so that they take the blocks a caller freed just
+    # before for them
+    out_key = torch.empty(slots, dtype=torch.int32, device=dev)
+    out_val = torch.empty(slots, dtype=torch.float32, device=dev)
+    # chunk offsets (each entry's chunk count from a kernel, then a scan),
+    # each entry's B row start and product count
+    ch_offs = torch.empty(n_a + 1, dtype=torch.int64, device=dev)
+    bstart = torch.empty(n_a, dtype=torch.int64, device=dev)
+    blen = torch.empty(n_a, dtype=torch.int64, device=dev)
+    splits = torch.empty(-(-(n_a + chunk_cap) // EXPAND_CHUNKS_TILE) + 1,
+                         dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cbt_expand_chunk_counts(
+            a_col.data_ptr(), a_valid.data_ptr(), n_a, b_rp.data_ptr(),
+            ch_offs.data_ptr(), bstart.data_ptr(), blen.data_ptr(), stream)
+        _build.check(lib, err, "expand_chunks_i32 counts")
+        ch_offs[1:].cumsum_(0)
         err = lib.cbt_expand_chunks_i32(
-            a_row.data_ptr(), a_col.data_ptr(), a_val.data_ptr(),
-            ch_offs.data_ptr(), a_row.shape[0], b_rp.data_ptr(),
-            b_col.data_ptr(), b_val.data_ptr(), stride, sr.mul_code,
-            out_key.data_ptr(), out_val.data_ptr(), out_key.shape[0], stream)
+            a_row.data_ptr(), a_val.data_ptr(), ch_offs.data_ptr(), n_a,
+            bstart.data_ptr(), blen.data_ptr(), b_col.data_ptr(),
+            b_val.data_ptr(), stride, sr.mul_code, splits.data_ptr(),
+            out_key.data_ptr(), out_val.data_ptr(), chunk_cap, stream)
     _build.check(lib, err, "expand_chunks_i32")
     LAUNCHES["expand_chunks_i32"] += 1
     return out_key, out_val

@@ -72,9 +72,10 @@ def device_events(prof):
 
 #: Stage of a device event, in the profilers' splits: (stage, base names,
 #: name parts).  The port's kernels match by their whole base name
-#: (:func:`kernel_base`, so ``count_kernel`` is K1's and not any longer name
-#: ending in it), library kernels and copies by a part of their name; an
-#: event that matches no stage is "other".
+#: (:func:`kernel_base`, so ``count_kernel`` is K1's and K5's and not any
+#: longer name ending in it; template arguments are dropped), library
+#: kernels and copies by a part of their name; an event that matches no
+#: stage is "other".
 STAGES = (
     ("expand", ("count_kernel", "split_kernel", "expand_kernel",
                 "expand_chunks_kernel"), ()),

@@ -1,12 +1,15 @@
-"""Edge cases for the tiled expansion (K1/K3) and compress (K2/K4) kernels,
-as numpy arrays from a seed.  ``tests/test_torch_expand.py`` and
+"""Edge cases for the tiled expansion (K1/K3, and the chunk-padded K5) and
+compress (K2/K4) kernels, as numpy arrays from a seed.
+``tests/test_torch_expand.py``, ``tests/test_torch_spgemm.py`` (K5) and
 ``tests/test_torch_compress.py`` feed them to the port's plain versions and
 to the JAX kernels (interpret mode); ``tests/test_torch_kernels_cuda.py``
 feeds them to the CUDA kernels and the plain versions on the card.
 
-``tile`` is the kernels' tile (``EXPAND_TILE`` / ``COMPRESS_TILE``): the
-cases put B rows, dead entries and runs across and onto its edges.  Values
-are multiples of 1/4 in [0.25, 1], so every run's sum is exact in float32
+``tile`` is the kernels' tile in slots or elements (``EXPAND_TILE`` /
+``COMPRESS_TILE``; for K5 ``CH`` against JAX, so that the hub row crosses
+chunk edges, and ``EXPAND_CHUNKS_TILE * CH`` on the card): the cases put B
+rows, dead entries and runs across and onto its edges.  Values are
+multiples of 1/4 in [0.25, 1], so every run's sum is exact in float32
 whatever the order of the fold (the kernels, the plain versions and the JAX
 kernel each fold in their own order)."""
 
@@ -86,6 +89,29 @@ def expand_caps(case: dict) -> list:
     if total:
         e = int(np.argmax(cnt))
         caps.append(int(cnt[:e].sum()) + int(cnt[e]) // 2 + 1)
+    return caps
+
+
+def expand_chunk_caps(case: dict, cpb: int = 16) -> list:
+    """K5 chunk capacities, multiples of ``cpb`` (the JAX kernel's chunks a
+    grid step): one past the last live chunk (dummy chunks follow), the
+    smallest, and one that cuts inside the first entry of several chunks
+    that crosses a multiple of ``cpb``, as near its middle as one lies (a
+    hub entry; without one, halfway through the live chunks)."""
+    rp, acol = case["b_rp"], case["a_col"]
+    nch = -(-np.where(case["a_valid"], rp[acol + 1] - rp[acol], 0) // 128)
+    end = np.cumsum(nch)
+    start = end - nch
+    chunks = int(end[-1])
+    caps = [(chunks // cpb + 2) * cpb, cpb]
+    for s0, e0 in zip(start[nch > 1], end[nch > 1]):
+        c = max(int(s0 + e0) // 2 // cpb, int(s0) // cpb + 1) * cpb
+        if c < e0:
+            caps.append(c)
+            break
+    else:
+        if chunks // 2 >= cpb:
+            caps.append(chunks // 2 // cpb * cpb)
     return caps
 
 

@@ -113,11 +113,13 @@ def test_compress_kernel_matches_plain(cuda, sr_name, wide, out_cap):
         assert torch.equal(got[-2], want[-2])
 
 
+@pytest.mark.parametrize("cap", [123457, 300 * texp.CH])
 @pytest.mark.parametrize("wide", [False, True])
-def test_poisoned_blocks_come_back_to_the_outputs(cuda, wide):
+def test_poisoned_blocks_come_back_to_the_outputs(cuda, wide, cap):
     """The allocator poisoning the edge-case tests rely on: after it, the
-    outputs a wrapper allocates first read back the 0xA5 pattern."""
-    cap = 123457
+    outputs a wrapper allocates first read back the 0xA5 pattern, at a
+    compacted stream's size and at a chunk-padded one's (K5: two outputs of
+    one size)."""
     ksize = 8 if wide else 4
     kdt = torch.int64 if wide else torch.int32
     poison_allocator([cap * ksize, cap * 4], cuda)
@@ -416,6 +418,32 @@ def test_expand_chunks_kernel_matches_plain(cuda, sr_name, chunk_cap):
     if chunk_cap is None:         # the 100 dummy chunks are all pads
         assert bool((key[chunks * 128:] == torch.iinfo(torch.int32).max)
                     .all())
+
+
+@pytest.mark.parametrize("name", cases.EXPAND_CASES)
+def test_expand_chunks_edge_cases_on_card(cuda, name):
+    """K5 against the plain version on the edge cases cut at its own tile
+    (a hub B row of 5 tiles' worth of chunks taken by several A entries,
+    10^4 dead entries and 3000 on empty B rows, no products) at chunk
+    capacities past the last live chunk, of 16 and of 1, and one that cuts
+    inside a hub entry: every slot after poisoning, pads and dummy chunks
+    included, bit for bit."""
+    case = cases.expand_case(name, texp.EXPAND_CHUNKS_TILE * texp.CH)
+    t = [torch.from_numpy(case[k]).to(cuda) for k in (
+        "a_row", "a_col", "a_val", "a_valid", "b_rp", "b_col", "b_val")]
+    for sr_name in ("plus_times", "max_second"):
+        sr = tsr.get_semiring(sr_name)
+        for cap in cases.expand_chunk_caps(case) + [1]:
+            poison_allocator([cap * texp.CH * 4] * 2, cuda)
+            before = LAUNCHES["expand_chunks_i32"]
+            key, val = texp.expand_chunks(*t, sr, stride=case["n"] + 1,
+                                          chunk_cap=cap)
+            torch.cuda.synchronize()
+            assert LAUNCHES["expand_chunks_i32"] == before + 1
+            pk, pv = texp.expand_chunks(*t, sr, stride=case["n"] + 1,
+                                        chunk_cap=cap, plain=True)
+            assert torch.equal(key, pk), (sr_name, cap)
+            assert torch.equal(val.view(torch.int32), pv.view(torch.int32))
 
 
 @pytest.mark.parametrize("route", ["k5", "k1"])

@@ -18,6 +18,18 @@ from combblas_tpu_torch import profile_seg2 as prof  # noqa: E402
      "long*)", "expand"),
     ("void (anonymous namespace)::expand_chunks_kernel(int const*, int "
      "const*)", "expand"),
+    # K1's and K5's instances of the shared count and split kernels
+    ("void (anonymous namespace)::count_kernel<false>(int const*, bool "
+     "const*, long, long const*, long*, long*, long*)", "expand"),
+    ("void (anonymous namespace)::count_kernel<true>(int const*, bool "
+     "const*, long, long const*, long*, long*, long*)", "expand"),
+    ("void (anonymous namespace)::split_kernel<1024l>(long const*, long, "
+     "long, long, long*)", "expand"),
+    ("void (anonymous namespace)::split_kernel<128l>(long const*, long, "
+     "long, long, long*)", "expand"),
+    ("void (anonymous namespace)::expand_chunks_kernel(int const*, float "
+     "const*, long const*, long, long const*, long const*, int const*, "
+     "float const*, long, int, long const*, int*, float*, long)", "expand"),
     ("void (anonymous namespace)::compress_kernel<int>(int const*, float "
      "const*, long, int)", "compress"),
     ("void (anonymous namespace)::pad_kernel<long>(unsigned long long "

@@ -4,12 +4,17 @@ interpret mode.  Whole arrays are compared, pads included: keys, rows,
 columns and nnz exact; K5's values bit for bit (one f32 multiply each); C's
 values within rtol 1e-5 (runs of sums fold in other orders)."""
 
+import types
+
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
+import _torch_kernel_cases as cases  # noqa: E402
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.ops import spgemm as jsp  # noqa: E402
 from combblas_tpu.ops.coo import SpCOO as JCOO  # noqa: E402
@@ -109,6 +114,39 @@ def test_expand_chunks_matches_k5(sr_name, chunks):
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy().view(np.int32),
                                   np.asarray(jv).view(np.int32))
+
+
+@pytest.mark.parametrize("name", cases.EXPAND_CASES)
+def test_expand_chunks_edge_cases_match_jax(name):
+    """K5 on the tiled kernels' edge cases cut at one chunk (a hub B row of
+    5 chunks and 37 products taken by several A entries, 10^4 dead entries
+    and 3000 on empty B rows, no products at all), at a chunk capacity past
+    the last live chunk, the smallest JAX takes, and one that cuts inside a
+    hub entry: the port's stream against JAX's, keys exact, values bit for
+    bit, pads and dummy chunks included."""
+    case = cases.expand_case(name, texp.CH)
+    n = case["n"]
+    rp = jnp.asarray(case["b_rp"].astype(np.int32))
+    bc2, bv2 = jsp._tables_2d(types.SimpleNamespace(
+        shape=(rp.shape[0] - 1, n), col=jnp.asarray(case["b_col"]),
+        val=jnp.asarray(case["b_val"])))
+    t = {k: torch.from_numpy(case[k]) for k in (
+        "a_row", "a_col", "a_val", "a_valid", "b_rp", "b_col", "b_val")}
+    for chunk_cap in cases.expand_chunk_caps(case):
+        meta, metaf, _, _ = build_chunk_meta(
+            jnp.asarray(case["a_row"]), jnp.asarray(case["a_col"]),
+            jnp.asarray(case["a_val"]), jnp.asarray(case["a_valid"]),
+            rp[:-1], rp[1:], n + 1, chunk_cap)
+        jk, jv = expand_chunks(meta, metaf, bc2, bv2, jsr.PLUS_TIMES,
+                               interpret=True)
+        tk, tv = texp.expand_chunks(t["a_row"], t["a_col"], t["a_val"],
+                                    t["a_valid"], t["b_rp"], t["b_col"],
+                                    t["b_val"], tsr.PLUS_TIMES, stride=n + 1,
+                                    chunk_cap=chunk_cap)
+        assert tk.shape == (chunk_cap * 128,)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                      np.asarray(jv).view(np.int32))
 
 
 def test_expand_chunks_wrapper_rejects_bad_inputs():
