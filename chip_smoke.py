@@ -51,7 +51,28 @@ Phases, each raising on failure:
      equal to phase 11's C exactly;
  14. the ring SUMMA ``summa_spgemm_rma`` on the 4x4 grid (K9, p - 1 = 3
      launches a call) and ``summa3d_spgemm`` on a (2, 2, 2) grid, each C
-     equal to phase 11's C exactly.
+     equal to phase 11's C exactly;
+ 15. single-device MCL as ``bench.py``'s ``bench_mcl`` runs it: ``mcl_local``
+     on the scale-17 SSCA ef-8 R-MAT, symmetrized, no self loops, select
+     64, recover_num 80, a 60 s budget; its expansions run ``spgemm_auto``
+     in row slabs on the expansion and compress kernels (the wide pair, K3
+     and K4, at this scale).  A timed run as a user calls it (launches
+     read around the loop, labels equal to scipy's connected components of
+     the last iterate), then a checked run of as many iterations: after
+     every iteration each non-empty column sums to 1, nnz fits the
+     capacity and no column is longer than recover_num; the first prune is
+     held per column against the rule; iteration 1's expansion equals
+     scipy's A @ A and iteration 3's the same call on the plain route
+     (keys exact, values within 1e-5 relative); labels as above.  Then
+     ``mcl_local`` on the card (K1 and K2 at this scale, at least one
+     launch each an iteration) against the same call on CPU tensors (plain
+     versions), scale 12 with seeded uniform weights: iterations, nnz per
+     iteration and labels exact, and each iteration's step from the card's
+     iterate redone on the CPU: values within 1e-5 relative, chaos within
+     1e-5;
+ 16. ``spref`` (P·A·Q through ``spgemm_auto``: the expansion and compress
+     kernels) and ``induced_subgraph`` of the scale-17 graph on a seeded
+     half of its vertices, both equal to scipy's ``A[v][:, v]``.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -65,6 +86,7 @@ Usage: python3 chip_smoke.py [--seed 42] [--scale 22] [--check-scale 16]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -159,6 +181,11 @@ SMALL_PIECE = 32
 #: The H100 SXM's published peaks: HBM bytes/s and float32 FLOP/s outside
 #: the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
+#: The smallest normal float32.  A relative difference is taken against
+#: max(|value|, this): below it float32 spacing is absolute (2^-149), and
+#: MCL's iterates hold such values once inflation has squared them a few
+#: times, where a last-place difference is already 1e-4 relative.
+F32_TINY = float(np.finfo(np.float32).tiny)
 F32_FLOP_PER_S = 67e12
 
 
@@ -938,12 +965,16 @@ def _scipy_square(a):
     return c, time.perf_counter() - t
 
 
-def check_against_scipy(c, ref, label: str) -> None:
-    """The port's C equals scipy's A @ A: nnz, per-row counts, columns and
-    values exact.  Every value is a sum of integer products; below 2^24
-    every float32 partial sum is exact, in any order."""
+def check_against_scipy(c, ref, label: str, rtol: float | None = None
+                        ) -> float:
+    """The port's C equals scipy's A @ A: nnz, per-row counts and columns
+    exact; values exact, or with ``rtol`` within that relative difference
+    (to ``F32_TINY`` for subnormal values).
+    Exact values need every value to be a sum of integer products below
+    2^24, where every float32 partial sum is exact, in any order.  Returns
+    the largest relative value difference."""
     vmax = float(ref.data.max(initial=0.0))
-    if not vmax < 2 ** 24:
+    if rtol is None and not vmax < 2 ** 24:
         raise AssertionError(f"{label}: largest value {vmax} is not below "
                              "2^24, so float32 sums are not exact")
     row, col, val, nnz, shape = c.to_numpy()
@@ -954,11 +985,16 @@ def check_against_scipy(c, ref, label: str) -> None:
         raise AssertionError(f"{label}: per-row counts differ from scipy")
     if not np.array_equal(col[:nnz], ref.indices):
         raise AssertionError(f"{label}: columns differ from scipy")
-    if not np.array_equal(val[:nnz].astype(np.float64), ref.data):
-        raise AssertionError(f"{label}: values differ from scipy")
+    diff = np.abs(val[:nnz].astype(np.float64) - ref.data)
+    rel = float((diff / np.maximum(np.abs(ref.data), F32_TINY)).max()) \
+        if nnz else 0.0
+    if not (rel <= rtol if rtol is not None else not diff.any()):
+        raise AssertionError(f"{label}: values differ from scipy (largest "
+                             f"relative difference {rel})")
     if not ((row[nnz:] == shape[0]).all() and (col[nnz:] == shape[1]).all()
             and (val[nnz:] == 0).all()):
         raise AssertionError(f"{label}: pads past nnz are not (m, n, 0)")
+    return rel
 
 
 def _best_secs(fn, reps: int = 3):
@@ -1238,6 +1274,587 @@ def grid_phase(cells, ref, flops: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phases 15-16 --
+
+#: Phase 15 runs ``bench.py``'s MCL configuration (``bench_mcl``: SSCA
+#: R-MAT, edge factor 8, symmetrized, no self loops, select 64, recover_num
+#: 80) at phase 11's scale, the largest at which ``spgemm_auto`` is proven
+#: on the card, under a 60 s budget.
+MCL_SCALE = AUTO_SCALE
+MCL_EDGEFACTOR = 8
+MCL_PARAMS = dict(select=64, recover_num=80)
+MCL_DEADLINE_SECS = 60.0
+#: The card-against-CPU MCL run's scale.
+MCL_CHECK_SCALE = 12
+
+
+def mcl_graph(seed: int, dev, scale: int):
+    """``bench_mcl``'s graph from a generator seeded ``seed`` on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return rmat_matrix(gen, scale, MCL_EDGEFACTOR, symmetrize=True,
+                       remove_self_loops=True, probs=SSCA_PROBS)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_iterate(a, p) -> dict:
+    """One MCL iterate, counted and summed (float64) apart from the port's
+    reductions: ``nnz`` within the capacity (``_compact`` drops entries
+    past it), every non-empty column summing to 1 within 1e-5, no column
+    longer than ``max(select, recover_num)``."""
+    m, n = a.shape
+    nnz = int(a.nnz)
+    if nnz > a.capacity:
+        raise AssertionError(f"iterate nnz {nnz} past its capacity "
+                             f"{a.capacity}: entries were dropped")
+    row, col = a.row[:nnz].long(), a.col[:nnz].long()
+    if nnz and not (int(row.max()) < m and int(col.max()) < n):
+        raise AssertionError("iterate holds a pad inside nnz")
+    cnt = torch.bincount(col, minlength=n)
+    sums = torch.zeros(n, dtype=torch.float64, device=a.device)
+    sums.index_add_(0, col, a.val[:nnz].double())
+    live = cnt > 0
+    err = float((sums[live] - 1).abs().max()) if nnz else 0.0
+    if not err <= 1e-5:
+        raise AssertionError(f"a column of the iterate sums to 1 +- {err}")
+    longest = int(cnt.max())
+    if longest > max(p.select, p.recover_num):
+        raise AssertionError(f"a column keeps {longest} entries")
+    return dict(max_col_sum_err=err, longest_col=longest,
+                empty_cols=int((~live).sum()))
+
+
+def check_prune(a2, out, p) -> dict:
+    """The first prune held per column against the rule itself: the kept
+    count is min(select, #{|v| >= cutoff}), or min(recover_num, column
+    nnz) where recovery fired; the kept entries are entries of the input
+    with their values; the least kept |v| is at least the largest dropped
+    |v|; outside recovered columns every kept |v| reaches the cutoff."""
+    n = a2.shape[1]
+    nnz, onnz = int(a2.nnz), int(out.nnz)
+    if nnz > a2.capacity or onnz > out.capacity:
+        raise AssertionError("prune input or output past its capacity")
+    col = a2.col[:nnz].long()
+    av = a2.val[:nnz].abs()
+    cnt = torch.bincount(col, minlength=n)
+    cut = torch.bincount(col[av >= p.cutoff], minlength=n)
+    floor = int(p.recover_pct * min(p.recover_num, p.select))
+    rec = torch.clamp(cut, max=p.select) < floor
+    want = torch.where(rec, torch.clamp(cnt, max=p.recover_num),
+                       torch.clamp(cut, max=p.select))
+    ocol = out.col[:onnz].long()
+    if not torch.equal(torch.bincount(ocol, minlength=n), want):
+        raise AssertionError("prune: kept counts differ from the rule")
+    key = a2.row[:nnz].long() * n + col
+    okey = out.row[:onnz].long() * n + ocol
+    pos = torch.searchsorted(key, okey).clamp(max=max(nnz - 1, 0))
+    if not (torch.equal(key[pos], okey)
+            and torch.equal(a2.val[:nnz][pos], out.val[:onnz])):
+        raise AssertionError("prune: a kept entry is not an input entry")
+    kept = torch.zeros(nnz, dtype=torch.bool, device=a2.device)
+    kept[pos] = True
+    lo = torch.full((n,), float("inf"), device=a2.device)
+    lo.scatter_reduce_(0, col[kept], av[kept], "amin")
+    hi = torch.full((n,), float("-inf"), device=a2.device)
+    hi.scatter_reduce_(0, col[~kept], av[~kept], "amax")
+    if not bool((lo >= hi).all()):
+        raise AssertionError("prune: a dropped |v| exceeds a kept one")
+    if not bool(((av[kept] >= p.cutoff) | rec[col[kept]]).all()):
+        raise AssertionError("prune: an entry under the cutoff was kept "
+                             "without recovery")
+    return dict(in_nnz=nnz, in_capacity=a2.capacity, out_nnz=onnz,
+                recovered_cols=int((rec & (cnt > 0)).sum()),
+                selected_cols=int((cut > p.select).sum()))
+
+
+#: The iteration of phase 15's checked run whose expansion is also run on
+#: the plain route on the card: the first whose plan froze on the pruned
+#: iterate's capacity (iteration 2 makes that plan, 3 reuses it).
+MCL_PLAIN_ITER = 3
+#: An MCL expansion against scipy (float64) or the plain route: float32
+#: sums of positive terms, folded in another order.
+MCL_EXPAND_RTOL = 1e-5
+
+
+def _same_entries(got, want, label: str, rtol: float) -> float:
+    """Two SpCOOs on one device hold the same live entries: nnz, rows and
+    columns exact, values within ``rtol`` relative (to ``F32_TINY`` for
+    subnormal values).  Returns the largest relative value difference."""
+    nnz = int(want.nnz)
+    if not (int(got.nnz) == nnz
+            and torch.equal(got.row[:nnz], want.row[:nnz])
+            and torch.equal(got.col[:nnz], want.col[:nnz])):
+        raise AssertionError(f"{label}: the entries' keys differ")
+    gv, wv = got.val[:nnz].double(), want.val[:nnz].double()
+    rel = float(((gv - wv).abs() / wv.abs().clamp(min=F32_TINY)).max()) \
+        if nnz else 0.0
+    if not rel <= rtol:
+        raise AssertionError(f"{label}: values differ by {rel} relative")
+    return rel
+
+
+class MCLWatch:
+    """Instruments one ``mcl_local`` run by wrapping what it calls through
+    its module.  With ``light`` only the last iterate is kept, by reference
+    and without a sync, so the loop runs as a user's does.  Otherwise, per
+    iteration: the expansion's seconds, plan and attempts, the prune's
+    seconds, the iterate's nnz, capacity and chaos, each stage ended by a
+    sync (so the split's seconds include those syncs); with ``checks`` the
+    checks above, iteration 1's expansion against scipy and iteration
+    ``MCL_PLAIN_ITER``'s against the same call on the plain route, their
+    seconds taken out of the iteration's; with ``keep``, host copies of
+    each iteration's input and output iterates.  ``last`` is the last
+    iterate, whose structure gives the labels; ``cap`` the loop's iterate
+    capacity bound."""
+
+    def __init__(self, p, checks: bool = False, keep: bool = False,
+                 light: bool = False):
+        self.p, self.checks, self.keep, self.light = p, checks, keep, light
+        self.rows, self.cur = [], self._row()
+        self.last = self.prune = self.cap = None
+
+    @staticmethod
+    def _row():
+        return dict(attempts=0, check_secs=0.0)
+
+    def __enter__(self):
+        from combblas_tpu_torch.models import mcl as mcl_mod
+        from combblas_tpu_torch.ops import spgemm as spgemm_mod
+        names = [(mcl_mod, "chaos")]
+        if not self.light:
+            names += [(mcl_mod, "_mcl_iteration"), (mcl_mod, "spgemm_auto"),
+                      (mcl_mod, "_mcl_prune"), (spgemm_mod, "spgemm_pallas"),
+                      (spgemm_mod, "spgemm_pallas_rowchunked")]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+        orig = {name: fn for _mod, name, fn in self._saved}
+
+        def iteration(a, p, cap, plan):
+            self.cap = cap
+            if self.keep:
+                self.cur["input"] = _host_copy(a)
+            return orig["_mcl_iteration"](a, p, cap, plan)
+
+        def expansion(a, b, *args, **kw):
+            t = time.perf_counter()
+            c = orig["spgemm_auto"](a, b, *args, **kw)
+            _sync(a.device)
+            plan = kw["plan"]
+            self.cur.update(expand_secs=time.perf_counter() - t,
+                            products=spgemm_flops(a, b),
+                            plan=dict(kind=plan["kind"],
+                                      slabs=plan.get("num_slabs"),
+                                      wide=plan.get("wide")))
+            if self.checks:
+                self._check_expansion(orig["spgemm_auto"], a, b, c, args, kw)
+            return c
+
+        def attempt(name):
+            def run(*args, **kw):
+                self.cur["attempts"] += 1
+                return orig[name](*args, **kw)
+            return run
+
+        def prune(a, p, out_capacity):
+            t = time.perf_counter()
+            out = orig["_mcl_prune"](a, p, out_capacity)
+            _sync(a.device)
+            self.cur.update(prune_secs=time.perf_counter() - t,
+                            expanded_nnz=int(a.nnz),
+                            expanded_capacity=a.capacity)
+            if self.checks and self.prune is None:
+                t = time.perf_counter()
+                self.prune = check_prune(a, out, p)
+                self.cur["check_secs"] += time.perf_counter() - t
+            return out
+
+        def chaos(a):
+            self.last = a
+            ch = orig["chaos"](a)
+            if self.light:
+                return ch
+            _sync(a.device)
+            self.cur.update(nnz=int(a.nnz), capacity=a.capacity)
+            if self.keep:
+                self.cur["output"] = _host_copy(a)
+            if self.checks:
+                t = time.perf_counter()
+                self.cur.update(check_iterate(a, self.p))
+                self.cur["check_secs"] += time.perf_counter() - t
+            return ch
+
+        wrappers = dict(_mcl_iteration=iteration, spgemm_auto=expansion,
+                        _mcl_prune=prune, chaos=chaos,
+                        spgemm_pallas=attempt("spgemm_pallas"),
+                        spgemm_pallas_rowchunked=attempt(
+                            "spgemm_pallas_rowchunked"))
+        for mod, name, _fn in self._saved:
+            setattr(mod, name, wrappers[name])
+        return self
+
+    def _check_expansion(self, spgemm_auto, a, b, c, args, kw) -> None:
+        """Iteration 1's A² against scipy's; iteration ``MCL_PLAIN_ITER``'s
+        against the same call (a copy of its held plan) on the plain
+        route, on the card."""
+        it = len(self.rows) + 1
+        t = time.perf_counter()
+        if it == 1:
+            ref, secs = _scipy_square(a)
+            self.cur.update(scipy_rel_diff=check_against_scipy(
+                c, ref, "MCL expansion 1", rtol=MCL_EXPAND_RTOL),
+                scipy_secs=secs)
+        elif it == MCL_PLAIN_ITER:
+            attempts = self.cur["attempts"]
+            ref = spgemm_auto(a, b, *args, **dict(
+                kw, plan=dict(kw["plan"]), plain=True))
+            self.cur.update(attempts=attempts, plain_rel_diff=_same_entries(
+                c, ref, f"MCL expansion {it} vs the plain route",
+                MCL_EXPAND_RTOL))
+        self.cur["check_secs"] += time.perf_counter() - t
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def on_iter(self, it: int, ch: float, secs: float) -> None:
+        self.cur.update(it=it, chaos=ch, secs=secs,
+                        iter_secs=secs - self.cur["check_secs"])
+        self.rows.append(self.cur)
+        self.cur = self._row()
+
+
+def _host_copy(a):
+    """A SpCOO's copy on the CPU."""
+    return dataclasses.replace(a, row=a.row.cpu(), col=a.col.cpu(),
+                               val=a.val.cpu(), nnz=a.nnz.cpu())
+
+
+def run_mcl(a, p, deadline_secs: float | None = None, **watch):
+    """``mcl_local(a, p)`` under an :class:`MCLWatch` made with ``watch``;
+    returns (labels, iterations, watch, wall seconds)."""
+    from combblas_tpu_torch.models.mcl import mcl_local
+
+    with MCLWatch(p, **watch) as w:
+        _sync(a.device)
+        t = time.perf_counter()
+        deadline = None if deadline_secs is None else t + deadline_secs
+        labels, iters = mcl_local(a, p, on_iter=w.on_iter, deadline=deadline)
+        _sync(a.device)
+        wall = time.perf_counter() - t
+    return labels, iters, w, wall
+
+
+def check_labels(labels, a) -> int:
+    """The labels equal scipy's connected components of the iterate's
+    structure (weakly connected, as the port merges A with its transpose),
+    each mapped to the component's least vertex id.  Returns the number of
+    clusters."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    if int(a.nnz) > a.capacity:
+        raise AssertionError(f"iterate nnz {int(a.nnz)} past its capacity "
+                             f"{a.capacity}: entries were dropped")
+    row, col, _val, nnz, shape = a.to_numpy()
+    n = shape[0]
+    g = coo_matrix((np.ones(nnz, np.int8), (row[:nnz], col[:nnz])),
+                   shape=shape).tocsr()
+    ncomp, comp = connected_components(g, directed=True, connection="weak")
+    least = np.full(ncomp, n, np.int64)
+    np.minimum.at(least, comp, np.arange(n))
+    if not np.array_equal(labels.cpu().numpy().astype(np.int64),
+                          least[comp]):
+        raise AssertionError("MCL labels differ from scipy's components")
+    return int(ncomp)
+
+
+def mcl_step_syncs(a, p, cap: int) -> dict:
+    """The host syncs (CUDA sync debug mode's warnings) of one
+    ``mcl_local`` iteration from iterate ``a`` with its plan held, as the
+    loop runs it, by stage: expansion, prune, and inflation +
+    normalisation + chaos."""
+    from combblas_tpu_torch.models import mcl
+
+    plan = {}
+    mcl._mcl_iteration(a, p, cap, plan)
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def syncs():
+            return sum("synchroniz" in str(w.message) for w in caught)
+
+        def after(fn):
+            def run(*args, **kw):
+                out = fn(*args, **kw)
+                seen.append(syncs())
+                return out
+            return run
+
+        saved = [(name, getattr(mcl, name))
+                 for name in ("spgemm_auto", "_mcl_prune")]
+        for name, fn in saved:
+            setattr(mcl, name, after(fn))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mcl._mcl_iteration(a, p, cap, plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for name, fn in saved:
+                setattr(mcl, name, fn)
+        total = syncs()
+    expand, prune = seen
+    return dict(expand=expand, prune=prune - expand, rest=total - prune)
+
+
+def _mcl_steps(rows, p, cap: int) -> dict:
+    """Each card iteration's step (``_mcl_iteration``, the loop's own
+    body) again on the CPU (plain versions) from the card's own input
+    iterate.  The output iterate's nnz and keys must be equal, its values
+    within 1e-5 relative, its chaos within 1e-5 (chaos is a column max less
+    a column sum of squares, each at most 1: its rounding error is
+    absolute)."""
+    from combblas_tpu_torch.models.mcl import _mcl_iteration
+
+    val_rel, chaos_abs = [], []
+    for r in rows:
+        want, ch = _mcl_iteration(r["input"], p, cap, {})
+        val_rel.append(_same_entries(
+            r["output"], want, f"MCL step {r['it']}, card vs CPU", 1e-5))
+        chaos_abs.append(abs(r["chaos"] - ch))
+    if max(chaos_abs) > 1e-5:
+        raise AssertionError(f"MCL steps, card vs CPU: chaos {chaos_abs}")
+    return dict(step_val_max_rel_diff=max(val_rel),
+                step_chaos_max_abs_diff=max(chaos_abs))
+
+
+def _chaos_diffs(x, y):
+    rel = max(abs(a - b) / abs(b) if b else abs(a) for a, b in zip(x, y))
+    return rel, max(abs(a - b) for a, b in zip(x, y))
+
+
+def mcl_card_vs_cpu(seed: int, dev, scale: int = MCL_CHECK_SCALE,
+                    params: dict = MCL_PARAMS) -> dict:
+    """``mcl_local`` with ``params`` on the card against the same call on
+    CPU tensors (the plain versions), on an SSCA graph whose values are
+    seeded uniform(0.5, 1.5) weights, so that no two entries tie and no
+    select boundary rests on the kernels' summation order: no iterate past
+    its capacity (where one is, ``_compact`` drops entries and the runs
+    part), iterations, the nnz of every iterate and the labels exact, and
+    the card run launches the narrow expansion and compress (K1, K2) at
+    least once an iteration.
+    Chaos is held step by step (:func:`_mcl_steps`); whole-run chaos
+    differences, card against CPU and against a second card run, are
+    reported, not held: over whole runs MCL's inflation amplifies last-bit
+    differences (the card's folds and atomics sum in other orders)."""
+    from combblas_tpu_torch.models.mcl import MCLParams
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    g = mcl_graph(seed, dev, scale)
+    row, col, _val, nnz, shape = g.to_numpy()
+    val = np.zeros(g.capacity, np.float32)
+    val[:nnz] = np.random.default_rng(seed).uniform(0.5, 1.5, nnz)
+    p = MCLParams(**params)
+    runs = {}
+    for name, d in (("card", dev), ("card_again", dev),
+                    ("cpu", torch.device("cpu"))):
+        a = SpCOO.from_numpy(row, col, val, nnz, shape, device=d)
+        _sync(d)
+        reset_launches()
+        labels, iters, w, wall = run_mcl(a, p, keep=name == "card")
+        runs[name] = dict(labels=labels.cpu(), iters=iters, wall=wall,
+                          rows=w.rows, cap=w.cap,
+                          nnz=[r["nnz"] for r in w.rows],
+                          chaos=[r["chaos"] for r in w.rows],
+                          plans=[r["plan"] for r in w.rows],
+                          launches={k: v for k, v in LAUNCHES.items() if v})
+    for name, r in runs.items():
+        if max(r["nnz"]) > r["cap"]:
+            raise AssertionError(f"MCL {name} run: an iterate of "
+                                 f"{max(r['nnz'])} entries passed its "
+                                 f"capacity {r['cap']}")
+    card, cpu = runs["card"], runs["cpu"]
+    launches = card["launches"]
+    if not all(launches.get(k, 0) >= card["iters"]
+               for k in ("expand_i32", "compress_i32")):
+        raise AssertionError(f"MCL card run of {card['iters']} iterations "
+                             f"launched {launches}")
+    for other in ("card_again", "cpu"):
+        o = runs[other]
+        if card["iters"] != o["iters"] or card["nnz"] != o["nnz"]:
+            raise AssertionError(f"MCL card vs {other}: iterations "
+                                 f"{card['iters']} vs {o['iters']}, nnz "
+                                 f"{card['nnz']} vs {o['nnz']}")
+        if not torch.equal(card["labels"], o["labels"]):
+            raise AssertionError(f"MCL card vs {other}: labels differ")
+    t = time.perf_counter()
+    steps = _mcl_steps(card["rows"], p, card["cap"])
+    rel, absd = _chaos_diffs(card["chaos"], cpu["chaos"])
+    rel2, abs2 = _chaos_diffs(runs["card_again"]["chaos"], card["chaos"])
+    out = dict(scale=scale, nnz=int(nnz), params=params,
+               iters=card["iters"], iterate_nnz=card["nnz"],
+               capacity_bound=card["cap"], plans=card["plans"],
+               launches=launches,
+               chaos_card=card["chaos"], chaos_cpu=cpu["chaos"],
+               chaos_max_rel_diff=rel, chaos_max_abs_diff=absd,
+               card_rerun_chaos_max_rel_diff=rel2,
+               card_rerun_chaos_max_abs_diff=abs2,
+               card_secs=card["wall"], cpu_secs=cpu["wall"],
+               step_check_secs=time.perf_counter() - t,
+               clusters=int(torch.unique(card["labels"]).numel()), **steps)
+    log(f"  card vs CPU, scale {scale}: {card['iters']} iterations, nnz "
+        f"and labels equal (and on a second card run); card launches "
+        f"{launches}; one step from the card's iterate: values "
+        f"{steps['step_val_max_rel_diff']:.3g} rel, chaos "
+        f"{steps['step_chaos_max_abs_diff']:.3g} abs; whole runs: chaos "
+        f"{rel:.3g} rel ({absd:.3g} abs), card against card {rel2:.3g} "
+        f"({abs2:.3g}); card {card['wall']:.2f} s, CPU {cpu['wall']:.2f} s")
+    return out
+
+
+def _expand_compress_launches(launches: dict, label: str) -> None:
+    """Every expansion launch has its compress, and there is one."""
+    pairs = [(launches.get(f"expand_{w}", 0), launches.get(f"compress_{w}",
+                                                           0))
+             for w in ("i32", "i64")]
+    if sum(e for e, _ in pairs) < 1 or any(e != c for e, c in pairs):
+        raise AssertionError(f"{label} launched {launches}")
+
+
+def mcl_full(a) -> dict:
+    """Phase 15: ``bench_mcl`` on the card, twice.  The timed run is
+    ``mcl_local`` as a user calls it (``on_iter`` alone): its seconds, the
+    expansion and compress launches read around it, peak memory, and its
+    labels against scipy.  The checked run, under :class:`MCLWatch` for as
+    many iterations, splits each iteration by stage (each stage ended by a
+    sync) and checks every iterate, the first prune against the rule,
+    iteration 1's expansion against scipy, iteration ``MCL_PLAIN_ITER``'s
+    against the plain route, and its labels against scipy."""
+    from combblas_tpu_torch.models.mcl import MCLParams
+
+    p = MCLParams(**MCL_PARAMS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    labels, iters, lw, wall = run_mcl(a, p, MCL_DEADLINE_SECS, light=True)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    _expand_compress_launches(launches, "MCL")
+    t = time.perf_counter()
+    clusters = check_labels(labels, lw.last)
+    label_check_secs = time.perf_counter() - t
+    timed = lw.rows
+    del labels, lw
+    torch.cuda.empty_cache()
+    pc = dataclasses.replace(p, max_iters=int(iters))
+    reset_launches()
+    labels, iters_c, w, wall_c = run_mcl(a, pc, checks=True)
+    launches_c = {k: v for k, v in LAUNCHES.items() if v}
+    _expand_compress_launches(launches_c, "MCL (checked run)")
+    clusters_c = check_labels(labels, w.last)
+    syncs = mcl_step_syncs(w.last, p, w.cap)
+    rows = w.rows
+    secs = [r["secs"] for r in timed]
+    steady = sorted(secs[2:] or secs)
+    chaos = [r["chaos"] for r in timed]
+    out = dict(
+        scale=MCL_SCALE, nnz=int(a.nnz), iters=int(iters),
+        converged=bool(chaos[-1] < p.eps),
+        first_iter_secs=secs[0], steady_secs_per_iter=steady[len(steady) // 2],
+        total_secs=wall, clusters=clusters,
+        params=dict(MCL_PARAMS, eps=p.eps, cutoff=p.cutoff,
+                    inflation=p.inflation),
+        deadline_secs=MCL_DEADLINE_SECS, chaos=chaos, iter_secs=secs,
+        launches=launches, peak_mem_gb=peak / 2**30,
+        label_check_secs=label_check_secs,
+        checked_run=dict(
+            iters=int(iters_c), clusters=clusters_c,
+            same_as_timed=bool(iters_c == iters and clusters_c == clusters),
+            chaos=[r["chaos"] for r in rows],
+            iterate_nnz=[r["nnz"] for r in rows],
+            iterate_capacity=[r["capacity"] for r in rows],
+            capacity_bound=w.cap,
+            expanded_nnz=[r["expanded_nnz"] for r in rows],
+            expanded_capacity=[r["expanded_capacity"] for r in rows],
+            products=[r["products"] for r in rows],
+            plans=[r["plan"] for r in rows],
+            retries=[r["attempts"] - 1 for r in rows],
+            iter_secs_with_syncs=[r["iter_secs"] for r in rows],
+            expand_secs=[r["expand_secs"] for r in rows],
+            prune_secs=[r["prune_secs"] for r in rows],
+            check_secs=[r["check_secs"] for r in rows],
+            total_secs_with_checks=wall_c,
+            longest_col=[r["longest_col"] for r in rows],
+            max_col_sum_err=max(r["max_col_sum_err"] for r in rows),
+            first_prune=w.prune,
+            expansion1_scipy_rel_diff=rows[0]["scipy_rel_diff"],
+            expansion1_scipy_secs=rows[0]["scipy_secs"],
+            plain_iter=MCL_PLAIN_ITER,
+            plain_rel_diff=rows[MCL_PLAIN_ITER - 1]["plain_rel_diff"],
+            launches=launches_c, syncs_per_iter=syncs))
+    c = out["checked_run"]
+    split = sum(c["expand_secs"]) / sum(c["iter_secs_with_syncs"])
+    log(f"  timed run: {iters} iterations, converged {out['converged']}, "
+        f"{clusters} clusters (equal scipy's); first {secs[0]:.4f} s, "
+        f"steady {out['steady_secs_per_iter']:.4f} s/iter, total "
+        f"{wall:.3f} s; launches {launches}; peak {peak / 2**30:.2f} GiB")
+    log(f"  checked run: {iters_c} iterations, {clusters_c} clusters "
+        f"(equal scipy's); {split:.1%} of its synced iterations in the "
+        f"expansion; every iterate and the first prune checked; expansion "
+        f"1 vs scipy {c['expansion1_scipy_rel_diff']:.3g} rel (scipy "
+        f"{c['expansion1_scipy_secs']:.1f} s), expansion {MCL_PLAIN_ITER} "
+        f"vs the plain route {c['plain_rel_diff']:.3g} rel; host syncs an "
+        f"iteration {syncs}")
+    return out
+
+
+def _scipy_block(a, v):
+    """A[v][:, v] by scipy on the host, float64, sorted indices."""
+    import scipy.sparse as sp
+
+    row, col, val, nnz, shape = a.to_numpy()
+    s = sp.csr_matrix((val[:nnz].astype(np.float64), (row[:nnz], col[:nnz])),
+                      shape=shape)
+    c = s[v][:, v].tocsr()
+    c.sort_indices()
+    return c
+
+
+def indexing_full(a, seed: int) -> dict:
+    """Phase 16: ``spref`` (P·A·Q through ``spgemm_auto``) and
+    ``induced_subgraph`` of the scale-17 graph on a seeded half of its
+    vertices, each equal to scipy's ``A[v][:, v]``: keys and values exact
+    (every value a count of duplicate edges, each output one product)."""
+    from combblas_tpu_torch.ops.indexing import induced_subgraph, spref
+
+    n = a.shape[0]
+    v = np.random.default_rng(seed).permutation(n)[:n // 2]
+    ref = _scipy_block(a, v)
+    out = dict(scale=MCL_SCALE, vertices=len(v), nnz_ref=int(ref.nnz))
+    calls = {"spref": lambda: spref(a, v, v),
+             "induced_subgraph": lambda: induced_subgraph(a, v)}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        c = call()
+        nnz = int(c.nnz)
+        secs = time.perf_counter() - t
+        launches = {k: cnt for k, cnt in LAUNCHES.items() if cnt}
+        check_against_scipy(c, ref, name)
+        out[name] = dict(secs=secs, nnz=nnz, capacity=c.capacity,
+                         launches=launches)
+        del c
+    _expand_compress_launches(out["spref"]["launches"], "spref")
+    log(f"  spref {out['spref']['secs']:.3f} s, launches "
+        f"{out['spref']['launches']}; induced_subgraph "
+        f"{out['induced_subgraph']['secs']:.3f} s; both equal scipy's "
+        f"A[v][:, v] ({ref.nnz} entries)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1379,6 +1996,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_secs["14"] = time.perf_counter() - t
 
+    # 15. MCL at full size, then card against CPU
+    t = time.perf_counter()
+    log(f"phase 15: mcl_local, bench_mcl's configuration, scale-{MCL_SCALE}"
+        f" SSCA ef-{MCL_EDGEFACTOR} R-MAT, {MCL_DEADLINE_SECS:.0f} s budget")
+    a_mcl = mcl_graph(args.seed, dev, MCL_SCALE)
+    mcl_line = mcl_full(a_mcl)
+    torch.cuda.empty_cache()
+    mcl_line["card_vs_cpu"] = mcl_card_vs_cpu(args.seed, dev)
+    log(json.dumps(mcl_line))
+    phase_secs["15"] = time.perf_counter() - t
+
+    # 16. indexing: spref (K1/K2) and induced_subgraph
+    t = time.perf_counter()
+    log(f"phase 16: spref and induced_subgraph of the scale-{MCL_SCALE} "
+        f"graph on half its vertices")
+    index_line = indexing_full(a_mcl, args.seed)
+    log(json.dumps(index_line))
+    del a_mcl
+    torch.cuda.empty_cache()
+    phase_secs["16"] = time.perf_counter() - t
+
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
                     ell_max=bfs_line["ell_max_launches"],
@@ -1396,6 +2034,12 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name in KERNELS]
+    for k in kernels:    # K1-K4 also carry the MCL and spref paths
+        if k["name"] in ("expand_i32", "compress_i32", "expand_i64",
+                         "compress_i64"):
+            k.update(launches_mcl=mcl_line["launches"].get(k["name"], 0),
+                     launches_spref=index_line["spref"]["launches"].get(
+                         k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")
@@ -1404,7 +2048,8 @@ def main() -> int:
     details.update(kernels=kernels, phase3=k3, phase6=k6, spmm=spmm_line,
                    bfs=bfs_line, phase9=k9, narrow=narrow_line,
                    auto=auto_line, phase12=k12, summa=summa_line,
-                   ring_3d=ring_line, phase_secs=phase_secs)
+                   ring_3d=ring_line, mcl=mcl_line, indexing=index_line,
+                   phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

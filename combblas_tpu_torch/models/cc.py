@@ -1,0 +1,59 @@
+"""Connected components by FastSV, the local half (port of
+``combblas_tpu/models/cc.py``).
+
+The parent vector is a dense int32 tensor; one iteration is:
+
+    gf   = f[f]                                   (grandparent gather)
+    y[u] = min over neighbors v of gf[v]          (SpMV over (min, select2nd))
+    f[f[u]] <- min(f[f[u]], y[u])                 (stochastic hooking)
+    f[u]    <- min(f[u],    y[u])                 (aggressive hooking)
+    f       <- f[f]                               (shortcutting)
+
+until f stops changing: a Python loop with one host read a round.  The
+distributed ``fastsv_dist`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from combblas_tpu_torch.ops.coo import SpCOO
+from combblas_tpu_torch.ops.spmv import spmv
+from combblas_tpu_torch.semiring import MIN_SECOND
+
+__all__ = ["fastsv_local", "count_components"]
+
+
+def _fastsv_body(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Hook and shortcut given the neighbor-grandparent minima y."""
+    fl = f.long()
+    y = torch.minimum(y, f[fl])  # never regress; empty rows hold +inf
+    f = f.scatter_reduce(0, fl, y, "amin")  # stochastic hooking
+    f = torch.minimum(f, y)  # aggressive hooking onto self
+    return f[f.long()]  # shortcutting
+
+
+def fastsv_local(a: SpCOO) -> torch.Tensor:
+    """Component labels (min vertex id per component) of a symmetric graph,
+    on the graph's device."""
+    n = a.shape[0]
+    f = torch.arange(n, dtype=torch.int32, device=a.device)
+    while True:
+        y = spmv(a, f[f.long()], MIN_SECOND)  # min over neighbors' gf
+        fn = _fastsv_body(f, y)
+        changed = bool((fn != f).any())
+        f = fn
+        if not changed:
+            return f
+
+
+def count_components(labels, n: int | None = None) -> int:
+    """Host helper: number of distinct component labels among the first n
+    vertices."""
+    if isinstance(labels, torch.Tensor):
+        labels = labels.cpu().numpy()
+    labels = np.asarray(labels)
+    if n is not None:
+        labels = labels[:n]
+    return int(np.unique(labels).size)

@@ -635,7 +635,7 @@ def _kernel_ok(a: SpCOO, b: SpCOO) -> bool:
 def spgemm_auto(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
                 max_flops_cap: int = 1 << 24, out_capacity: int | None = None,
                 nnz_estimate: int | None = None,
-                plan: dict | None = None) -> SpCOO:
+                plan: dict | None = None, plain: bool = False) -> SpCOO:
     """Host-driven dispatcher: single pass when the expansion fits, row
     slabs otherwise, with estimate-and-retry output sizing.
 
@@ -651,7 +651,8 @@ def spgemm_auto(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     While the operands' capacities and shapes match and the product count
     stays within ``[flops_ok/64, flops_ok]``, later calls reuse it; a fresh
     plan freezes 1.5x the current products (and chunk headroom) when a dict
-    is given."""
+    is given.  ``plain=True`` runs the kernel routes' plain versions (the
+    reference run)."""
     max_flops_cap = min(max_flops_cap, SORT_ELEM_LIMIT)
     dense_cells = a.shape[0] * b.shape[1]
     key = (int(a.capacity), int(b.capacity), a.shape, b.shape,
@@ -666,11 +667,12 @@ def spgemm_auto(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     while True:
         if plan["kind"] == "pallas":
             c = spgemm_pallas(a, b, sr, chunk_cap=plan["chunk_cap"],
-                              out_capacity=out_cap, stream_cap=plan["scap"])
+                              out_capacity=out_cap, stream_cap=plan["scap"],
+                              plain=plain)
         elif plan["kind"] == "pallas_slabs":
             c = spgemm_pallas_rowchunked(
                 a, b, sr, num_slabs=plan["num_slabs"], out_capacity=out_cap,
-                wide=plan["wide"])
+                wide=plan["wide"], plain=plain)
         elif plan["kind"] == "sort":
             check_sort_limit(plan["flops_cap"], "ESC expansion")
             c = spgemm(a, b, sr, flops_cap=plan["flops_cap"],

@@ -596,3 +596,80 @@ def test_summa_kernel_routes_on_card_match_plain(cuda, impl):
     assert LAUNCHES[f"expand_{tag}"] == before[f"expand_{tag}"] + 4
     assert LAUNCHES[f"compress_{tag}"] == before[f"compress_{tag}"] + 4
     _same_blocks(got, summa_spgemm(ops["cpu"], ops["cpu"], **kw))
+
+
+def _local_op_cases():
+    """The local ops of the MCL slice, each a function of a SpCOO on some
+    device, returning tensors or a SpCOO."""
+    import torch as t
+
+    from combblas_tpu_torch.models import cc, mcl
+    from combblas_tpu_torch.ops import ewise, indexing, kselect, reduce
+    from combblas_tpu_torch.semiring import MAX_FIRST, MIN_PLUS
+
+    def other(a):
+        return ewise.apply_values(indexing.remove_loops(a), lambda v: v * 2)
+
+    return {
+        "reduce_sum": lambda a: reduce.reduce_dim(a, "col"),
+        "reduce_min": lambda a: reduce.reduce_dim(a, "row", MIN_PLUS),
+        "reduce_max": lambda a: reduce.reduce_dim(a, "col", MAX_FIRST),
+        "nnz_per": lambda a: reduce.nnz_per(a, "row"),
+        "prune": lambda a: ewise.prune(a, lambda v: v < 1.5),
+        "ewise_union": lambda a: ewise.add(a, other(a)),
+        "ewise_intersect": lambda a: ewise.ewise_mult(a, other(a)),
+        "set_difference": lambda a: ewise.set_difference(a, other(a)),
+        "col_rank": kselect.col_rank,
+        "kselect_col": lambda a: kselect.kselect_col(a, 3),
+        "select_top_k": lambda a: kselect.select_top_k_per_col(a, 2),
+        "fastsv": cc.fastsv_local,
+        "stochastic": mcl.make_col_stochastic,
+        "chaos": lambda a: mcl.chaos(mcl.make_col_stochastic(a)),
+        "mcl_prune": lambda a: mcl._mcl_prune(
+            mcl.make_col_stochastic(a),
+            mcl.MCLParams(select=3, recover_num=5, cutoff=0.2), a.capacity),
+        "spref": lambda a: indexing.spref(a, [5, 1, 1, 40], [0, 7, 7, 63]),
+        "induced_subgraph": lambda a: indexing.induced_subgraph(
+            a, t.arange(0, 64, 3)),
+        "add_loops": indexing.add_loops,
+        "prune_ktips": lambda a: indexing.prune_ktips(a, 4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_local_op_cases()))
+def test_local_ops_on_card_match_cpu(cuda, name):
+    """Each local op on CUDA tensors equals the same call on CPU tensors:
+    structure exact, values within 1e-6 (sums fold in other orders)."""
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    rng = np.random.default_rng(21)
+    d = (rng.random((64, 64)) < 0.1) * rng.integers(1, 4, (64, 64))
+    d = np.maximum(d, d.T).astype(np.float32)
+    r, c = np.nonzero(d)
+    fn = _local_op_cases()[name]
+    got, want = (fn(SpCOO.from_arrays(r, c, d[r, c], d.shape, device=dev))
+                 for dev in (cuda, "cpu"))
+    if isinstance(want, SpCOO):
+        assert int(got.nnz) == int(want.nnz) and got.capacity == want.capacity
+        assert torch.equal(got.row.cpu(), want.row)
+        assert torch.equal(got.col.cpu(), want.col)
+        got, want = got.val, want.val
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_mcl_card_matches_cpu(cuda):
+    """chip_smoke's phase-15 card-against-CPU MCL run at scale 10: the same
+    iterations, nnz per iteration and labels, and each step redone on the
+    CPU from the card's iterate within 1e-5; the card run goes through the
+    expansion and compress kernels (single pass, K1 and K2) at least once
+    an iteration, which the call itself holds and returns.  Select 72, not
+    64: at this scale a select-64 iterate passes its capacity (select a
+    column, as the JAX package sizes it) and the runs part."""
+    import chip_smoke
+
+    out = chip_smoke.mcl_card_vs_cpu(
+        5, cuda, scale=10, params=dict(select=72, recover_num=80))
+    assert out["iters"] >= 3
+    for name in ("expand_i32", "compress_i32"):
+        assert out["launches"][name] >= out["iters"]
