@@ -72,7 +72,32 @@ Phases, each raising on failure:
      1e-5;
  16. ``spref`` (P·A·Q through ``spgemm_auto``: the expansion and compress
      kernels) and ``induced_subgraph`` of the scale-17 graph on a seeded
-     half of its vertices, both equal to scipy's ``A[v][:, v]``.
+     half of its vertices, both equal to scipy's ``A[v][:, v]``;
+ 17. (run after phase 8, on its graph) the distributed SpMV and the
+     algorithms on it, the scale-21 symmetrized graph on a 4x4 block grid:
+     ``dist_spmv`` PLUS_TIMES against ``torch.sparse.mm`` (rtol 1e-4) and
+     MIN_SECOND against the single-device ``spmv`` (exact); ``bfs_dist``
+     and ``bfs_dir_opt_dist`` from 4 of phase 8's roots, Graph500-validated
+     and with phase 8's levels; ``fastsv_dist`` and ``lacc_dist`` equal to
+     ``fastsv_local`` and the component count to scipy's; ``luby_mis_dist``
+     independent and maximal against the edge list;
+ 18. distributed HipMCL: ``mcl_dist`` on phase 15's graph with self loops,
+     select 64, recover_num 80, on a 4x4 grid, ``phases=1`` (the packed
+     route: K1 and K2 at least once each an iteration).  A timed run as a
+     user calls it (labels against scipy's components of the last
+     iterate); a checked run (every iterate column-stochastic within its
+     capacity, iteration 1's expansion equal to scipy's A @ A and its
+     prune to the threshold rule computed on the host, the labels);
+     ``phases=2`` against ``phases=1`` for 3 iterations: each step from the
+     same iterate gives the same expansion keys, values within 1e-6, and
+     the same prune but for ties at a column's threshold broken by
+     rounding (the compress kernel's sums associate as the stream's layout
+     falls); after 3 iterations at most 1 % of the columns differ, the
+     keys that differ reported; then scale 12 on a 2x2 grid, card against CPU
+     (iterations, nnz and labels exact, each step redone on the CPU within
+     1e-5; on the CPU 2 phases give the 1-phase iterate after 3
+     iterations) and the ``layers=2`` route on a (2, 2, 2) grid with the 2D
+     run's partition.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -149,7 +174,7 @@ from combblas_tpu_torch.ops.spmm_kernel import (
     spmm_pallas,
 )
 from combblas_tpu_torch.ops.spmv import spmm
-from combblas_tpu_torch.parallel.dist import DistSpMat
+from combblas_tpu_torch.parallel.dist import DistSpMat, _live_entries
 from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.profile_summa import grid_cells
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_PLUS, PLUS_TIMES
@@ -856,6 +881,7 @@ def bfs_full(g: dict, seed: int) -> dict:
     for i, r in enumerate(roots[:4]):
         if not validate_bfs(s, int(r), p[i], lv[i]):
             raise AssertionError(f"BFS from root {r} does not validate")
+    g["bfs_check"] = (roots[:DIST_BFS_ROOTS], lv[:DIST_BFS_ROOTS].clone())
     for i, r in enumerate(roots[:2]):
         pp, pl = bfs_push_local(s, int(r))
         if not torch.equal(pl, lv[i]):
@@ -1855,6 +1881,847 @@ def indexing_full(a, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phases 17-18 --
+
+#: The block grid of phases 17 and 18's full-size runs (side x side).
+DIST_SIDE = 4
+#: Roots of phase 8 that phase 17 runs both distributed BFS variants from.
+DIST_BFS_ROOTS = 4
+
+
+def _edges_in_component(deg, levels) -> int:
+    """Graph500's edge count of a search: the undirected edges of the
+    vertices it reached."""
+    return int((deg * (levels >= 0)).sum()) // 2
+
+
+def _fold_routes_ms(dm, live, x) -> dict:
+    """``dist_spmv`` PLUS_TIMES's fold of the products into the blocks'
+    partials, timed by route on the same products: ``segment_reduce`` over
+    the ascending segment ids (the route taken) and
+    ``index_put_(accumulate=True)`` (which sorts them first); the two
+    results within 1e-5 relative of each other (each folds a segment in
+    its own fixed order)."""
+    pr, pc = dm.grid.pr, dm.grid.pc
+    mb, nb = dm.block_shape()
+    bid, r, c, v = live
+    xp = torch.zeros(pc * nb, dtype=x.dtype, device=x.device)
+    xp[:x.shape[0]] = x
+    prod = v * xp[(bid % pc) * nb + c.clamp(max=nb - 1)]
+    seg = bid * mb + r
+    num = pr * pc * mb
+
+    def by_segments():
+        return torch.segment_reduce(prod, "sum", lengths=torch.bincount(
+            seg, minlength=num), unsafe=True)
+
+    def by_index_put():
+        return torch.zeros(num, dtype=prod.dtype, device=prod.device
+                           ).index_put_((seg,), prod, accumulate=True)
+
+    torch.testing.assert_close(by_segments(), by_index_put(), rtol=1e-5,
+                               atol=1e-6)
+    return dict(fold_segment_reduce=cuda_ms(by_segments),
+                fold_index_put=cuda_ms(by_index_put))
+
+
+def dist_graph_full(s, roots, want_levels, seed: int) -> dict:
+    """Phase 17: the distributed SpMV and the algorithms on it, on ``s``
+    (phase 8's graph) distributed over a 4x4 block grid of the card.
+    ``dist_spmv`` PLUS_TIMES against ``torch.sparse.mm`` (rtol 1e-4) and
+    MIN_SECOND against the single-device ``spmv`` (exact); ``bfs_dist`` and
+    ``bfs_dir_opt_dist`` from ``roots``, each Graph500-validated, with
+    levels equal to ``want_levels`` (phase 8's); ``fastsv_dist`` and
+    ``lacc_dist`` labels equal to ``fastsv_local``'s and the component
+    count equal to scipy's; ``luby_mis_dist`` independent and maximal,
+    checked on the host against the edge list."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from combblas_tpu_torch.models import bfs as bfs_mod
+    from combblas_tpu_torch.models.cc import (
+        count_components,
+        fastsv_dist,
+        fastsv_local,
+    )
+    from combblas_tpu_torch.models.lacc import lacc_dist
+    from combblas_tpu_torch.models.mis import luby_mis_dist
+    from combblas_tpu_torch.ops.spmv import spmv
+    from combblas_tpu_torch.parallel.spmv import dist_spmv
+    from combblas_tpu_torch.semiring import MIN_SECOND
+
+    dev = s.device
+    n = s.shape[0]
+    _sync(dev)
+    t = time.perf_counter()
+    dm = DistSpMat.from_local(s, ProcGrid.make(DIST_SIDE, DIST_SIDE,
+                                               device=dev))
+    _sync(dev)
+    out = dict(n=n, nnz=int(s.nnz), grid=[DIST_SIDE, DIST_SIDE],
+               block_capacity=dm.capacity,
+               block_imbalance=float(dm.load_imbalance()),
+               distribute_secs=time.perf_counter() - t)
+    # SpMV
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(n, generator=gen, device=dev)
+    csr = _csr(s)
+    y = dist_spmv(dm, x)
+    torch.testing.assert_close(y[:n], torch.sparse.mm(csr, x[:, None])[:, 0],
+                               rtol=1e-4, atol=1e-6)
+    if not torch.equal(dist_spmv(dm, x), y):
+        raise AssertionError("dist_spmv PLUS_TIMES: two calls differ")
+    xi = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    if not torch.equal(dist_spmv(dm, xi, MIN_SECOND)[:n],
+                       spmv(s, xi, MIN_SECOND)):
+        raise AssertionError("dist_spmv MIN_SECOND differs from spmv")
+    live = _live_entries(dm)
+    out["spmv_ms"] = dict(
+        dist_plus_times=cuda_ms(lambda: dist_spmv(dm, x)),
+        dist_plus_times_live=cuda_ms(lambda: dist_spmv(dm, x, live=live)),
+        dist_min_second=cuda_ms(lambda: dist_spmv(dm, xi, MIN_SECOND)),
+        local_plus_times=cuda_ms(lambda: spmv(s, x)),
+        torch_sparse_mm=cuda_ms(lambda: torch.sparse.mm(csr, x[:, None])),
+        **_fold_routes_ms(dm, live, x))
+    del csr, live, y
+    # BFS from phase 8's roots
+    rp = s.row_ptr()
+    deg = rp[1:] - rp[:-1]
+    pulls = []
+    pull = bfs_mod.dist_bfs_pull_masked
+
+    def counted(*args, **kw):
+        pulls.append(1)
+        return pull(*args, **kw)
+
+    out["bfs"] = []
+    bfs_mod.dist_bfs_pull_masked = counted
+    try:
+        for i, r in enumerate(roots):
+            for name, fn in (("bfs_dist", bfs_mod.bfs_dist),
+                             ("bfs_dir_opt_dist", bfs_mod.bfs_dir_opt_dist)):
+                pulls.clear()
+                _sync(dev)
+                t = time.perf_counter()
+                par, lv = fn(dm, int(r))
+                _sync(dev)
+                secs = time.perf_counter() - t
+                par, lv = par[:n], lv[:n]
+                if not validate_bfs(s, int(r), par, lv):
+                    raise AssertionError(f"{name} from {r} does not "
+                                         "validate")
+                if not torch.equal(lv, want_levels[i]):
+                    raise AssertionError(f"{name} from {r}: levels differ "
+                                         "from phase 8's")
+                levels = int(lv.max()) + 1
+                edges = _edges_in_component(deg, lv)
+                out["bfs"].append(dict(
+                    fn=name, root=int(r), levels=levels,
+                    pull_levels=len(pulls), push_levels=levels - len(pulls),
+                    secs=secs, edges=edges, teps=edges / secs))
+    finally:
+        bfs_mod.dist_bfs_pull_masked = pull
+    # components
+    _sync(dev)
+    secs = {}
+    labels = {}
+    for name, fn in (("fastsv_local", lambda: fastsv_local(s)),
+                     ("fastsv_dist", lambda: fastsv_dist(dm)[:n]),
+                     ("lacc_dist", lambda: lacc_dist(dm)[:n])):
+        t = time.perf_counter()
+        labels[name] = fn()
+        _sync(dev)
+        secs[name] = time.perf_counter() - t
+    for name in ("fastsv_dist", "lacc_dist"):
+        if not torch.equal(labels[name], labels["fastsv_local"]):
+            raise AssertionError(f"{name} labels differ from fastsv_local's")
+    row, col, _v, nnz, _shape = s.to_numpy()
+    g = coo_matrix((np.ones(nnz, np.int8), (row[:nnz], col[:nnz])),
+                   shape=(n, n)).tocsr()
+    ncomp = int(connected_components(g, directed=False)[0])
+    if count_components(labels["fastsv_local"]) != ncomp:
+        raise AssertionError("component count differs from scipy's")
+    out["components"] = dict(count=ncomp, secs=secs)
+    # MIS
+    _sync(dev)
+    t = time.perf_counter()
+    mis = luby_mis_dist(dm, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    mis_secs = time.perf_counter() - t
+    in_set = mis[:n].cpu().numpy()
+    r_, c_ = row[:nnz], col[:nnz]
+    if (in_set[r_] & in_set[c_]).any():
+        raise AssertionError("luby_mis_dist: an edge inside the set")
+    covered = in_set.copy()
+    covered[r_[in_set[c_]]] = True
+    if not covered.all():
+        raise AssertionError("luby_mis_dist: the set is not maximal")
+    out["mis"] = dict(size=int(in_set.sum()), secs=mis_secs)
+    b = out["bfs"]
+    log(f"  4x4 grid: block capacity {dm.capacity}, imbalance "
+        f"{out['block_imbalance']:.3f}, distributed in "
+        f"{out['distribute_secs']:.2f} s; dist_spmv "
+        f"{out['spmv_ms']['dist_plus_times']:.3f} ms (spmv "
+        f"{out['spmv_ms']['local_plus_times']:.3f}, torch.sparse.mm "
+        f"{out['spmv_ms']['torch_sparse_mm']:.3f}), equal to both")
+    for r in b:
+        log(f"  {r['fn']} root {r['root']}: {r['levels']} levels "
+            f"({r['push_levels']} push, {r['pull_levels']} pull), "
+            f"{r['secs']:.4f} s, {r['teps'] / 1e9:.3f} GTEPS; validates, "
+            f"levels equal phase 8's")
+    log(f"  components: {ncomp} (scipy's), fastsv_dist and lacc_dist equal "
+        f"fastsv_local; secs {secs}; MIS of {out['mis']['size']} vertices "
+        f"in {mis_secs:.3f} s, independent and maximal")
+    del dm
+    return out
+
+
+#: Phase 18's card-against-CPU run: the scale and grid side.
+MCL_DIST_CHECK_SCALE = 12
+MCL_DIST_CHECK_SIDE = 2
+#: The iterations of phase 18's 2-phase runs, against 1-phase runs: keys
+#: exact, values within ``MCL_PHASES_RTOL`` where the folds are sequential
+#: (the CPU's plain versions).
+MCL_PHASES_ITERS = 3
+MCL_PHASES_RTOL = 1e-6
+
+
+def _with_loops(a):
+    """``a`` plus the identity (``mcl_local``'s ``add_self_loops``, which
+    ``mcl_dist`` leaves to its caller)."""
+    from combblas_tpu_torch.ops.coo import SpCOO, merge
+
+    eye = SpCOO.eye(a.shape[0], dtype=a.val.dtype, device=a.device)
+    return merge(a, eye, PLUS_TIMES)
+
+
+def _dist_host_copy(m):
+    """A DistSpMat's copy on a CPU grid of the same shape."""
+    grid = dataclasses.replace(m.grid, device=torch.device("cpu"))
+    return dataclasses.replace(m, row=m.row.cpu(), col=m.col.cpu(),
+                               val=m.val.cpu(), nnz=m.nnz.cpu(), grid=grid)
+
+
+def check_dist_iterate(m) -> dict:
+    """One ``mcl_dist`` iterate: no block past its capacity, every
+    non-empty column summing to 1 within 1e-5 (float64 sums of its live
+    entries)."""
+    if int(m.nnz.max()) > m.capacity:
+        raise AssertionError(f"a block holds {int(m.nnz.max())} entries "
+                             f"past its capacity {m.capacity}")
+    loc = m.to_local()
+    nnz = int(loc.nnz)
+    n = loc.shape[1]
+    col = loc.col[:nnz].long()
+    sums = torch.zeros(n, dtype=torch.float64, device=col.device)
+    sums.index_add_(0, col, loc.val[:nnz].double())
+    cnt = torch.bincount(col, minlength=n)
+    err = float((sums[cnt > 0] - 1).abs().max()) if nnz else 0.0
+    if not err <= 1e-5:
+        raise AssertionError(f"a column of the iterate sums to 1 +- {err}")
+    return dict(max_col_sum_err=err, longest_col=int(cnt.max()),
+                max_block_nnz=int(m.nnz.max()), capacity=m.capacity)
+
+
+def _entries(mats):
+    """The live entries of DistSpMats with disjoint entries, together, on
+    their device: int64 keys row*n + col in ascending order, the values
+    beside them, and the shape."""
+    parts = [m.to_local() for m in mats]
+    n = parts[0].shape[1]
+    keys = torch.cat([x.row[:int(x.nnz)].long() * n + x.col[:int(x.nnz)]
+                      for x in parts])
+    vals = torch.cat([x.val[:int(x.nnz)] for x in parts])
+    if len(parts) > 1:
+        keys, order = torch.sort(keys)
+        vals = vals[order]
+    return keys, vals, parts[0].shape
+
+
+def _host_thresholds(cs, vs, n: int, p):
+    """``dist_mcl_prune``'s per-column thresholds in numpy, from the
+    entries' columns ``cs`` and values ``vs`` sorted by column, then value
+    descending: (thresholds, recovered columns, selected columns)."""
+    cnt = np.bincount(cs, minlength=n)
+    start = np.cumsum(cnt) - cnt
+
+    def kth(k):
+        idx = np.minimum(start + k - 1, max(len(vs) - 1, 0))
+        return np.where(cnt >= k, vs[idx] if len(vs) else 0,
+                        -np.inf).astype(np.float32)
+
+    def stats(mask):
+        return (np.bincount(cs[mask], minlength=n),
+                np.bincount(cs[mask], weights=vs[mask], minlength=n))
+
+    nnz_p, sums = stats(vs > np.float32(p.cutoff))
+    thresh = np.full(n, np.float32(p.cutoff), np.float32)
+    recover = (nnz_p < p.recover_num) & (cnt > nnz_p) & (
+        sums < p.recover_pct)
+    if p.recover_num > 0 and recover.any():
+        thresh[recover] = kth(p.recover_num)[recover]
+    sel = ~recover & (nnz_p > p.select)
+    if p.select > 0 and sel.any():
+        thresh[sel] = kth(p.select)[sel]
+        if p.recover_num > 0:
+            nnz1, sums1 = stats(~(vs < thresh[cs]))
+            resel = sel & (nnz1 < p.recover_num) & (sums1 < p.recover_pct)
+            thresh[resel] = kth(p.recover_num)[resel]
+    return thresh, recover & (cnt > 0), sel
+
+
+def check_dist_prune(c, out, p):
+    """``dist_mcl_prune``'s output held, column by column, against the
+    threshold rule computed in numpy on the host from its input ``c``: the
+    same thresholds (cutoff, Kselect at recover_num or select, the
+    recovery after selection) and exactly the input's entries at or above
+    them, values unchanged.  The entries are ordered on the card (two
+    stable sorts: value descending, then column) and copied to the host.
+    Returns the statistics and, for :func:`mcl_dist_phases`, the input's
+    keys and values and the output's keys (on the card) and the
+    thresholds."""
+    keys, vals, shape = _entries([c])
+    n = shape[1]
+    col = keys % n
+    order = torch.sort(vals, descending=True, stable=True)[1]
+    order = order[torch.sort(col[order], stable=True)[1]]
+    thresh, recover, sel = _host_thresholds(col[order].cpu().numpy(),
+                                            vals[order].cpu().numpy(), n, p)
+    del order
+    hk, hv = keys.cpu().numpy(), vals.cpu().numpy()
+    keep = ~(hv < thresh[hk % n])
+    okeys, ovals, _ = _entries([out])
+    if not (np.array_equal(okeys.cpu().numpy(), hk[keep])
+            and np.array_equal(ovals.cpu().numpy(), hv[keep])):
+        raise AssertionError("dist_mcl_prune differs from the threshold "
+                             "rule computed on the host")
+    stats = dict(in_nnz=int(hk.shape[0]), out_nnz=int(okeys.shape[0]),
+                 recovered_cols=int(recover.sum()),
+                 selected_cols=int(sel.sum()))
+    return stats, dict(keys=keys, vals=vals, out_keys=okeys, thresh=thresh)
+
+
+#: The largest relative difference of a 1-phase and a 2-phase expansion
+#: value on the card: the compress kernel folds a run of equal keys
+#: thread by thread (8 items each), so where a run crosses a thread's edge
+#: depends on the stream's layout, and the association of its sum with it.
+MCL_PHASES_EXPAND_RTOL = 1e-6
+#: One step of each from the same iterate: the 1-phase and 2-phase output
+#: iterates' values outside the tie-flip columns (the expansions' 1e-6,
+#: squared by the inflation and divided by a column sum so summed).
+MCL_PHASES_STEP_RTOL = 1e-5
+#: After ``MCL_PHASES_ITERS`` iterations on the card, the 1-phase and the
+#: 2-phase iterates may differ in at most this share of the columns (in a
+#: key, or in a value by more than ``MCL_PHASES_ITERATE_RTOL`` relative).
+#: Each step's own difference is held to tie flips of the rule; those and
+#: the ties that rounding breaks differently in the next steps spread only
+#: along the iterate's structure, while a fault of the slab route (a slab
+#: lost, summed twice or truncated) reaches a whole slab, half the columns.
+MCL_PHASES_MAX_DIFF_COLS = 0.01
+MCL_PHASES_ITERATE_RTOL = 1e-4
+
+
+def _phase_step_check(first: dict, seen: list, ref: tuple, out, n: int,
+                      it: int) -> dict:
+    """One iteration's 2-phase step against the 1-phase step from the same
+    input iterate.  The 2-phase slabs' expansions and prunes (``seen``)
+    against the 1-phase expansion and prune (``first``, from
+    :func:`check_dist_prune`): the expansions' keys equal and values
+    within ``MCL_PHASES_EXPAND_RTOL``, the prunes equal except where an
+    entry lies within that much of its column's threshold (an exact tie of
+    the rule, broken by rounding).  The 2-phase output iterate ``out``
+    (the slabs summed by ``dist_add``, inflated, normalised) against the
+    1-phase one (``ref``: keys and values from :func:`_entries`): outside
+    the columns of those tie flips the same keys and values within
+    ``MCL_PHASES_STEP_RTOL``; inside them the keys the prunes left."""
+    keys, vals, _ = _entries([c for c, _ in seen])
+    okeys = _entries([o for _, o in seen])[0]
+    label = f"phases=2 vs phases=1, iteration {it}"
+    if not torch.equal(keys, first["keys"]):
+        raise AssertionError(f"{label}: the expansions' keys differ")
+    v1 = first["vals"].double()
+    rel = float(((vals.double() - v1).abs()
+                 / v1.abs().clamp(min=F32_TINY)).max())
+    if not rel <= MCL_PHASES_EXPAND_RTOL:
+        raise AssertionError(f"{label}: expansion values differ by {rel} "
+                             f"relative")
+    differing = int((vals != first["vals"]).sum())
+    flips = torch.cat([first["out_keys"][~torch.isin(first["out_keys"],
+                                                     okeys)],
+                       okeys[~torch.isin(okeys, first["out_keys"])]])
+    fv = v1[torch.searchsorted(keys, flips)]
+    t = torch.from_numpy(first["thresh"]).to(keys.device).double()[
+        flips % n]
+    if not bool(((fv - t).abs() <= MCL_PHASES_EXPAND_RTOL * t.abs()).all()):
+        raise AssertionError(f"{label}: a kept entry away from its column's "
+                             f"threshold differs")
+    del keys, vals, v1
+    flip_cols = torch.unique(flips % n)
+    k1, x1 = ref
+    k2, x2, _ = _entries([out])
+    if not (torch.equal(k1[torch.isin(k1 % n, flip_cols)], first["out_keys"][
+            torch.isin(first["out_keys"] % n, flip_cols)])
+            and torch.equal(k2[torch.isin(k2 % n, flip_cols)],
+                            okeys[torch.isin(okeys % n, flip_cols)])):
+        raise AssertionError(f"{label}: an iterate's keys in a tie-flip "
+                             f"column differ from its prune's")
+    m1, m2 = ~torch.isin(k1 % n, flip_cols), ~torch.isin(k2 % n, flip_cols)
+    if not torch.equal(k1[m1], k2[m2]):
+        raise AssertionError(f"{label}: the iterates' keys differ outside "
+                             f"the tie-flip columns")
+    y1 = x1[m1].double()
+    step_rel = float(((x2[m2].double() - y1).abs()
+                      / y1.abs().clamp(min=F32_TINY)).max()) \
+        if y1.numel() else 0.0
+    if not step_rel <= MCL_PHASES_STEP_RTOL:
+        raise AssertionError(f"{label}: the iterates' values differ by "
+                             f"{step_rel} relative outside the tie-flip "
+                             f"columns")
+    return dict(expand_nnz=int(first["keys"].shape[0]),
+                expand_max_rel_diff=rel, values_differing=differing,
+                prune_nnz=[int(first["out_keys"].shape[0]),
+                           int(okeys.shape[0])],
+                tie_flips=int(flips.shape[0]),
+                tie_flip_cols=int(flip_cols.numel()),
+                iterate_nnz=[int(k1.shape[0]), int(k2.shape[0])],
+                iterate_max_rel_diff=step_rel)
+
+
+def mcl_dist_phases(dm, p, local3) -> dict:
+    """``phases=2`` against ``phases=1`` on the card, for
+    ``MCL_PHASES_ITERS`` iterations of a 2-phase run.  Every iteration,
+    held: its input iterate also goes through one 1-phase iteration, whose
+    prune is held against the host rule (:func:`check_dist_prune`), and
+    the 2-phase step against it (:func:`_phase_step_check`: expansion,
+    prune and output iterate).  After the last iteration, against the
+    1-phase run's iterate ``local3`` (compacted): the columns that differ
+    (a key in one iterate and not the other, or a value more than
+    ``MCL_PHASES_ITERATE_RTOL`` apart) number at most
+    ``MCL_PHASES_MAX_DIFF_COLS`` of the columns; the keys that differ and
+    the largest value difference are reported."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+
+    seen, steps, last = [], [], []
+    orig_prune = mcl_mod.dist_mcl_prune
+    orig_iteration = mcl_mod._mcl_dist_iteration
+    n = dm.gshape[1]
+
+    def prune(c, *args, **kw):
+        out = orig_prune(c, *args, **kw)
+        seen.append((c, out))
+        return out
+
+    def iteration(a, p_, expand):
+        one = []
+
+        def hook(c):
+            out = orig_prune(c, p_)
+            one.append((c, out))
+            return out
+
+        ref = orig_iteration(a, p_,
+                             lambda m: mcl_mod._expand_2d(m, hook, 1))[0]
+        ref = _entries([ref])[:2]
+        stats, first = check_dist_prune(*one[0], p_)
+        del one
+        seen.clear()
+        out = orig_iteration(a, p_, expand)
+        steps.append(dict(_phase_step_check(first, seen, ref, out[0], n,
+                                            len(steps) + 1),
+                          one_phase_prune=stats))
+        seen.clear()
+        del first, ref
+        last[:] = [out[0]]
+        return out
+
+    mcl_mod.dist_mcl_prune = prune
+    mcl_mod._mcl_dist_iteration = iteration
+    try:
+        mcl_mod.mcl_dist(dm, dataclasses.replace(p, max_iters=MCL_PHASES_ITERS),
+                         phases=2)
+    finally:
+        mcl_mod.dist_mcl_prune = orig_prune
+        mcl_mod._mcl_dist_iteration = orig_iteration
+    if len(steps) != MCL_PHASES_ITERS:
+        raise AssertionError(f"phases=2: {len(steps)} iterations, not "
+                             f"{MCL_PHASES_ITERS}")
+    k2, x2, _ = _entries(last)
+    del last
+    k1 = local3.row[:int(local3.nnz)].long() * n + local3.col[
+        :int(local3.nnz)]
+    x1 = local3.val[:int(local3.nnz)]
+    c1, c2 = torch.isin(k1, k2), torch.isin(k2, k1)
+    common = ((x1[c1].double() - x2[c2]).abs()
+              / x1[c1].double().abs().clamp(min=F32_TINY))
+    cols = torch.unique(torch.cat([k1[~c1] % n, k2[~c2] % n,
+                                   k1[c1][common > MCL_PHASES_ITERATE_RTOL]
+                                   % n]))
+    cap = int(MCL_PHASES_MAX_DIFF_COLS * n)
+    if cols.numel() > cap:
+        raise AssertionError(
+            f"phases=2 vs phases=1 after {MCL_PHASES_ITERS} iterations: "
+            f"{cols.numel()} columns differ, more than {cap}")
+    out = dict(iters=MCL_PHASES_ITERS, steps=steps,
+               iterate_nnz=[int(k1.shape[0]), int(k2.shape[0])],
+               keys_only_in_1=int((~c1).sum()), keys_only_in_2=int(
+                   (~c2).sum()),
+               cols_differing=int(cols.numel()), cols_cap=cap,
+               common_max_rel_diff=float(common.max()) if common.numel()
+               else 0.0)
+    log(f"  phases=2 vs phases=1, each of {MCL_PHASES_ITERS} steps from the "
+        f"same iterate: expansions equal in keys, values within "
+        f"{max(s['expand_max_rel_diff'] for s in steps):.3g} rel; prunes "
+        f"equal but {[s['tie_flips'] for s in steps]} tie flips at a column "
+        f"threshold; iterates equal outside them, values within "
+        f"{max(s['iterate_max_rel_diff'] for s in steps):.3g} rel; after {MCL_PHASES_ITERS} iterations "
+        f"{out['keys_only_in_1']} + {out['keys_only_in_2']} of "
+        f"{out['iterate_nnz'][0]} keys differ, {out['cols_differing']} "
+        f"columns (at most {cap}), common values within "
+        f"{out['common_max_rel_diff']:.3g} rel")
+    return out
+
+
+class MCLDistWatch:
+    """Instruments ``mcl_dist`` by wrapping, through its module,
+    ``_mcl_dist_iteration`` (the loop's body) and, unless ``light``,
+    ``mem_efficient_spgemm`` (the expansion) and ``dist_mcl_prune`` (the
+    prune inside it).  ``light``: per iteration its host seconds (the body
+    ends in a host read of the chaos) and the last iterate by reference,
+    nothing else.  Otherwise each stage is ended by a sync and timed, and
+    with ``checks`` every iterate is checked (:func:`check_dist_iterate`),
+    iteration 1's expansion is held against scipy's A @ A and its prune
+    against the host rule; ``keep`` keeps each iteration's input and
+    output iterates on the host; ``keep_local`` the compacted output of
+    the iteration of that number."""
+
+    def __init__(self, p, light: bool = False, checks: bool = False,
+                 keep: bool = False, keep_local: int | None = None):
+        self.p, self.light, self.checks, self.keep = p, light, checks, keep
+        self.keep_local = keep_local
+        self.rows, self.cur = [], self._row()
+        self.last = self.prune = self.local = None
+
+    @staticmethod
+    def _row():
+        return dict(check_secs=0.0, prune_secs=0.0)
+
+    def __enter__(self):
+        from combblas_tpu_torch.models import mcl as mcl_mod
+
+        names = ["_mcl_dist_iteration"]
+        if not self.light:
+            names += ["mem_efficient_spgemm", "dist_mcl_prune"]
+        self._saved = [(name, getattr(mcl_mod, name)) for name in names]
+        self._mod = mcl_mod
+        orig = dict(self._saved)
+
+        def iteration(a, p, expand):
+            it = len(self.rows) + 1
+            self.cur["input_ref"] = a
+            if self.keep:
+                self.cur["input"] = _dist_host_copy(a)
+            t = time.perf_counter()
+            out, ch = orig["_mcl_dist_iteration"](a, p, expand)
+            secs = time.perf_counter() - t
+            self.last = out
+            self.cur.update(it=it, chaos=ch, secs=secs)
+            if not self.light:
+                self.cur.update(nnz=int(out.total_nnz()),
+                                capacity=out.capacity)
+            if self.checks:
+                t = time.perf_counter()
+                self.cur.update(check_dist_iterate(out))
+                self.cur["check_secs"] += time.perf_counter() - t
+            if self.keep:
+                self.cur["output"] = _dist_host_copy(out)
+            if it == self.keep_local:
+                self.local = out.to_local()
+            self.cur.pop("input_ref")
+            self.cur["iter_secs"] = secs - self.cur["check_secs"]
+            self.rows.append(self.cur)
+            self.cur = self._row()
+            return out, ch
+
+        def expansion(a, b, *args, **kw):
+            _sync(a.row.device)
+            t = time.perf_counter()
+            c = orig["mem_efficient_spgemm"](a, b, *args, **kw)
+            _sync(a.row.device)
+            self.cur["spgemm_secs"] = time.perf_counter() - t
+            return c
+
+        def prune(c, p, *args, **kw):
+            dev = c.row.device
+            _sync(dev)
+            first = self.checks and not self.rows and self.prune is None
+            if first:
+                t = time.perf_counter()
+                ref, scipy_secs = _scipy_square(self.cur["input_ref"]
+                                                .to_local())
+                self.cur.update(scipy_secs=scipy_secs,
+                                scipy_rel_diff=check_against_scipy(
+                                    c.to_local(), ref, "mcl_dist expansion 1",
+                                    rtol=MCL_EXPAND_RTOL))
+                del ref
+                self.cur["check_secs"] += time.perf_counter() - t
+            t = time.perf_counter()
+            out = orig["dist_mcl_prune"](c, p, *args, **kw)
+            _sync(dev)
+            self.cur["prune_secs"] += time.perf_counter() - t
+            self.cur.update(expanded_nnz=int(c.total_nnz()),
+                            expanded_capacity=c.capacity,
+                            expanded_max_block_nnz=int(c.nnz.max()))
+            if int(c.nnz.max()) >= c.capacity:
+                raise AssertionError("an expansion block saturated its "
+                                     f"capacity {c.capacity}")
+            if first:
+                t = time.perf_counter()
+                self.prune = check_dist_prune(c, out, p)[0]
+                self.cur["check_secs"] += time.perf_counter() - t
+            return out
+
+        wrappers = dict(_mcl_dist_iteration=iteration,
+                        mem_efficient_spgemm=expansion,
+                        dist_mcl_prune=prune)
+        for name, _fn in self._saved:
+            setattr(mcl_mod, name, wrappers[name])
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved:
+            setattr(self._mod, name, fn)
+
+
+def run_mcl_dist(dm, p, **watch):
+    """``mcl_dist(dm, p, ...)`` under an :class:`MCLDistWatch`; ``phases``,
+    ``layers`` and ``grid3`` go to ``mcl_dist``, the rest to the watch.
+    Returns (labels, iterations, watch, wall seconds, launches)."""
+    from combblas_tpu_torch.models.mcl import mcl_dist
+
+    kw = {k: watch.pop(k) for k in ("phases", "layers", "grid3")
+          if k in watch}
+    with MCLDistWatch(p, **watch) as w:
+        _sync(dm.row.device)
+        reset_launches()
+        t = time.perf_counter()
+        labels, iters = mcl_dist(dm, p, **kw)
+        _sync(dm.row.device)
+        wall = time.perf_counter() - t
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+    return labels, iters, w, wall, launches
+
+
+def _k1k2_each_iteration(launches: dict, iters: int, label: str) -> None:
+    if not all(launches.get(k, 0) >= iters
+               for k in ("expand_i32", "compress_i32")):
+        raise AssertionError(f"{label}: {iters} iterations launched "
+                             f"{launches}")
+
+
+def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
+                         side: int = MCL_DIST_CHECK_SIDE,
+                         params: dict = MCL_PARAMS) -> dict:
+    """``mcl_dist`` on a side x side grid of the card against the same call
+    on CPU tensors (plain versions), on phase 15's check graph (seeded
+    uniform(0.5, 1.5) weights) with self loops: iterations, nnz of every
+    iterate and labels exact; each iteration's step redone on the CPU from
+    the card's input iterate, its output's keys exact and values within
+    1e-5 relative, chaos within 1e-5; the card run launches K1 and K2 at
+    least once an iteration.  On the CPU, a 2-phase run's iterate after
+    ``MCL_PHASES_ITERS`` iterations equals the 1-phase run's (keys exact,
+    values within ``MCL_PHASES_RTOL``).  Then the 3D route on a (side, side, 2) grid
+    (``layers=2``, ``phases=2``) on the card: its labels equal the 2D
+    run's (both are each component's least vertex)."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    g = mcl_graph(seed, dev, scale)
+    row, col, _val, nnz, shape = g.to_numpy()
+    val = np.zeros(g.capacity, np.float32)
+    val[:nnz] = np.random.default_rng(seed).uniform(0.5, 1.5, nnz)
+    p = mcl_mod.MCLParams(**params)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        a = _with_loops(SpCOO.from_numpy(row, col, val, nnz, shape, device=d))
+        dm = DistSpMat.from_local(a, ProcGrid.make(side, side, device=d))
+        labels, iters, w, wall, launches = run_mcl_dist(
+            dm, p, keep=name == "card", keep_local=MCL_PHASES_ITERS)
+        runs[name] = dict(labels=labels.cpu(), iters=iters, wall=wall,
+                          rows=w.rows, nnz=[r["nnz"] for r in w.rows],
+                          chaos=[r["chaos"] for r in w.rows],
+                          launches=launches, dm=dm, local=w.local)
+    card, cpu = runs["card"], runs["cpu"]
+    _k1k2_each_iteration(card["launches"], card["iters"],
+                         "mcl_dist card run")
+    if card["iters"] != cpu["iters"] or card["nnz"] != cpu["nnz"]:
+        raise AssertionError(f"mcl_dist card vs CPU: iterations "
+                             f"{card['iters']} vs {cpu['iters']}, nnz "
+                             f"{card['nnz']} vs {cpu['nnz']}")
+    if not torch.equal(card["labels"], cpu["labels"]):
+        raise AssertionError("mcl_dist card vs CPU: labels differ")
+    t = time.perf_counter()
+    val_rel, chaos_abs = [], []
+
+    def hook(c):
+        return mcl_mod.dist_mcl_prune(c, p)
+
+    for r in card["rows"]:
+        want, ch = mcl_mod._mcl_dist_iteration(
+            r["input"], p, lambda m: mcl_mod._expand_2d(m, hook, 1))
+        val_rel.append(_same_entries(r["output"].to_local(), want.to_local(),
+                                     f"mcl_dist step {r['it']}, card vs CPU",
+                                     1e-5))
+        chaos_abs.append(abs(r["chaos"] - ch))
+    if max(chaos_abs) > 1e-5:
+        raise AssertionError(f"mcl_dist steps, card vs CPU: chaos "
+                             f"{chaos_abs}")
+    step_secs = time.perf_counter() - t
+    # where every fold is sequential (the CPU), 2 phases give the 1-phase
+    # iterate (columns prune independently; the slabs' columns are disjoint)
+    t = time.perf_counter()
+    _l, _i, w2, _wall, _ = run_mcl_dist(
+        cpu["dm"], dataclasses.replace(p, max_iters=MCL_PHASES_ITERS),
+        light=True, phases=2)
+    phases_rel = _same_entries(w2.last.to_local(), cpu["local"],
+                               "mcl_dist on the CPU, phases=2 vs phases=1",
+                               MCL_PHASES_RTOL)
+    phases_secs = time.perf_counter() - t
+    del w2, _l
+    _sync(dev)
+    t = time.perf_counter()
+    labels3, iters3 = mcl_mod.mcl_dist(
+        card["dm"], p, phases=2, layers=2,
+        grid3=ProcGrid.make(side, side, 2, device=dev))
+    _sync(dev)
+    secs3 = time.perf_counter() - t
+    if not torch.equal(labels3.cpu(), card["labels"]):
+        raise AssertionError("mcl_dist layers=2: partition differs from "
+                             "the 2D run's")
+    rel, absd = _chaos_diffs(card["chaos"], cpu["chaos"])
+    out = dict(scale=scale, grid=[side, side], nnz=int(nnz), params=params,
+               iters=card["iters"], iterate_nnz=card["nnz"],
+               launches=card["launches"], card_secs=card["wall"],
+               cpu_secs=cpu["wall"], step_check_secs=step_secs,
+               step_val_max_rel_diff=max(val_rel),
+               step_chaos_max_abs_diff=max(chaos_abs),
+               chaos_max_rel_diff=rel, chaos_max_abs_diff=absd,
+               clusters=int(torch.unique(card["labels"]).numel()),
+               cpu_phases2=dict(iters=MCL_PHASES_ITERS, secs=phases_secs,
+                                max_rel_diff=phases_rel),
+               layers2=dict(iters=iters3, secs=secs3, phases=2))
+    log(f"  card vs CPU, scale {scale}, {side}x{side}: {card['iters']} "
+        f"iterations, nnz and labels equal; card launches "
+        f"{card['launches']}; one step from the card's iterate: values "
+        f"{max(val_rel):.3g} rel, chaos {max(chaos_abs):.3g} abs; whole "
+        f"runs: chaos {rel:.3g} rel; card {card['wall']:.2f} s, CPU "
+        f"{cpu['wall']:.2f} s, step redo {step_secs:.1f} s; on the CPU "
+        f"phases=2 equals phases=1 after {MCL_PHASES_ITERS} iterations "
+        f"({phases_rel:.3g} rel); layers=2 "
+        f"({side}, {side}, 2): {iters3} iterations in {secs3:.2f} s, the "
+        f"same partition")
+    return out
+
+
+def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
+    """Phase 18: ``mcl_dist`` on phase 15's graph with self loops, on a 4x4
+    grid of the card, ``phases=1`` (the packed route, K1 and K2).  A timed
+    run as a user calls it (:class:`MCLDistWatch` ``light``: per-iteration
+    host seconds; the K1/K2 launches read around the loop, at least one
+    each an iteration; labels against scipy's components of the last
+    iterate); a checked run of as many iterations (every iterate,
+    iteration 1's expansion against scipy and its prune against the host
+    rule, the labels); a ``phases=2`` run of 3 iterations, each step held
+    against the 1-phase step from its input and the last iterate against
+    the checked run's third (:func:`mcl_dist_phases`); then the scale-12
+    card-against-CPU
+    run and its 3D route (:func:`mcl_dist_card_vs_cpu`).  ``local_line``
+    is phase 15's, reported beside."""
+    from combblas_tpu_torch.models.mcl import MCLParams
+
+    dev = a.device
+    p = MCLParams(**MCL_PARAMS)
+    a = _with_loops(a)
+    n, nnz = a.shape[0], int(a.nnz)
+    grid = ProcGrid.make(DIST_SIDE, DIST_SIDE, device=dev)
+    dm = DistSpMat.from_local(a, grid)
+    del a
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    labels, iters, lw, wall, launches = run_mcl_dist(dm, p, light=True)
+    peak = torch.cuda.max_memory_allocated()
+    _k1k2_each_iteration(launches, iters, "mcl_dist")
+    t = time.perf_counter()
+    clusters = check_labels(labels[:n], lw.last.to_local())
+    label_check_secs = time.perf_counter() - t
+    timed = lw.rows
+    del labels, lw
+    torch.cuda.empty_cache()
+    pc = dataclasses.replace(p, max_iters=int(iters))
+    labels_c, iters_c, w, wall_c, launches_c = run_mcl_dist(
+        dm, pc, checks=True, keep_local=MCL_PHASES_ITERS)
+    _k1k2_each_iteration(launches_c, iters_c, "mcl_dist (checked run)")
+    clusters_c = check_labels(labels_c[:n], w.last.to_local())
+    rows, first_prune, local3 = w.rows, w.prune, w.local
+    del labels_c, w
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phases2 = mcl_dist_phases(dm, p, local3)
+    del local3
+    phases2["secs"] = time.perf_counter() - t
+    del dm
+    torch.cuda.empty_cache()
+    secs = [r["secs"] for r in timed]
+    steady = sorted(secs[2:] or secs)
+    chaos = [r["chaos"] for r in timed]
+    expand = [r["spgemm_secs"] - r["prune_secs"] - r["check_secs"]
+              for r in rows]
+    prune = [r["prune_secs"] for r in rows]
+    synced = [r["iter_secs"] for r in rows]
+    out = dict(
+        scale=MCL_SCALE, n=n, nnz=nnz,
+        grid=[DIST_SIDE, DIST_SIDE], phases=1, iters=int(iters),
+        converged=bool(chaos[-1] < p.eps), clusters=clusters,
+        first_iter_secs=secs[0], steady_secs_per_iter=steady[len(steady) // 2],
+        total_secs=wall, iter_secs=secs, chaos=chaos, launches=launches,
+        peak_mem_gb=peak / 2**30, label_check_secs=label_check_secs,
+        params=dict(MCL_PARAMS, eps=p.eps, cutoff=p.cutoff,
+                    inflation=p.inflation),
+        mcl_local=dict(iters=local_line["iters"],
+                       clusters=local_line["clusters"],
+                       steady_secs_per_iter=local_line[
+                           "steady_secs_per_iter"],
+                       peak_mem_gb=local_line["peak_mem_gb"]),
+        checked_run=dict(
+            iters=int(iters_c), clusters=clusters_c,
+            same_as_timed=bool(iters_c == iters and clusters_c == clusters),
+            iterate_nnz=[r["nnz"] for r in rows],
+            iterate_capacity=[r["capacity"] for r in rows],
+            expanded_nnz=[r["expanded_nnz"] for r in rows],
+            expanded_capacity=[r["expanded_capacity"] for r in rows],
+            longest_col=[r["longest_col"] for r in rows],
+            max_col_sum_err=max(r["max_col_sum_err"] for r in rows),
+            iter_secs_with_syncs=synced, expand_secs=expand,
+            prune_secs=prune, total_secs_with_checks=wall_c,
+            first_prune=first_prune,
+            expansion1_scipy_rel_diff=rows[0]["scipy_rel_diff"],
+            expansion1_scipy_secs=rows[0]["scipy_secs"],
+            launches=launches_c),
+        phases2=phases2)
+    split = sum(expand) / sum(synced)
+    log(f"  timed run, {DIST_SIDE}x{DIST_SIDE}, phases=1: {iters} iterations, converged "
+        f"{out['converged']}, {clusters} clusters (equal scipy's; "
+        f"mcl_local: {local_line['clusters']}, the top-k prune drops ties "
+        f"this threshold prune keeps); first {secs[0]:.4f} s, steady "
+        f"{out['steady_secs_per_iter']:.4f} s/iter (mcl_local "
+        f"{local_line['steady_secs_per_iter']:.4f}), total {wall:.3f} s; "
+        f"launches {launches}; peak {peak / 2**30:.2f} GiB")
+    log(f"  checked run: {iters_c} iterations, {clusters_c} clusters; "
+        f"{split:.1%} of its synced iterations in the expansion, "
+        f"{sum(prune) / sum(synced):.1%} in the prune; expansion 1 vs scipy "
+        f"{rows[0]['scipy_rel_diff']:.3g} rel; the first prune equals the "
+        f"host rule")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -1935,6 +2802,15 @@ def main() -> int:
     bfs_line = bfs_full(graphs, args.seed)
     log(json.dumps(dict(bfs_line, scale=GRAPH_SCALE)))
     phase_secs["8"] = time.perf_counter() - t
+
+    # 17. distributed SpMV and its algorithms on phase 8's graph
+    t = time.perf_counter()
+    log(f"phase 17: dist_spmv, bfs_dist, bfs_dir_opt_dist, fastsv_dist, "
+        f"lacc_dist, luby_mis_dist, scale-{GRAPH_SCALE} symmetrized R-MAT "
+        f"on a {DIST_SIDE}x{DIST_SIDE} block grid")
+    dist_line = dist_graph_full(graphs["s"], *graphs["bfs_check"], args.seed)
+    log(json.dumps(dict(dist_line, scale=GRAPH_SCALE)))
+    phase_secs["17"] = time.perf_counter() - t
     del graphs
     torch.cuda.empty_cache()
 
@@ -2013,9 +2889,20 @@ def main() -> int:
         f"graph on half its vertices")
     index_line = indexing_full(a_mcl, args.seed)
     log(json.dumps(index_line))
-    del a_mcl
     torch.cuda.empty_cache()
     phase_secs["16"] = time.perf_counter() - t
+
+    # 18. distributed HipMCL on phase 15's graph, then card against CPU
+    t = time.perf_counter()
+    log(f"phase 18: mcl_dist, phase 15's graph with self loops, "
+        f"{DIST_SIDE}x{DIST_SIDE} grid, phases=1")
+    mcl_dist_line = mcl_dist_full(a_mcl, args.seed, mcl_line)
+    del a_mcl
+    torch.cuda.empty_cache()
+    mcl_dist_line["card_vs_cpu"] = mcl_dist_card_vs_cpu(args.seed, dev)
+    log(json.dumps(mcl_dist_line))
+    torch.cuda.empty_cache()
+    phase_secs["18"] = time.perf_counter() - t
 
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
@@ -2038,6 +2925,8 @@ def main() -> int:
         if k["name"] in ("expand_i32", "compress_i32", "expand_i64",
                          "compress_i64"):
             k.update(launches_mcl=mcl_line["launches"].get(k["name"], 0),
+                     launches_mcl_dist=mcl_dist_line["launches"].get(
+                         k["name"], 0),
                      launches_spref=index_line["spref"]["launches"].get(
                          k["name"], 0))
     for name, n_launch in launches.items():
@@ -2049,6 +2938,7 @@ def main() -> int:
                    bfs=bfs_line, phase9=k9, narrow=narrow_line,
                    auto=auto_line, phase12=k12, summa=summa_line,
                    ring_3d=ring_line, mcl=mcl_line, indexing=index_line,
+                   dist=dist_line, mcl_dist=mcl_dist_line,
                    phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:

@@ -1,14 +1,16 @@
 """Breadth-first search: top-down, direction-optimizing, push and batched
-pull (port of ``combblas_tpu/models/bfs.py``, single device).
+pull (port of ``combblas_tpu/models/bfs.py``).
 
 The frontier is a masked dense vector (values = vertex id + 1).  JAX's
 ``lax.while_loop`` level loops become Python loops with one host read per
 level (the frontier size, or whether any vertex was reached); each level's
-work stays on the graph's device.  ``bfs_dist`` and ``bfs_dir_opt_dist``
-wait for the port of ``parallel/``.
+work stays on the graph's device.
 
 - :func:`bfs_local`, :func:`bfs_dir_opt_local`: a masked SpMSpV (or a pull
   segment-max) per level over every edge.
+- :func:`bfs_dist`, :func:`bfs_dir_opt_dist`: the same levels on a block
+  grid, vectors in the FullyDist layout padded to ``row_vec_len``, through
+  ``dist_spmsv_masked`` and ``dist_bfs_pull_masked``.
 - :func:`bfs_push_local`: per level, the frontier's adjacency lists are
   expanded by the ESC expansion kernel (K1, ``ops/kernels/expand.py``) into
   a (neighbour, parent id + 1) stream and folded with one scatter-max, so
@@ -34,12 +36,25 @@ from combblas_tpu_torch.ops.kernels.ell import ell_fold
 from combblas_tpu_torch.ops.kernels.expand import expand_chunks_compact
 from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
 from combblas_tpu_torch.ops.spmv import spmsv_masked
+from combblas_tpu_torch.parallel.dist import (
+    DistSpMat,
+    _live_entries,
+    row_vec_len,
+)
+from combblas_tpu_torch.parallel.spmv import (
+    dist_bfs_pull_masked,
+    dist_spmsv_masked,
+)
 from combblas_tpu_torch.semiring import MAX_SECOND, PLUS_TIMES
 
-__all__ = ["bfs_local", "bfs_dir_opt_local", "bfs_push_local",
+__all__ = ["bfs_local", "bfs_dist", "bfs_dir_opt_local", "bfs_dir_opt_dist",
+           "bfs_push_local",
            "bfs_push_prepare", "bfs_batch_pull", "bfs_batch_prepare",
            "bfs_batch_pull_big", "validate_bfs"]
 
+#: Direction-optimizing BFS pulls once the frontier holds more than
+#: n / BETA vertices.
+BETA = 8
 #: Parent ids ride float32 (id + 1) in the push stream and the pull sweep:
 #: exact only below 2^24.
 _F32_EXACT = 1 << 24
@@ -90,6 +105,45 @@ def bfs_local(a: SpCOO, root: int):
     return s.parents, s.levels
 
 
+def _dist_levels(a: DistSpMat, root: int, pull: bool):
+    """The level loop of :func:`bfs_dist` (``pull=False``) and
+    :func:`bfs_dir_opt_dist` (``pull=True``: a level with more than
+    ``n_pad / BETA`` frontier vertices pulls)."""
+    if a.gshape[0] != a.gshape[1]:
+        raise ValueError(f"BFS needs a square adjacency matrix, got "
+                         f"{a.gshape}")
+    n_pad = row_vec_len(a.gshape, a.grid)
+    s = _init_state(n_pad, int(root), a.row.device)
+    live = _live_entries(a)
+    while s.nfront > 0:
+        if pull and s.nfront * BETA > n_pad:
+            y, ym = dist_bfs_pull_masked(a, s.front_mask, s.parents < 0,
+                                         live=live)
+            y = y.to(s.front_val.dtype)
+        else:
+            y, ym = dist_spmsv_masked(a, s.front_val, s.front_mask,
+                                      MAX_SECOND, transpose=True, live=live)
+        s = _advance(s, y, ym)
+    return s.parents, s.levels
+
+
+def bfs_dist(a: DistSpMat, root: int):
+    """Distributed BFS over the block grid: each level one masked SpMSpV
+    fan-out / fan-in (``dist_spmsv_masked``, transposed).  Returns
+    (parents, levels), int32 FullyDist vectors of the padded length
+    ``row_vec_len`` (padding vertices have no edges and stay -1)."""
+    return _dist_levels(a, root, pull=False)
+
+
+def bfs_dir_opt_dist(a: DistSpMat, root: int):
+    """Distributed direction-optimizing BFS: top-down levels as
+    :func:`bfs_dist`; once the frontier holds more than ``n_pad / BETA``
+    vertices, a level runs the pull step (``dist_bfs_pull_masked``, which
+    moves only the frontier and unvisited bitmaps).  Both share the state
+    fold, so parents and levels equal :func:`bfs_dist`'s."""
+    return _dist_levels(a, root, pull=True)
+
+
 def bfs_dir_opt_local(a: SpCOO, root: int):
     """Direction-optimizing BFS (Beamer): a level pushes over the
     frontier's out-edges, or, once the frontier holds more than n / 8
@@ -97,13 +151,12 @@ def bfs_dir_opt_local(a: SpCOO, root: int):
     one segment max.  Both share the state fold, so levels equal
     :func:`bfs_local`'s."""
     n = a.shape[0]
-    beta = 8  # pull when frontier > n / beta
     valid = a.mask()
     src = a.row.clamp(max=n - 1)
     dst = a.col.clamp(max=n - 1).long()
     s = _init_state(n, int(root), a.device)
     while s.nfront > 0:
-        if s.nfront * beta > n:
+        if s.nfront * BETA > n:
             active = valid & s.front_mask[src.long()]
             cand = torch.where(active, src + 1, 0)
             y = torch.full((n + 1,), torch.iinfo(torch.int32).min,

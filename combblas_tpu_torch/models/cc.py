@@ -1,5 +1,4 @@
-"""Connected components by FastSV, the local half (port of
-``combblas_tpu/models/cc.py``).
+"""Connected components by FastSV (port of ``combblas_tpu/models/cc.py``).
 
 The parent vector is a dense int32 tensor; one iteration is:
 
@@ -9,8 +8,9 @@ The parent vector is a dense int32 tensor; one iteration is:
     f[u]    <- min(f[u],    y[u])                 (aggressive hooking)
     f       <- f[f]                               (shortcutting)
 
-until f stops changing: a Python loop with one host read a round.  The
-distributed ``fastsv_dist`` is not ported yet.
+until f stops changing: a Python loop with one host read a round.
+:func:`fastsv_dist` runs the neighbour-min SpMV over the block grid
+(``dist_spmv``) on the FullyDist parent vector.
 """
 
 from __future__ import annotations
@@ -20,9 +20,15 @@ import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.spmv import spmv
+from combblas_tpu_torch.parallel.dist import (
+    DistSpMat,
+    _live_entries,
+    col_vec_len,
+)
+from combblas_tpu_torch.parallel.spmv import dist_spmv
 from combblas_tpu_torch.semiring import MIN_SECOND
 
-__all__ = ["fastsv_local", "count_components"]
+__all__ = ["fastsv_local", "fastsv_dist", "count_components"]
 
 
 def _fastsv_body(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -42,6 +48,24 @@ def fastsv_local(a: SpCOO) -> torch.Tensor:
     while True:
         y = spmv(a, f[f.long()], MIN_SECOND)  # min over neighbors' gf
         fn = _fastsv_body(f, y)
+        changed = bool((fn != f).any())
+        f = fn
+        if not changed:
+            return f
+
+
+def fastsv_dist(a: DistSpMat) -> torch.Tensor:
+    """Distributed FastSV: the neighbour-min SpMV runs over the block grid;
+    the parent vector is a FullyDist int32 vector of the padded length
+    ``col_vec_len`` (padding vertices are their own components)."""
+    if a.gshape[0] != a.gshape[1]:
+        raise ValueError(f"FastSV needs a square matrix, got {a.gshape}")
+    n_pad = col_vec_len(a.gshape, a.grid)
+    f = torch.arange(n_pad, dtype=torch.int32, device=a.row.device)
+    live = _live_entries(a)
+    while True:
+        y = dist_spmv(a, f[f.long()], MIN_SECOND, live=live)
+        fn = _fastsv_body(f, y[:n_pad])
         changed = bool((fn != f).any())
         f = fn
         if not changed:

@@ -1,14 +1,27 @@
-"""MCL (HipMCL), the local half: Markov clustering by expand, prune,
-inflate (port of ``combblas_tpu/models/mcl.py``).
+"""MCL (HipMCL): Markov clustering by expand, prune, inflate (port of
+``combblas_tpu/models/mcl.py``).
 
-The loop runs on the host (capacities change between iterations).  The
-expansion is ``spgemm_auto`` with a caller-held plan, so on the card it
-runs the hand-written expansion (K1) and compress (K2) kernels in row slabs.
-Pruning keeps the reference's semantics (``MCLPruneRecoverySelect``):
-entries below ``cutoff`` drop, a column keeps at most its ``select``
-largest, and a column left with too few takes its ``recover_num`` largest
-of the unpruned column instead.  The distributed half (``mcl_dist`` and its
-prune, isolated-vertex removal and permutation) is not ported yet.
+The loops run on the host (capacities change between iterations).
+
+- :func:`mcl_local`: the expansion is ``spgemm_auto`` with a caller-held
+  plan, whose row slabs run on the card's expansion and compress kernels:
+  the packed pair (K1, K2) when a slab's keys fit int32 and the span plan
+  needs no more slabs than the memory plan, else the wide pair (K3, K4).
+  At scale 17 (``bench_mcl``'s graph) the plan takes two wide slabs, K3
+  and K4; smaller plans (scale 12) run K1 and K2.  The prune is one
+  sorted pass of the rule (``MCLPruneRecoverySelect``): entries below
+  ``cutoff`` drop, a column keeps at most its ``select`` largest, and a
+  column left with too few takes its ``recover_num`` largest of the
+  unpruned column instead.
+- :func:`mcl_dist` (HipMCL proper): on a block grid, the expansion is
+  ``mem_efficient_spgemm`` (phased SUMMA) with :func:`dist_mcl_prune`, the
+  threshold form of the rule, run inside every phase.  Its blocks take the
+  packed route (K1, K2) when ``(mb+1)*(nb+1) < 2^31``, as on a 4x4 grid at
+  scale 17, and the wide route (K3, K4) otherwise.  With ``layers > 1`` the
+  expansion is the 3D SUMMA.  Clusters are ``fastsv_dist`` of ``A +
+  A^T``.  ``preprocess=True`` (isolated-vertex removal and a random
+  permutation) needs the distributed permutation, not ported yet, and
+  raises.
 """
 
 from __future__ import annotations
@@ -20,15 +33,30 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from combblas_tpu_torch.models.cc import fastsv_local
+from combblas_tpu_torch.models.cc import fastsv_dist, fastsv_local
 from combblas_tpu_torch.ops.coo import SpCOO, merge
 from combblas_tpu_torch.ops.ewise import _compact, dim_apply
 from combblas_tpu_torch.ops.kselect import col_desc_order
 from combblas_tpu_torch.ops.reduce import reduce_dim
 from combblas_tpu_torch.ops.spgemm import spgemm_auto
+from combblas_tpu_torch.parallel.dist import DistSpMat
+from combblas_tpu_torch.parallel.elementwise import (
+    dist_add,
+    dist_apply,
+    dist_dim_apply,
+    dist_kselect2_col,
+    dist_kselect_col,
+    dist_nnz_per_col,
+    dist_prune,
+    dist_prune_column,
+    dist_reduce,
+    dist_transpose,
+)
+from combblas_tpu_torch.parallel.memefficient import mem_efficient_spgemm
 from combblas_tpu_torch.semiring import MAX_FIRST, PLUS_TIMES
 
-__all__ = ["MCLParams", "mcl_local", "make_col_stochastic", "chaos"]
+__all__ = ["MCLParams", "mcl_local", "mcl_dist", "dist_mcl_prune",
+           "make_col_stochastic", "chaos"]
 
 #: ``spgemm_auto``'s slab budget in MCL: the default 2^24 would cut the
 #: expansion into many more row slabs at bench scales.
@@ -173,3 +201,192 @@ def mcl_local(a: SpCOO, params: Optional[MCLParams] = None,
             break
     sym = merge(a, a.transpose(), PLUS_TIMES)
     return fastsv_local(sym), it
+
+
+# -- distributed HipMCL ------------------------------------------------------
+
+def _below_or_equal_cutoff(cutoff: float):
+    # the reference's hard-threshold prune is less_equal
+    def f(v):
+        return v <= cutoff
+
+    return f
+
+
+def _below_thresh(v, t):
+    return v < t
+
+
+def _pow_closure(power: float):
+    def f(v):
+        return torch.pow(v.abs(), power)
+
+    return f
+
+
+def dist_mcl_prune(c: DistSpMat, p: MCLParams,
+                   use_kselect2: bool = False) -> DistSpMat:
+    """Distributed ``MCLPruneRecoverySelect``: one threshold a column.
+
+    1. statistics of the hard-threshold-pruned matrix (entries <= cutoff
+       drop);
+    2. recovery columns (pruned nnz < recover_num, pruning removed
+       something, pruned column sum < recover_pct) take the threshold
+       Kselect(A, recover_num);
+    3. other columns with pruned nnz > select take Kselect(A, select);
+    4. selected columns left with nnz < recover_num and sum < recover_pct
+       fall back to Kselect(A, recover_num);
+    5. one PruneColumn(v < threshold) of the unpruned matrix, whose
+       capacity the result keeps.
+
+    Kselect is ``dist_kselect_col`` with ``k_cap = max(select,
+    recover_num)``, or the bisection ``dist_kselect2_col`` with
+    ``use_kselect2``.  Entries equal to a column's threshold all stay,
+    unlike ``mcl_local``'s top-k."""
+    if use_kselect2:
+        ksel = dist_kselect2_col
+    else:
+        kmax = max(int(p.recover_num), int(p.select), 1)
+
+        def ksel(c_, k_):
+            return dist_kselect_col(c_, k_, k_cap=kmax)
+    c1 = dist_prune(c, _below_or_equal_cutoff(p.cutoff))
+    nnz_unpruned = dist_nnz_per_col(c)
+    nnz_p = dist_nnz_per_col(c1)
+    sums = dist_reduce(c1, "col")
+    del c1
+    thresh = torch.full_like(sums, p.cutoff)
+    recover = ((nnz_p < p.recover_num) & (nnz_unpruned > nnz_p)
+               & (sums < p.recover_pct))
+    if p.recover_num > 0 and bool(recover.any()):
+        thresh = torch.where(recover, ksel(c, p.recover_num), thresh)
+    if p.select > 0:
+        sel = ~recover & (nnz_p > p.select)
+        if bool(sel.any()):
+            thresh = torch.where(sel, ksel(c, p.select), thresh)
+            if p.recover_num > 0:
+                c_sel = dist_prune_column(c, thresh, _below_thresh)
+                nnz1 = dist_nnz_per_col(c_sel)
+                sums1 = dist_reduce(c_sel, "col")
+                del c_sel
+                resel = sel & (nnz1 < p.recover_num) & (sums1 < p.recover_pct)
+                if bool(resel.any()):
+                    thresh = torch.where(resel, ksel(c, p.recover_num),
+                                         thresh)
+    return dist_prune_column(c, thresh, _below_thresh)
+
+
+def _dist_col_stochastic(m: DistSpMat) -> DistSpMat:
+    """Columns scaled to sum 1 (empty columns stay empty)."""
+    colsum = dist_reduce(m, "col")
+    inv = torch.where(colsum > 0, 1.0 / colsum, 0.0)
+    return dist_dim_apply(m, inv, "col")
+
+
+def _dist_chaos(m: DistSpMat) -> torch.Tensor:
+    """:func:`chaos` over the block grid: max over columns of (column max
+    - column sum of squares)."""
+    cmax = dist_reduce(m, "col", MAX_FIRST)
+    cmax = torch.where(torch.isfinite(cmax), cmax, 0.0)
+    css = dist_reduce(m, "col", premap=_square)
+    return torch.max(cmax - css)
+
+
+def _expand_2d(m: DistSpMat, hook: Callable, phases: int) -> DistSpMat:
+    """The 2D expansion: phased SUMMA with the prune inside every phase."""
+    return mem_efficient_spgemm(m, m, phases=phases, phase_hook=hook)
+
+
+def _expand_3d(m: DistSpMat, hook: Callable, phases: int,
+               grid3) -> DistSpMat:
+    """The 3D expansion (``MemEfficientSpGEMM3D``): A redistributed to the
+    layered grid, every column slab through ``summa3d_spgemm``, back to the
+    2D grid (``Convert2D``), pruned, and summed in."""
+    from combblas_tpu_torch.parallel.summa3d import (
+        Dist3DSpMat,
+        _col_slab3d,
+        summa3d_bounds,
+        summa3d_spgemm,
+    )
+
+    a3 = Dist3DSpMat.from_dist2d(m, grid3, "col")
+    b3 = Dist3DSpMat.from_dist2d(m, grid3, "row")
+    fc, oc = summa3d_bounds(a3, b3)
+    fc = max(fc // max(phases, 1), 1024)
+    oc = max(oc // max(phases, 1), 1024)
+    _, nb3 = b3.block_shape()
+    slab = -(-nb3 // phases)
+    acc = None
+    for ph in range(phases):
+        lo, hi = ph * slab, min((ph + 1) * slab, nb3)
+        if lo >= hi:
+            break
+        bp = _col_slab3d(b3, lo, hi) if phases > 1 else b3
+        cp3 = summa3d_spgemm(a3, bp, flops_cap=fc, out_capacity=oc)
+        cp = hook(cp3.to_dist2d(m.grid))
+        del cp3
+        acc = cp if acc is None else dist_add(
+            acc, cp, out_capacity=acc.capacity + cp.capacity)
+    return acc
+
+
+def _mcl_dist_iteration(a: DistSpMat, p: MCLParams, expand: Callable):
+    """One iteration of :func:`mcl_dist`: expansion (pruned per phase),
+    inflation, normalisation; the new iterate and its chaos."""
+    a2 = expand(a)
+    a2 = dist_apply(a2, _pow_closure(p.inflation))
+    a2 = _dist_col_stochastic(a2)
+    return a2, float(_dist_chaos(a2))
+
+
+def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
+             phases: int = 1, verbose: bool = False,
+             preprocess: bool = False, use_kselect2: bool = False,
+             layers: int = 1, grid3=None):
+    """Distributed HipMCL on a square block grid: the expansion is
+    ``mem_efficient_spgemm`` in ``phases`` column slabs with
+    :func:`dist_mcl_prune` applied inside every phase, then inflation and
+    normalisation as distributed column ops, until the chaos falls below
+    ``eps``; the clusters are ``fastsv_dist`` of ``A + A^T``.  No self
+    loops are added (``params.add_self_loops`` is not read).
+
+    ``layers > 1`` runs the expansion on the 3D grid ``grid3`` (its
+    ``layers`` layers over ``a``'s 2D grid).  ``preprocess=True``
+    (``RemoveIsolated`` + ``RandPermute``) needs ``dist_permute``
+    (``parallel/indexing.py``) and ``dist_rand_perm``
+    (``parallel/vector.py``), which are not ported yet: it raises
+    ``NotImplementedError`` (so the port has no ``rng_key`` for that
+    permutation yet).  Returns (labels, iterations); the labels are the
+    column-space FullyDist vector of length ``col_vec_len``."""
+    if preprocess:
+        raise NotImplementedError(
+            "mcl_dist(preprocess=True) needs dist_permute "
+            "(parallel/indexing.py) and dist_rand_perm (parallel/vector.py)"
+            ", which the port does not have yet")
+    p = params or MCLParams()
+
+    def hook(c: DistSpMat) -> DistSpMat:
+        return dist_mcl_prune(c, p, use_kselect2=use_kselect2)
+
+    if layers > 1:
+        if grid3 is None or not grid3.is3d or grid3.layers != layers:
+            raise ValueError("mcl_dist(layers > 1) needs a 3D ProcGrid "
+                             "(grid3=) with that many layers")
+
+        def expand(m):
+            return _expand_3d(m, hook, phases, grid3)
+    else:
+        def expand(m):
+            return _expand_2d(m, hook, phases)
+
+    a = _dist_col_stochastic(a)
+    it = 0
+    for it in range(1, p.max_iters + 1):
+        a, ch = _mcl_dist_iteration(a, p, expand)
+        if verbose:
+            print(f"mcl_dist iter {it}: chaos={ch:.5f} "
+                  f"nnz={int(a.total_nnz())}")
+        if ch < p.eps:
+            break
+    sym = dist_add(a, dist_transpose(a))
+    return fastsv_dist(sym), it

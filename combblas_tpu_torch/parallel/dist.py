@@ -21,13 +21,12 @@ from combblas_tpu_torch.ops.coo import (
     SpCOO,
     _round_capacity,
     _sort_pairs,
-    find,
 )
 from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.parallel.multihost import global_put
 
 __all__ = ["DistSpMat", "DistVec", "block_dims", "row_vec_len",
-           "col_vec_len", "local_block", "dist_vec"]
+           "col_vec_len", "local_block", "dist_vec", "live_counts"]
 
 
 def block_dims(gshape: Tuple[int, int], grid: ProcGrid) -> Tuple[int, int]:
@@ -52,45 +51,61 @@ def col_vec_len(gshape: Tuple[int, int], grid: ProcGrid) -> int:
     return grid.pc * block_dims(gshape, grid)[1]
 
 
-def _bucket_blocks(row, col, val, gshape, grid: ProcGrid, capacity, dtype):
-    """Host numpy block stacks (R, C, V, counts) of global COO triples, as
-    the JAX ``from_coo_arrays`` lays them out: sorted by (block, local row,
-    local col), duplicates summed in that order, capacity rounded up to a
-    power of two (at least 8), pads (mb, nb, 0)."""
-    row = np.asarray(row, np.int64)
-    col = np.asarray(col, np.int64)
-    val = np.asarray(val, dtype)
+def _fold_runs(val: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """Sums of the runs of ``val`` that start where ``first`` holds, each
+    folded in a fixed order (``segment_reduce`` over the runs' lengths: on
+    the CPU in entry order, as the JAX package's host bucketing sums;
+    integers with ``index_add_``, exact in any order), so that two calls
+    sum alike on the card too."""
+    seg = torch.cumsum(first, 0) - 1
+    k = int(seg[-1]) + 1
+    if val.is_floating_point():
+        return torch.segment_reduce(val, "sum", lengths=torch.bincount(
+            seg, minlength=k), unsafe=True)
+    return torch.zeros(k, dtype=val.dtype, device=val.device).index_add_(
+        0, seg, val)
+
+
+def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                   gshape, grid: ProcGrid, capacity):
+    """Block stacks (R, C, V of shape (pr, pc, cap), counts (pr, pc) int64)
+    of global COO triples, on the triples' device, as the JAX
+    ``from_coo_arrays`` lays them out: sorted by (block, local row, local
+    col), duplicates summed in that order, capacity rounded up to a power
+    of two (at least 8), pads (mb, nb, 0).  A block past ``capacity``
+    raises ``ValueError``."""
+    dev = row.device
+    row, col = row.long(), col.long()
     pr, pc = grid.pr, grid.pc
     mb, nb = block_dims(gshape, grid)
     bi, bj = row // mb, col // nb
-    lr = (row - bi * mb).astype(np.int32)
-    lc = (col - bj * nb).astype(np.int32)
-    order = np.lexsort((lc, lr, bj, bi))
-    bi, bj, lr, lc = bi[order], bj[order], lr[order], lc[order]
-    val = val[order]
-    if row.size:
-        new = np.empty(row.size, bool)
-        new[0] = True
-        new[1:] = ((bi[1:] != bi[:-1]) | (bj[1:] != bj[:-1])
-                   | (lr[1:] != lr[:-1]) | (lc[1:] != lc[:-1]))
-        seg = np.cumsum(new) - 1
-        sval = np.zeros(int(seg[-1]) + 1, val.dtype)
-        np.add.at(sval, seg, val)
-        bi, bj, lr, lc, val = bi[new], bj[new], lr[new], lc[new], sval
-    counts = np.zeros((pr, pc), np.int64)
-    np.add.at(counts, (bi, bj), 1)
-    cap = int(counts.max()) if capacity is None else capacity
+    lr, lc = row - bi * mb, col - bj * nb
+    blk = bi * pc + bj
+    key, order = torch.sort((blk * mb + lr) * nb + lc, stable=True)
+    blk, lr, lc, val = blk[order], lr[order], lc[order], val[order]
+    if key.numel():     # fold duplicates
+        new = torch.ones(key.shape[0], dtype=torch.bool, device=dev)
+        new[1:] = key[1:] != key[:-1]
+        if not bool(new.all()):
+            val = _fold_runs(val, new)
+            blk, lr, lc = blk[new], lr[new], lc[new]
+    counts = torch.bincount(blk, minlength=pr * pc)
+    most = int(counts.max())
+    cap = most if capacity is None else capacity
     cap = max(8, 1 << int(np.ceil(np.log2(max(cap, 1)))))
-    R = np.full((pr, pc, cap), mb, np.int32)
-    C = np.full((pr, pc, cap), nb, np.int32)
-    V = np.zeros((pr, pc, cap), dtype)
-    flat_block = bi * pc + bj
-    starts = np.searchsorted(flat_block, np.arange(pr * pc))
-    pos = np.arange(bi.size) - starts[flat_block]
-    R[bi, bj, pos] = lr
-    C[bi, bj, pos] = lc
-    V[bi, bj, pos] = val
-    return R, C, V, counts
+    if most > cap:
+        raise ValueError(f"a block holds {most} entries, past the capacity "
+                         f"{cap}")
+    pos = torch.arange(blk.shape[0], device=dev) - (
+        torch.cumsum(counts, 0) - counts)[blk]
+    R = torch.full((pr * pc, cap), mb, dtype=torch.int32, device=dev)
+    C = torch.full((pr * pc, cap), nb, dtype=torch.int32, device=dev)
+    V = torch.zeros((pr * pc, cap), dtype=val.dtype, device=dev)
+    R[blk, pos] = lr.to(torch.int32)
+    C[blk, pos] = lc.to(torch.int32)
+    V[blk, pos] = val
+    return (R.reshape(pr, pc, cap), C.reshape(pr, pc, cap),
+            V.reshape(pr, pc, cap), counts.reshape(pr, pc))
 
 
 def _gather_blocks(row, col, val, nnz, row_off, col_off,
@@ -158,12 +173,17 @@ class DistSpMat:
     def from_coo_arrays(row, col, val, gshape: Tuple[int, int],
                         grid: ProcGrid, capacity: int | None = None,
                         dtype=np.float32) -> "DistSpMat":
-        """Bucket global COO triples to their blocks on the host (duplicates
-        summed), then put the stacks on the grid's device: the JAX
-        package's stacks, slot for slot."""
-        R, C, V, counts = _bucket_blocks(row, col, val, gshape, grid,
-                                         capacity, dtype)
-        return DistSpMat.from_numpy_blocks(R, C, V, counts, gshape, grid)
+        """Bucket global COO triples (host arrays) to their blocks on the
+        grid's device (duplicates summed): the JAX package's stacks, slot
+        for slot."""
+        dev = grid.device
+        R, C, V, counts = _bucket_blocks(
+            torch.from_numpy(np.array(row, np.int64)).to(dev),
+            torch.from_numpy(np.array(col, np.int64)).to(dev),
+            torch.from_numpy(np.array(val, dtype)).to(dev), gshape, grid,
+            capacity)
+        return DistSpMat(row=R, col=C, val=V, nnz=counts,
+                         gshape=(int(gshape[0]), int(gshape[1])), grid=grid)
 
     @staticmethod
     def from_numpy_blocks(row, col, val, nnz, gshape: Tuple[int, int],
@@ -184,10 +204,16 @@ class DistSpMat:
     @staticmethod
     def from_local(a: SpCOO, grid: ProcGrid,
                    capacity: int | None = None) -> "DistSpMat":
-        """Distribute a single-device SpCOO onto the grid."""
-        row, col, val = find(a)
-        return DistSpMat.from_coo_arrays(row, col, val, a.shape, grid,
-                                         capacity=capacity, dtype=val.dtype)
+        """Distribute a single-device SpCOO onto the grid: its live triples
+        bucketed on the grid's device, as :meth:`from_coo_arrays` does."""
+        nnz = int(a.nnz)
+        dev = grid.device
+        R, C, V, counts = _bucket_blocks(
+            a.row[:nnz].to(dev), a.col[:nnz].to(dev), a.val[:nnz].to(dev),
+            a.shape, grid, capacity)
+        return DistSpMat(row=R, col=C, val=V, nnz=counts,
+                         gshape=(int(a.shape[0]), int(a.shape[1])),
+                         grid=grid)
 
     # -- conversions ------------------------------------------------------
     def to_local(self) -> SpCOO:
@@ -220,6 +246,36 @@ def local_block(mat: DistSpMat, i: int, j: int) -> SpCOO:
     under the JAX package's ``shard_map``); views, no copy."""
     return SpCOO(row=mat.row[i, j], col=mat.col[i, j], val=mat.val[i, j],
                  nnz=mat.nnz[i, j], shape=mat.block_shape())
+
+
+def live_counts(mat: DistSpMat) -> list:
+    """Each block's live entries, ``min(nnz, capacity)``, block after block
+    in (i, j) order, read on the host once.  A block's live entries are the
+    first slots of its stack."""
+    return torch.clamp(mat.nnz, max=mat.capacity).reshape(-1).tolist()
+
+
+def _live_entries(mat: DistSpMat, counts: list | None = None):
+    """Every block's live entries back to back in (i, j) block order: the
+    block index ``i*pc + j`` (int64), the local rows and columns (int32)
+    and the values.  The batched pass over the stack that replaces a loop
+    of per-block bodies reads these, with block offsets added to its
+    segment ids; the pads past each block's nnz are never touched."""
+    pc = mat.grid.pc
+    k = live_counts(mat) if counts is None else counts
+    dev = mat.row.device
+    blocks = [(b, kb) for b, kb in enumerate(k) if kb]
+    if not blocks:
+        return (torch.zeros(0, dtype=torch.int64, device=dev),
+                mat.row.new_empty((0,)), mat.col.new_empty((0,)),
+                mat.val.new_empty((0,)))
+    bid = torch.cat([torch.full((kb,), b, dtype=torch.int64, device=dev)
+                     for b, kb in blocks])
+
+    def cat(x):
+        return torch.cat([x[b // pc, b % pc, :kb] for b, kb in blocks])
+
+    return bid, cat(mat.row), cat(mat.col), cat(mat.val)
 
 
 @dataclasses.dataclass(frozen=True)

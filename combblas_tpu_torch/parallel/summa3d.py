@@ -29,7 +29,6 @@ from combblas_tpu_torch.ops.coo import (
     _round_capacity,
     _sort_pairs,
     compress_sorted,
-    find,
     sort_compress,
 )
 from combblas_tpu_torch.ops.spgemm import spgemm_flops
@@ -40,7 +39,6 @@ from combblas_tpu_torch.parallel.dist import (
     block_dims,
 )
 from combblas_tpu_torch.parallel.grid import ProcGrid
-from combblas_tpu_torch.parallel.multihost import global_put
 from combblas_tpu_torch.parallel.summa import (
     _local_multiply,
     _panel_a,
@@ -94,17 +92,20 @@ class Dist3DSpMat:
     @staticmethod
     def from_dist2d(a: "DistSpMat | SpCOO", grid: ProcGrid, split: str,
                     capacity: int | None = None) -> "Dist3DSpMat":
-        """2D -> 3D redistribution on the host: slice the split dimension
-        into l ranges, 2D-distribute each slice on the layer's grid (as
+        """2D -> 3D redistribution: slice the split dimension into l
+        ranges, 2D-distribute each slice on the layer's grid (as
         ``DistSpMat.from_coo_arrays``), pad the layers to one capacity and
-        stack them; then put the stacks on the grid's device."""
+        stack them, on the grid's device."""
         if not grid.is3d:
             raise ValueError("from_dist2d needs a grid with layers")
         if split not in ("col", "row"):
             raise ValueError(f"split must be 'col' or 'row', got {split!r}")
         if isinstance(a, DistSpMat):
             a = a.to_local()
-        row, col, val = find(a)
+        k = int(a.nnz)
+        row = a.row[:k].to(grid.device).long()
+        col = a.col[:k].to(grid.device).long()
+        val = a.val[:k].to(grid.device)
         m, n = a.shape
         l = grid.layers
         g2 = grid.grid2d()
@@ -120,19 +121,20 @@ class Dist3DSpMat:
             lshape = (sb, n)
         mb, nb = block_dims(lshape, g2)
         layers = [_bucket_blocks(lr_[which == t], lc_[which == t],
-                                 val[which == t], lshape, g2, None, val.dtype)
+                                 val[which == t], lshape, g2, None)
                   for t in range(l)]
         cap = capacity or max(stk[0].shape[-1] for stk in layers)
 
-        def stack(k, fill):
-            out = np.full((l, g2.pr, g2.pc, cap), fill, layers[0][k].dtype)
+        def stack(i, fill):
+            out = torch.full((l, g2.pr, g2.pc, cap), fill,
+                             dtype=layers[0][i].dtype, device=grid.device)
             for t, stk in enumerate(layers):
-                out[t, :, :, :stk[k].shape[-1]] = stk[k]
-            return global_put(out, grid)
+                out[t, :, :, :stk[i].shape[-1]] = stk[i]
+            return out
 
         return Dist3DSpMat(
             row=stack(0, mb), col=stack(1, nb), val=stack(2, 0),
-            nnz=global_put(np.stack([stk[3] for stk in layers]), grid),
+            nnz=torch.stack([stk[3] for stk in layers]),
             gshape=(int(m), int(n)), grid=grid, split=split)
 
     def to_local(self) -> SpCOO:

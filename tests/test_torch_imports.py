@@ -19,8 +19,14 @@ assert not bad, bad
 assert "triton" not in sys.modules
 from combblas_tpu_torch.ops.kernels import _build
 assert _build._lib is None
+print(" ".join(names))
 print(len(names))
 """
+
+#: The modules of the distributed SpMV, graph-algorithm and HipMCL slice.
+DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
+              "models.bfs", "models.cc", "models.lacc", "models.mis",
+              "models.mcl")
 
 
 def test_port_imports_no_jax():
@@ -30,5 +36,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every module of the seg2, SpMM/BFS, materialized SpGEMM, distributed
-    # SpGEMM and local-ops/MCL slices was imported
-    assert int(out.stdout.strip().splitlines()[-1]) >= 40
+    # SpGEMM, local-ops/MCL and distributed SpMV/MCL slices was imported
+    lines = out.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 42
+    names = set(lines[-2].split())
+    for mod in DIST_SLICE:
+        assert f"combblas_tpu_torch.{mod}" in names, mod

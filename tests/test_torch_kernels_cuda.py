@@ -673,3 +673,52 @@ def test_mcl_card_matches_cpu(cuda):
     assert out["iters"] >= 3
     for name in ("expand_i32", "compress_i32"):
         assert out["launches"][name] >= out["iters"]
+
+
+def test_dist_graph_phase_on_card(cuda):
+    """chip_smoke's phase 17 at scale 12: on a 4x4 block grid of the card,
+    ``dist_spmv`` against ``torch.sparse.mm`` and ``spmv``, both
+    distributed BFS variants validated with ``bfs_local``'s levels,
+    ``fastsv_dist`` and ``lacc_dist`` against ``fastsv_local`` and scipy,
+    and a valid ``luby_mis_dist`` (the call holds each)."""
+    import chip_smoke
+    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+    from combblas_tpu_torch.models.bfs import bfs_local
+
+    s = spmm_bfs_graphs(3, cuda, 12)["s"]
+    roots = bfs_roots(s, 3)[:chip_smoke.DIST_BFS_ROOTS]
+    levels = torch.stack([bfs_local(s, int(r))[1] for r in roots])
+    out = chip_smoke.dist_graph_full(s, roots, levels, 3)
+    assert len(out["bfs"]) == 2 * len(roots)
+    assert any(r["pull_levels"] for r in out["bfs"])
+
+
+def test_mcl_dist_phase_on_card(cuda):
+    """chip_smoke's phase 18 main runs at scale 12 on the 4x4 grid: K1 and
+    K2 each iteration, every iterate, the first expansion and prune and
+    the labels checked; a 2-phase run whose every step equals the 1-phase
+    step from the same iterate but for tie flips at a column's threshold,
+    and whose third iterate differs from the 1-phase run's in at most 1 %
+    of the columns (the call holds each)."""
+    import chip_smoke
+
+    a = chip_smoke.mcl_graph(4, cuda, 12)
+    local = dict(iters=0, clusters=0, steady_secs_per_iter=0.0,
+                 peak_mem_gb=0.0)
+    out = chip_smoke.mcl_dist_full(a, 4, local)
+    assert out["iters"] >= 3 and out["checked_run"]["same_as_timed"]
+    assert len(out["phases2"]["steps"]) == chip_smoke.MCL_PHASES_ITERS
+    for name in ("expand_i32", "compress_i32"):
+        assert out["launches"][name] >= out["iters"]
+
+
+def test_mcl_dist_card_matches_cpu(cuda):
+    """chip_smoke's phase-18 card-against-CPU run at scale 10: iterations,
+    nnz per iteration and labels equal, each step redone on the CPU within
+    1e-5, the 3D route's partition equal (the call holds each)."""
+    import chip_smoke
+
+    out = chip_smoke.mcl_dist_card_vs_cpu(5, cuda, scale=10)
+    assert out["iters"] >= 3
+    for name in ("expand_i32", "compress_i32"):
+        assert out["launches"][name] >= out["iters"]
