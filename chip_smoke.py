@@ -97,7 +97,38 @@ Phases, each raising on failure:
      (iterations, nnz and labels exact, each step redone on the CPU within
      1e-5; on the CPU 2 phases give the 1-phase iterate after 3
      iterations) and the ``layers=2`` route on a (2, 2, 2) grid with the 2D
-     run's partition.
+     run's partition;
+ 19. the distributed vector layer and indexing on 4x4 grids (no kernel of
+     their own): ``dist_sort`` and ``dist_sort_auto`` of 2^26 float32
+     values (a sixteenth repeated, -0.0, +0.0, infinities and NaNs among
+     them) with an int32 payload, equal to the host order on (key,
+     index); ``dist_rand_perm``, ``dist_invert``, ``dist_uniq``,
+     ``dist_gather`` and ``dist_route`` (every combine, duplicate indices)
+     at 2^21 against numpy, every call repeated bit for bit;
+     ``dist_permute`` of phase 17's matrix by a random permutation, equal
+     to the host relabelling, and its inverse giving the matrix back; then
+     ``dist_spref`` of phase 15's graph on phase 16's vertices equal to
+     phase 16's ``spref``, ``dist_prune_block`` and ``dist_spasgn`` (twice
+     the submatrix put back) equal to the host's, their products on K1
+     and K2 (launches read around them);
+ 20. HipMCL with its preprocessing: ``mcl_dist(preprocess=True)`` on phase
+     15's graph with self loops on its vertices of degree >= 1 only (the
+     isolated ones stay empty), 4x4, one phase, a seeded generator: a
+     timed run (K1/K2 each iteration), isolated vertices singletons
+     labelled >= n, every cluster inside one connected component, labels
+     equal to ``dist_remove_isolated`` + ``dist_rand_permute`` +
+     ``mcl_dist`` composed by hand and to a second run; then scale 12 on
+     2x2, card against CPU with one CPU generator;
+ 21. the orderings and betweenness centrality: ``rcm_order_dist`` (4x4) and
+     ``rcm_order`` of the 128^3 7-point stencil relabelled at random
+     (``dist_rand_perm`` + ``dist_permute``), each equal to a host
+     Cuthill-McKee of its own parent rule (the BFS parent, or the
+     earliest-labelled previous-level neighbour: the two orders differ by
+     design), each within a bandwidth of 3 k^2; ``md_order_dist`` equal to
+     ``md_order`` on the 24x24 5-point stencil; ``betweenness_centrality``
+     and ``betweenness_centrality_dist`` (4x4) of phase 8's graph from 64
+     of its roots, within 1e-4, and at scale 12 the card against the CPU
+     within 1e-5.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -2493,11 +2524,13 @@ class MCLDistWatch:
 
 def run_mcl_dist(dm, p, **watch):
     """``mcl_dist(dm, p, ...)`` under an :class:`MCLDistWatch`; ``phases``,
-    ``layers`` and ``grid3`` go to ``mcl_dist``, the rest to the watch.
+    ``layers``, ``grid3``, ``preprocess`` and ``generator`` go to
+    ``mcl_dist``, the rest to the watch.
     Returns (labels, iterations, watch, wall seconds, launches)."""
     from combblas_tpu_torch.models.mcl import mcl_dist
 
-    kw = {k: watch.pop(k) for k in ("phases", "layers", "grid3")
+    kw = {k: watch.pop(k) for k in ("phases", "layers", "grid3",
+                                    "preprocess", "generator")
           if k in watch}
     with MCLDistWatch(p, **watch) as w:
         _sync(dm.row.device)
@@ -2722,6 +2755,847 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phases 19-21 --
+
+#: Phase 19's sorted vector: 2^SORT_LOG2 float32 values.
+SORT_LOG2 = 26
+#: The length of phase 19's other vectors: 2^21 less a few, so that on a
+#: 4x4 grid the RandPerm has padding slots.
+VEC_LEN = (1 << 21) - 5
+#: Float32 bit patterns planted among the sorted values: -0.0, +0.0, +inf,
+#: -inf and NaNs of either sign and several payloads.
+SPECIAL_BITS = (0x80000000, 0x00000000, 0x7F800000, 0xFF800000, 0x7FC00000,
+                0xFFC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001)
+#: Phase 21's RCM input: the 7-point stencil of a RCM_SIDE^3 grid.
+RCM_SIDE = 128
+#: Phase 21's minimum-degree input: the 5-point stencil of a MD_SIDE^2
+#: grid (both orders are host-paced n-step loops).
+MD_SIDE = 24
+#: Phase 21's betweenness centrality: phase 8's first BC_SOURCES roots in
+#: batches of BC_BATCH, local against the 4x4 grid within BC_RTOL; at
+#: BC_CHECK_SCALE the card against the CPU within BC_CHECK_RTOL.
+BC_SOURCES = 64
+BC_BATCH = 32
+BC_RTOL = 1e-4
+BC_CHECK_SCALE = 12
+BC_CHECK_RTOL = 1e-5
+#: Phase 20's card-against-CPU run: scale and grid side.
+PREPROCESS_CHECK_SCALE = 12
+PREPROCESS_CHECK_SIDE = 2
+
+
+def host_u32(x: np.ndarray) -> np.ndarray:
+    """numpy's twin of ``parallel.vector._sortable_u32`` for float32
+    values: the order-preserving uint32 key, in int64."""
+    b = x.view(np.uint32).astype(np.int64)
+    return np.where(b >= 1 << 31, 0xFFFFFFFF - b, b | (1 << 31))
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(_bits(a), _bits(b))
+
+
+def sort_values(gen, n: int, dev) -> torch.Tensor:
+    """``n`` float32 normals from ``gen``, a sixteenth of the slots copying
+    another slot's value, and ``n / 2^16`` copies of each of
+    ``SPECIAL_BITS`` at random slots."""
+    x = torch.randn(n, generator=gen, device=dev)
+    k = n // 16
+    dst = torch.randint(0, n, (k,), generator=gen, device=dev)
+    x[dst] = x[torch.randint(0, n, (k,), generator=gen, device=dev)]
+    special = torch.from_numpy(np.array(SPECIAL_BITS, np.uint32).view(
+        np.float32)).to(dev)
+    reps = max(n >> 16, 1)
+    pos = torch.randint(0, n, (reps * special.numel(),), generator=gen,
+                        device=dev)
+    x[pos] = special.repeat(reps)
+    return x
+
+
+def _host_sorted_order(x: np.ndarray) -> np.ndarray:
+    """The order of (host key, index): one sort of the key shifted past the
+    index bits, which is ``np.lexsort((index, key))`` for unique
+    indices."""
+    n = x.shape[0]
+    key = host_u32(x)
+    shift = max(int(n - 1).bit_length(), 1)
+    packed = np.sort((key << shift) | np.arange(n, dtype=np.int64))
+    return packed & ((1 << shift) - 1)
+
+
+def check_sorts(grid, gen, log2: int = SORT_LOG2) -> dict:
+    """``dist_sort`` and ``dist_sort_auto`` of 2^log2 float32 values
+    (:func:`sort_values`) with a random int32 payload on ``grid``: values
+    bit for bit and payloads equal to the host order on (key, index);
+    times from CUDA events (and ``torch.sort`` of the floats, which ties
+    -0.0 with +0.0, for scale)."""
+    from combblas_tpu_torch.parallel.vector import dist_sort, dist_sort_auto
+
+    dev = grid.device
+    n = 1 << log2
+    x = sort_values(gen, n, dev)
+    pay = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    order = _host_sorted_order(x.cpu().numpy())
+    xs_h, pay_h = x.cpu().numpy()[order], pay.cpu().numpy()[order]
+    out = dict(n=n, grid=[grid.pr, grid.pc], specials=len(SPECIAL_BITS),
+               special_copies=max(n >> 16, 1))
+    for name, fn in (("dist_sort", dist_sort),
+                     ("dist_sort_auto", dist_sort_auto)):
+        xs, ps = fn(x, grid, pay)
+        if not (np.array_equal(xs.cpu().numpy().view(np.uint32),
+                               xs_h.view(np.uint32))
+                and np.array_equal(ps.cpu().numpy(), pay_h)):
+            raise AssertionError(f"{name}: differs from the host order")
+        out[f"{name}_ms"] = cuda_ms(lambda: fn(x, grid, pay), reps=3)
+        del xs, ps
+    out["torch_sort_ms"] = cuda_ms(lambda: torch.sort(x, stable=True), reps=3)
+    log(f"  dist_sort / dist_sort_auto of 2^{log2} float32 (with -0.0, "
+        f"+0.0, NaNs) and an int32 payload: {out['dist_sort_ms']:.2f} / "
+        f"{out['dist_sort_auto_ms']:.2f} ms (torch.sort "
+        f"{out['torch_sort_ms']:.2f} ms); both equal the host order")
+    return out
+
+
+def _twice(fn, label: str):
+    """``fn()`` twice: the outputs must be equal bit for bit."""
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    if not all(_same_bits(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{label}: two calls differ")
+    return a if len(a) > 1 else a[0]
+
+
+def _host_route(idx, val, mask, init, combine: str):
+    """numpy's ``dist_route``: pairs where ``mask`` holds and the index is
+    in range, ``set`` keeping the last one a slot receives."""
+    n_pad = init.shape[0]
+    ok = mask & (idx >= 0) & (idx < n_pad)
+    i, v = idx[ok].astype(np.int64), val[ok]
+    out, hit = init.copy(), np.zeros(n_pad, bool)
+    hit[i] = True
+    if combine == "set":
+        _, last = np.unique(i[::-1], return_index=True)
+        last = i.size - 1 - last
+        out[i[last]] = v[last]
+    else:
+        ufunc = dict(sum=np.add, min=np.minimum, max=np.maximum)[combine]
+        ufunc.at(out, i, v)
+    return out, hit
+
+
+def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
+    """Phase 19's other vector functions at length ``n`` on ``grid``,
+    against numpy: ``dist_rand_perm`` a permutation with its padding
+    slots ``n`` (two generators of one seed give one permutation);
+    ``dist_invert`` of it and of values with duplicates (largest index
+    kept); ``dist_uniq`` of floats with repeats, -0.0 and NaNs (smallest
+    index kept, by key, a dead slot taking the pad key); ``dist_gather``
+    with indices out of range; and
+    ``dist_route`` with every combine on quarter-integer values (sums
+    exact) with duplicate, masked and out-of-range indices.  Every call
+    is made twice, on random floats for the route, and must repeat bit for
+    bit.  Times from CUDA events."""
+    from combblas_tpu_torch.parallel.vector import (
+        dist_gather,
+        dist_invert,
+        dist_rand_perm,
+        dist_route,
+        dist_uniq,
+    )
+
+    dev = grid.device
+    seed = int(torch.randint(0, 1 << 30, (1,), generator=gen, device=dev))
+    perm = _twice(lambda: dist_rand_perm(torch.Generator(
+        device=dev).manual_seed(seed), n, grid), "dist_rand_perm")
+    n_pad = perm.shape[0]
+    ph = perm.cpu().numpy()
+    if not (np.array_equal(np.sort(ph[:n]), np.arange(n))
+            and (ph[n:] == n).all() and n_pad > n):
+        raise AssertionError("dist_rand_perm: not a permutation with its "
+                             "padding sentinels")
+    ms = dict(dist_rand_perm=cuda_ms(lambda: dist_rand_perm(
+        torch.Generator(device=dev).manual_seed(seed), n, grid), reps=3))
+    # invert: of the permutation, and of values with duplicates
+    live = torch.rand(n_pad, generator=gen, device=dev) < 0.8
+    dup = torch.randint(0, n_pad // 4, (n_pad,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for label, val, mask in (("perm", perm, perm < n), ("dup", dup, live)):
+        got, hit = _twice(lambda: dist_invert(val, mask, grid),
+                          f"dist_invert ({label})")
+        v, m = val.cpu().numpy(), mask.cpu().numpy()
+        want = np.full(n_pad, -1, np.int64)
+        np.maximum.at(want, v[m], np.nonzero(m)[0])
+        if not (np.array_equal(got.cpu().numpy(), want)
+                and np.array_equal(hit.cpu().numpy(), want >= 0)):
+            raise AssertionError(f"dist_invert ({label}) differs from numpy")
+    ms["dist_invert"] = cuda_ms(lambda: dist_invert(dup, live, grid), reps=3)
+    # uniq: floats with repeats and specials
+    fv = sort_values(gen, n_pad, dev)
+    fv[torch.randint(0, n_pad, (n_pad // 2,), generator=gen, device=dev)] = \
+        fv[torch.randint(0, 1024, (n_pad // 2,), generator=gen, device=dev)]
+    got, hit = _twice(lambda: dist_uniq(fv, live, grid), "dist_uniq")
+    fh, lh = fv.cpu().numpy(), live.cpu().numpy()
+    # the first slot of each key, a dead slot keyed 0xFFFFFFFF (as a live
+    # NaN 0x7FFFFFFF is): that run's head is live only if no dead slot
+    # comes before it, in the JAX package as here
+    _, first = np.unique(np.where(lh, host_u32(fh), 0xFFFFFFFF),
+                         return_index=True)
+    keep = first[lh[first]]
+    want, whit = np.zeros(n_pad, np.float32), np.zeros(n_pad, bool)
+    want[keep], whit[keep] = fh[keep], True
+    if not (np.array_equal(got.cpu().numpy().view(np.uint32),
+                           want.view(np.uint32))
+            and np.array_equal(hit.cpu().numpy(), whit)):
+        raise AssertionError("dist_uniq differs from numpy")
+    ms["dist_uniq"] = cuda_ms(lambda: dist_uniq(fv, live, grid), reps=3)
+    # gather
+    x = torch.randn(n_pad, generator=gen, device=dev)
+    gi = torch.randint(-5, n_pad + 5, (n_pad,), generator=gen, device=dev)
+    got = _twice(lambda: dist_gather(x, gi, grid), "dist_gather")
+    gih, xh = gi.cpu().numpy(), x.cpu().numpy()
+    ok = (gih >= 0) & (gih < n_pad)
+    if not np.array_equal(got.cpu().numpy(),
+                          np.where(ok, xh[np.clip(gih, 0, n_pad - 1)], 0)):
+        raise AssertionError("dist_gather differs from numpy")
+    ms["dist_gather"] = cuda_ms(lambda: dist_gather(x, gi, grid), reps=3)
+    # route: duplicates (every slot about twice), masked, out of range
+    ri = torch.randint(0, n_pad // 2, (n_pad,), generator=gen, device=dev)
+    ri[torch.randint(0, n_pad, (64,), generator=gen, device=dev)] = n_pad + 1
+    ri[torch.randint(0, n_pad, (64,), generator=gen, device=dev)] = -3
+    rq = torch.randint(-64, 64, (n_pad,), generator=gen, device=dev) / 4.0
+    init = torch.randint(-64, 64, (n_pad,), generator=gen, device=dev) / 4.0
+    rf = torch.randn(n_pad, generator=gen, device=dev)
+    for combine in ("set", "sum", "min", "max"):
+        got, hit = _twice(lambda: dist_route(ri, rq, live, init, grid,
+                                             combine=combine),
+                          f"dist_route({combine})")
+        want, whit = _host_route(ri.cpu().numpy(), rq.cpu().numpy(), lh,
+                                 init.cpu().numpy(), combine)
+        if not (np.array_equal(got.cpu().numpy(), want)
+                and np.array_equal(hit.cpu().numpy(), whit)):
+            raise AssertionError(f"dist_route({combine}) differs from numpy")
+        _twice(lambda: dist_route(ri, rf, live, init, grid, combine=combine),
+               f"dist_route({combine}) on random floats")
+        ms[f"dist_route_{combine}"] = cuda_ms(lambda: dist_route(
+            ri, rf, live, init, grid, combine=combine), reps=3)
+    out = dict(n=n, n_pad=n_pad, grid=[grid.pr, grid.pc], ms=ms)
+    log(f"  vectors of {n} ({n_pad} padded): rand_perm, invert, uniq, "
+        f"gather and route (set/sum/min/max) equal numpy and repeat bit for "
+        f"bit; ms {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return out
+
+
+def _host_permuted(s, perm: np.ndarray):
+    """The host relabelling of ``s``'s entries by ``perm``: (rows, cols,
+    values) sorted by (row, col)."""
+    row, col, val, nnz, shape = s.to_numpy()
+    r, c = perm[row[:nnz]].astype(np.int64), perm[col[:nnz]].astype(np.int64)
+    order = np.argsort(r * shape[1] + c)
+    return r[order], c[order], val[:nnz][order]
+
+
+def _same_live(a, b) -> bool:
+    """Every block's nnz and live prefix equal, slot for slot."""
+    return torch.equal(a.nnz, b.nnz) and all(
+        _same_bits(x, y) for x, y in zip(_live_entries(a), _live_entries(b)))
+
+
+def permute_full(s, seed: int, side: int = DIST_SIDE) -> dict:
+    """``dist_permute`` of phase 17's matrix ``s`` on a side x side grid by
+    a ``dist_rand_perm`` permutation: equal to the host relabelling of the
+    entries (keys and values exact), repeated bit for bit, and the inverse
+    permutation (``dist_invert``) gives the matrix back, every block's
+    live entries exact.  Host seconds and retries (capacity doublings)."""
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+    from combblas_tpu_torch.parallel.vector import dist_invert, dist_rand_perm
+
+    dev = s.device
+    n = s.shape[0]
+    grid = ProcGrid.make(side, side, device=dev)
+    dm = DistSpMat.from_local(s, grid)
+    full = dist_rand_perm(torch.Generator(device=dev).manual_seed(seed), n,
+                          grid)
+    perm = full[:n]
+    _sync(dev)
+    t = time.perf_counter()
+    out = dist_permute(dm, perm)
+    _sync(dev)
+    secs = time.perf_counter() - t
+    again = dist_permute(dm, perm)
+    if not all(_same_bits(x, y) for x, y in (
+            (out.row, again.row), (out.col, again.col), (out.val, again.val),
+            (out.nnz, again.nnz))):
+        raise AssertionError("dist_permute: two calls differ")
+    del again
+    t = time.perf_counter()
+    r, c, v = _host_permuted(s, perm.cpu().numpy())
+    loc = out.to_local()
+    k = int(loc.nnz)
+    if not (k == r.size and np.array_equal(loc.row[:k].cpu().numpy(), r)
+            and np.array_equal(loc.col[:k].cpu().numpy(), c)
+            and np.array_equal(loc.val[:k].cpu().numpy(), v)):
+        raise AssertionError("dist_permute differs from the host relabelling")
+    host_secs = time.perf_counter() - t
+    del loc, r, c, v
+    inv, hit = dist_invert(full, full < n, grid)
+    if not bool(hit[:n].all()):
+        raise AssertionError("dist_invert of the permutation missed slots")
+    _sync(dev)
+    t = time.perf_counter()
+    back = dist_permute(out, inv[:n])
+    _sync(dev)
+    back_secs = time.perf_counter() - t
+    if not _same_live(back, dm):
+        raise AssertionError("dist_permute by the inverse: not the matrix")
+    line = dict(n=n, nnz=int(s.nnz), grid=[side, side], secs=secs,
+                inverse_secs=back_secs, host_check_secs=host_secs,
+                capacity_in=dm.capacity, capacity_out=out.capacity,
+                retries=int(math.log2(out.capacity // dm.capacity)))
+    log(f"  dist_permute of {line['nnz']} entries, {side}x{side}: "
+        f"{secs:.3f} s, {line['retries']} retries (capacity "
+        f"{dm.capacity} -> {out.capacity}); equals the host relabelling, "
+        f"repeats bit for bit; the inverse ({back_secs:.3f} s) gives the "
+        f"matrix back")
+    return line
+
+
+def half_vertices(n: int, seed: int) -> np.ndarray:
+    """Phase 16's vertex set: a seeded half of the vertices."""
+    return np.random.default_rng(seed).permutation(n)[:n // 2]
+
+
+def _entries_equal(got, r, c, v, label: str, rtol: float = 0.0) -> float:
+    """A SpCOO's live entries equal (r, c) exactly and v within ``rtol``
+    relative; returns the largest relative difference."""
+    k = int(got.nnz)
+    if not (k == r.size and np.array_equal(got.row[:k].cpu().numpy(), r)
+            and np.array_equal(got.col[:k].cpu().numpy(), c)):
+        raise AssertionError(f"{label}: the entries' keys differ")
+    gv = got.val[:k].cpu().numpy().astype(np.float64)
+    rel = float((np.abs(gv - v) / np.maximum(np.abs(v), F32_TINY)).max()) \
+        if k else 0.0
+    if not rel <= rtol:
+        raise AssertionError(f"{label}: values differ by {rel} relative")
+    return rel
+
+
+def dist_indexing_full(a, seed: int, side: int = DIST_SIDE) -> dict:
+    """``dist_spref``, ``dist_prune_block`` and ``dist_spasgn`` of phase 15's
+    graph on a side x side grid, on phase 16's vertices: ``dist_spref``
+    against phase 16's local ``spref`` (keys exact, values within 1e-6
+    relative); the block prune against the host's mask of the entries;
+    ``dist_spasgn`` of twice the submatrix back into A against the host
+    assignment (A with its v x v entries doubled), keys and values exact.
+    The K1/K2 (or K3/K4) launches of ``dist_spref`` and ``dist_spasgn``
+    are read around the calls."""
+    from combblas_tpu_torch.ops.indexing import spref
+    from combblas_tpu_torch.parallel.elementwise import dist_apply
+    from combblas_tpu_torch.parallel.indexing import (
+        dist_prune_block,
+        dist_spasgn,
+        dist_spref,
+    )
+
+    dev = a.device
+    n = a.shape[0]
+    v = half_vertices(n, seed)
+    dm = DistSpMat.from_local(a, ProcGrid.make(side, side, device=dev))
+    out = dict(scale=int(n).bit_length() - 1, vertices=len(v),
+               grid=[side, side])
+    _sync(dev)
+    reset_launches()
+    t = time.perf_counter()
+    sub = dist_spref(dm, v, v)
+    nnz_sub = int(sub.total_nnz())
+    out["spref_secs"] = time.perf_counter() - t
+    out["spref_launches"] = {k: c for k, c in LAUNCHES.items() if c}
+    _expand_compress_launches(out["spref_launches"], "dist_spref")
+    ref = spref(a, v, v)
+    out["spref_rel_diff"] = _same_entries(sub.to_local(), ref,
+                                          "dist_spref vs spref", 1e-6)
+    out["spref_nnz"] = nnz_sub
+    del ref
+    row, col, val, nnz, _shape = a.to_numpy()
+    row, col = row[:nnz].astype(np.int64), col[:nnz].astype(np.int64)
+    val = val[:nnz].astype(np.float64)
+    inv = np.zeros(n, bool)
+    inv[v] = True
+    blk = inv[row] & inv[col]
+    _sync(dev)
+    t = time.perf_counter()
+    pruned = dist_prune_block(dm, v, v)
+    _sync(dev)
+    out["prune_block_secs"] = time.perf_counter() - t
+    _entries_equal(pruned.to_local(), row[~blk], col[~blk], val[~blk],
+                   "dist_prune_block")
+    del pruned
+    b2 = dist_apply(sub, lambda x: 2.0 * x)
+    _sync(dev)
+    reset_launches()
+    t = time.perf_counter()
+    asg = dist_spasgn(dm, v, v, b2)
+    _sync(dev)
+    out["spasgn_secs"] = time.perf_counter() - t
+    out["spasgn_launches"] = {k: c for k, c in LAUNCHES.items() if c}
+    _expand_compress_launches(out["spasgn_launches"], "dist_spasgn")
+    _entries_equal(asg.to_local(), row, col, np.where(blk, 2 * val, val),
+                   "dist_spasgn")
+    out["launches"] = {k: out["spref_launches"].get(k, 0)
+                       + out["spasgn_launches"].get(k, 0)
+                       for k in set(out["spref_launches"])
+                       | set(out["spasgn_launches"])}
+    log(f"  dist_spref {out['spref_secs']:.3f} s ({nnz_sub} entries, equal "
+        f"phase 16's spref, {out['spref_rel_diff']:.3g} rel; launches "
+        f"{out['spref_launches']}), dist_prune_block "
+        f"{out['prune_block_secs']:.3f} s, dist_spasgn "
+        f"{out['spasgn_secs']:.3f} s (launches {out['spasgn_launches']}); "
+        f"prune and assignment equal the host's")
+    return out
+
+
+def _loops_on_live(a):
+    """``a`` plus self loops on its vertices of degree >= 1 only (HipMCL's
+    order: isolated vertices removed, then loops added), and the mask of
+    those vertices."""
+    from combblas_tpu_torch.ops.coo import SpCOO, merge
+
+    rp = a.row_ptr()
+    live = (rp[1:] > rp[:-1]).cpu().numpy()
+    idx = np.nonzero(live)[0]
+    eye = SpCOO.from_arrays(idx, idx, np.ones(idx.size, np.float32), a.shape,
+                            sum_duplicates=False, device=a.device)
+    return merge(a, eye, PLUS_TIMES), live
+
+
+def _hand_preprocessed(dm, p, generator):
+    """``mcl_dist(preprocess=True)`` composed by hand: RemoveIsolated and
+    RandPermute, ``mcl_dist`` of that matrix, its labels mapped back to
+    the original vertices."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+
+    n = dm.gshape[1]
+    b, vmap, _ = mcl_mod.dist_remove_isolated(dm)
+    b, perm = mcl_mod.dist_rand_permute(b, generator)
+    labels, iters = mcl_mod.mcl_dist(b, p)
+    lab = labels.cpu().numpy()
+    comp = np.where(vmap >= 0, perm[np.maximum(vmap, 0)], -1)
+    return np.where(vmap >= 0, lab[np.maximum(comp, 0)],
+                    n + np.arange(n)), iters
+
+
+def check_cluster_labels(lab: np.ndarray, a, live: np.ndarray) -> int:
+    """Preprocessed MCL labels: every isolated vertex a singleton labelled
+    n + its index, apart from every other label; every cluster inside one
+    connected component of ``a`` (scipy).  Returns the cluster count."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = a.shape[0]
+    iso = np.nonzero(~live)[0]
+    if not (np.array_equal(lab[iso], n + iso)
+            and not np.isin(lab[live], lab[iso]).any()):
+        raise AssertionError("an isolated vertex is not a singleton >= n")
+    row, col, _val, nnz, shape = a.to_numpy()
+    g = coo_matrix((np.ones(nnz, np.int8), (row[:nnz], col[:nnz])),
+                   shape=shape)
+    _, comp = connected_components(g, directed=True, connection="weak")
+    clusters = np.unique(lab).size
+    if np.unique(np.stack([lab, comp]), axis=1).shape[1] != clusters:
+        raise AssertionError("a cluster spans two connected components")
+    return clusters
+
+
+def mcl_preprocess_full(a, seed: int, side: int = DIST_SIDE) -> dict:
+    """Phase 20: ``mcl_dist(preprocess=True)`` on phase 15's graph plus
+    self loops on its vertices of degree >= 1, a side x side grid, one
+    phase, a seeded generator: a timed run as a user calls it (per
+    iteration host seconds, K1/K2 at least once an iteration); its labels
+    checked (:func:`check_cluster_labels`); equal to the hand-composed
+    preprocessing (:func:`_hand_preprocessed`) with a generator of the
+    same seed; a second run with the same seed bit-identical."""
+    from combblas_tpu_torch.models.mcl import MCLParams
+
+    dev = a.device
+    p = MCLParams(**MCL_PARAMS)
+    a, live = _loops_on_live(a)
+    n, nnz = a.shape[0], int(a.nnz)
+    dm = DistSpMat.from_local(a, ProcGrid.make(side, side, device=dev))
+
+    def generator():
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    labels, iters, lw, wall, launches = run_mcl_dist(
+        dm, p, light=True, preprocess=True, generator=generator())
+    peak = torch.cuda.max_memory_allocated()
+    _k1k2_each_iteration(launches, iters, "mcl_dist(preprocess=True)")
+    lab = labels.cpu().numpy()
+    clusters = check_cluster_labels(lab, a, live)
+    rows = lw.rows
+    del lw
+    t = time.perf_counter()
+    hand, hand_iters = _hand_preprocessed(dm, p, generator())
+    hand_secs = time.perf_counter() - t
+    if hand_iters != iters or not np.array_equal(hand, lab):
+        raise AssertionError("mcl_dist(preprocess=True) differs from the "
+                             "hand-composed preprocessing")
+    labels2, iters2, _w, wall2, _l = run_mcl_dist(
+        dm, p, light=True, preprocess=True, generator=generator())
+    if iters2 != iters or not torch.equal(labels2, labels):
+        raise AssertionError("mcl_dist(preprocess=True): two runs differ")
+    secs = [r["secs"] for r in rows]
+    steady = sorted(secs[2:] or secs)
+    chaos = [r["chaos"] for r in rows]
+    out = dict(scale=int(n).bit_length() - 1, n=n, nnz=nnz,
+               isolated=int((~live).sum()), grid=[side, side], phases=1,
+               iters=int(iters), converged=bool(chaos[-1] < p.eps),
+               clusters=clusters, first_iter_secs=secs[0],
+               steady_secs_per_iter=steady[len(steady) // 2],
+               total_secs=wall, second_run_secs=wall2, iter_secs=secs,
+               launches=launches,
+               launches_per_iter={k: c / iters for k, c in launches.items()},
+               peak_mem_gb=peak / 2**30, hand_composed_secs=hand_secs)
+    log(f"  {out['isolated']} isolated vertices of {n}; {iters} iterations, "
+        f"converged {out['converged']}, {clusters} clusters; first "
+        f"{secs[0]:.4f} s, steady {out['steady_secs_per_iter']:.4f} s/iter, "
+        f"total {wall:.3f} s; launches {launches}; peak "
+        f"{out['peak_mem_gb']:.2f} GiB; labels equal the hand-composed "
+        f"preprocessing, and a second run's")
+    return out
+
+
+def mcl_preprocess_card_vs_cpu(seed: int, dev,
+                               scale: int = PREPROCESS_CHECK_SCALE,
+                               side: int = PREPROCESS_CHECK_SIDE) -> dict:
+    """``mcl_dist(preprocess=True)`` at ``scale`` on a side x side grid of
+    the card against the same call on CPU tensors, both drawing the
+    permutation from a CPU generator of one seed: iterations and labels
+    exact, K1/K2 on the card at least once an iteration."""
+    from combblas_tpu_torch.models.mcl import MCLParams, mcl_dist
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    cpu = torch.device("cpu")
+    g, _live = _loops_on_live(mcl_graph(seed, cpu, scale))
+    row, col, val, nnz, shape = g.to_numpy()
+    p = MCLParams(**MCL_PARAMS)
+    runs = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        dm = DistSpMat.from_local(SpCOO.from_numpy(row, col, val, nnz, shape,
+                                                   device=d),
+                                  ProcGrid.make(side, side, device=d))
+        _sync(dev)
+        reset_launches()
+        t = time.perf_counter()
+        labels, iters = mcl_dist(dm, p, preprocess=True,
+                                 generator=torch.Generator().manual_seed(seed))
+        _sync(dev)
+        runs[name] = dict(labels=labels.cpu(), iters=iters,
+                          secs=time.perf_counter() - t,
+                          launches={k: c for k, c in LAUNCHES.items() if c})
+    card, cpu_run = runs["card"], runs["cpu"]
+    _k1k2_each_iteration(card["launches"], card["iters"],
+                         "mcl_dist(preprocess=True) card run")
+    if card["iters"] != cpu_run["iters"] or not torch.equal(
+            card["labels"], cpu_run["labels"]):
+        raise AssertionError("mcl_dist(preprocess=True) card vs CPU differ")
+    log(f"  card vs CPU, scale {scale}, {side}x{side}: {card['iters']} "
+        f"iterations, labels equal; card {card['secs']:.2f} s, CPU "
+        f"{cpu_run['secs']:.2f} s")
+    return dict(scale=scale, grid=[side, side], iters=card["iters"],
+                card_secs=card["secs"], cpu_secs=cpu_run["secs"],
+                launches=card["launches"])
+
+
+def stencil(k: int, dims: int, dev, diagonal: bool):
+    """The (2*dims+1)-point stencil of a k^dims grid (natural vertex
+    order) as global COO tensors on ``dev``: rows, columns, ones."""
+    ids = torch.arange(k ** dims, device=dev).reshape((k,) * dims)
+    rows, cols = ([ids.reshape(-1)], [ids.reshape(-1)]) if diagonal else \
+        ([], [])
+    for ax in range(dims):
+        lo = ids.narrow(ax, 0, k - 1).reshape(-1)
+        hi = ids.narrow(ax, 1, k - 1).reshape(-1)
+        rows += [lo, hi]
+        cols += [hi, lo]
+    r, c = torch.cat(rows), torch.cat(cols)
+    return r, c, torch.ones(r.shape[0], device=dev)
+
+
+def _grid_dist(r, c, v, n: int, grid):
+    from combblas_tpu_torch.parallel.dist import _bucket_blocks
+
+    R, C, V, counts = _bucket_blocks(r, c, v, (n, n), grid, None)
+    return DistSpMat(row=R, col=C, val=V, nnz=counts, gshape=(n, n),
+                     grid=grid)
+
+
+def _host_levels(indptr, indices, s: int, n: int) -> np.ndarray:
+    """BFS levels from ``s`` on the host CSR, -1 where unreached."""
+    lev = np.full(n, -1, np.int64)
+    stamp = np.zeros(n, np.int64)
+    lev[s] = 0
+    front, d = np.array([s]), 0
+    while front.size:
+        starts, lens = indptr[front], indptr[front + 1] - indptr[front]
+        off = np.repeat(starts - np.cumsum(lens) + lens, lens)
+        nb = indices[off + np.arange(int(lens.sum()))]
+        nb = nb[lev[nb] < 0]
+        stamp[nb] = np.arange(nb.size)       # one survivor per vertex
+        nb = nb[stamp[nb] == np.arange(nb.size)]
+        d += 1
+        lev[nb] = d
+        front = nb
+    return lev
+
+
+def host_rcm(row: np.ndarray, col: np.ndarray, n: int,
+             ppv_rounds: int = 8) -> dict:
+    """An independent host reverse Cuthill-McKee of a symmetric pattern
+    (COO sorted by row, diagonal included), for both parent rules: per
+    component a start of least degree, the pseudo-peripheral search of
+    ``models/ordering.py``, BFS levels, and within each level the order
+    (key, degree, id), the key being the position of the largest-id
+    previous-level neighbour (``"parent"``: ``rcm_order``'s BFS parent)
+    or the least position among the previous-level neighbours
+    (``"min_label"``: ``rcm_order_dist``'s SelectMinSR).  Returns
+    {rule: order}."""
+    deg = np.bincount(row, minlength=n)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    rules = ("parent", "min_label")
+    pos = {rule: np.full(n, -1, np.int64) for rule in rules}
+    done = np.zeros(n, bool)
+    counter = 0
+    while counter < n:
+        cand = np.nonzero(~done)[0]
+        s = int(cand[np.argmin(deg[cand])])
+        last = -1
+        for _ in range(ppv_rounds):
+            lev = _host_levels(indptr, col, s, n)
+            ecc = int(lev.max())
+            if ecc <= last:
+                break
+            last = ecc
+            far = np.nonzero(lev == ecc)[0]
+            s = int(far[np.argmin(deg[far])])
+        lev = _host_levels(indptr, col, s, n)
+        done |= lev >= 0
+        step = (lev[row] >= 0) & (lev[col] == lev[row] + 1)
+        u, w = row[step], col[step]
+        by = np.argsort(lev[w], kind="stable")
+        u, w = u[by], w[by]
+        lw = lev[w]
+        members = np.argsort(lev, kind="stable")
+        lev_sorted = lev[members]
+        scratch = dict(parent=np.full(n, -1, np.int64),
+                       min_label=np.full(n, n, np.int64))
+        for rule in rules:
+            pos[rule][s] = counter
+        base = counter + 1
+        for lvl in range(1, int(lev.max()) + 1):
+            a, b = np.searchsorted(lw, [lvl, lvl + 1])
+            ma, mb = np.searchsorted(lev_sorted, [lvl, lvl + 1])
+            mem = members[ma:mb]
+            for rule in rules:
+                p, sc = pos[rule], scratch[rule]
+                if rule == "parent":
+                    np.maximum.at(sc, w[a:b], u[a:b])
+                    key = p[sc[mem]]
+                else:
+                    np.minimum.at(sc, w[a:b], p[u[a:b]])
+                    key = sc[mem]
+                order = mem[np.lexsort((mem, deg[mem], key))]
+                p[order] = base + np.arange(order.size)
+            base += mem.size
+        counter = base
+    return {rule: np.argsort(pos[rule])[::-1].copy() for rule in rules}
+
+
+def bandwidth(row: torch.Tensor, col: torch.Tensor, order) -> int:
+    """The bandwidth of the pattern (row, col) under ``order`` (order[i] =
+    the i-th vertex)."""
+    order = torch.as_tensor(np.asarray(order), device=row.device)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(order.shape[0], device=row.device,
+                              dtype=order.dtype)
+    return int((pos[row.long()] - pos[col.long()]).abs().max())
+
+
+def rcm_full(seed: int, dev, k: int = RCM_SIDE,
+             side: int = DIST_SIDE) -> dict:
+    """Phase 21's RCM: the 7-point stencil of a k^3 grid (diagonal
+    included) on a side x side grid, relabelled at random by
+    ``dist_rand_perm`` + ``dist_permute``; ``rcm_order_dist`` on the grid
+    and ``rcm_order`` on its local copy, each equal to
+    :func:`host_rcm` with its own parent rule, each a permutation whose
+    bandwidth is at most 3 k^2, beside the natural (k^2) and relabelled
+    orders' bandwidths."""
+    from combblas_tpu_torch.models.ordering import rcm_order, rcm_order_dist
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+    from combblas_tpu_torch.parallel.vector import dist_rand_perm
+
+    n = k ** 3
+    grid = ProcGrid.make(side, side, device=dev)
+    r, c, v = stencil(k, 3, dev, diagonal=True)
+    natural_bw = int((r - c).abs().max())
+    dm0 = _grid_dist(r, c, v, n, grid)
+    del r, c, v
+    perm = dist_rand_perm(torch.Generator(device=dev).manual_seed(seed), n,
+                          grid)[:n]
+    dm = dist_permute(dm0, perm)
+    del dm0
+    loc = dm.to_local()
+    nnz = int(loc.nnz)
+    row, col = loc.row[:nnz], loc.col[:nnz]
+    _sync(dev)
+    t = time.perf_counter()
+    o_dist = rcm_order_dist(dm)
+    dist_secs = time.perf_counter() - t
+    _sync(dev)
+    t = time.perf_counter()
+    o_local = rcm_order(loc).cpu().numpy()
+    local_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    want = host_rcm(row.cpu().numpy().astype(np.int64),
+                    col.cpu().numpy().astype(np.int64), n)
+    host_secs = time.perf_counter() - t
+    for name, got, rule in (("rcm_order_dist", o_dist, "min_label"),
+                            ("rcm_order", o_local, "parent")):
+        if not np.array_equal(np.sort(got), np.arange(n)):
+            raise AssertionError(f"{name}: not a permutation")
+        if not np.array_equal(got, want[rule]):
+            raise AssertionError(f"{name}: differs from the host "
+                                 f"Cuthill-McKee of its rule")
+    bw = dict(natural=natural_bw, relabelled=bandwidth(row, col, np.arange(n)),
+              rcm_order_dist=bandwidth(row, col, o_dist),
+              rcm_order=bandwidth(row, col, o_local))
+    limit = 3 * k * k
+    if max(bw["rcm_order_dist"], bw["rcm_order"]) > limit:
+        raise AssertionError(f"RCM bandwidth past 3 k^2 = {limit}: {bw}")
+    out = dict(k=k, n=n, nnz=nnz, grid=[side, side],
+               rcm_order_dist_secs=dist_secs, rcm_order_secs=local_secs,
+               host_reference_secs=host_secs, bandwidth=bw,
+               bandwidth_over_k2={key: b / (k * k) for key, b in bw.items()},
+               same_order=bool(np.array_equal(o_dist, o_local)),
+               positions_differing=int((o_dist != o_local).sum()))
+    log(f"  RCM of the {k}^3 7-point stencil ({nnz} entries), relabelled, "
+        f"{side}x{side}: rcm_order_dist {dist_secs:.2f} s, rcm_order "
+        f"{local_secs:.2f} s, each equal to the host Cuthill-McKee of its "
+        f"parent rule (the two orders differ at "
+        f"{out['positions_differing']} positions); bandwidths {bw} (3k^2 = "
+        f"{limit})")
+    return out
+
+
+def md_full(dev, k: int = MD_SIDE, side: int = DIST_SIDE) -> dict:
+    """Phase 21's minimum degree: ``md_order_dist`` on a side x side grid
+    equal to ``md_order``, on the 5-point stencil of a k^2 grid."""
+    from combblas_tpu_torch.models.ordering import md_order, md_order_dist
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    n = k * k
+    r, c, v = stencil(k, 2, dev, diagonal=False)
+    a = SpCOO.from_arrays(r.cpu().numpy(), c.cpu().numpy(), v.cpu().numpy(),
+                          (n, n), device=dev)
+    dm = _grid_dist(r, c, v, n, ProcGrid.make(side, side, device=dev))
+    t = time.perf_counter()
+    want = md_order(a).cpu().numpy()
+    local_secs = time.perf_counter() - t
+    t = time.perf_counter()
+    got = md_order_dist(dm).cpu().numpy()
+    dist_secs = time.perf_counter() - t
+    if not np.array_equal(got, want):
+        raise AssertionError("md_order_dist differs from md_order")
+    log(f"  minimum degree of the {k}x{k} 5-point stencil: md_order_dist "
+        f"({side}x{side}) {dist_secs:.2f} s equals md_order {local_secs:.2f} "
+        f"s")
+    return dict(k=k, n=n, md_order_secs=local_secs,
+                md_order_dist_secs=dist_secs)
+
+
+def _bc_rel(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest |a - b| / max(|a|, |b|) (0 where both are 0)."""
+    den = np.maximum(np.abs(a), np.abs(b))
+    d = np.abs(a - b)
+    return float(np.where(den > 0, d / np.where(den > 0, den, 1), 0).max())
+
+
+def bc_full(s, seed: int, side: int = DIST_SIDE) -> dict:
+    """Phase 21's betweenness centrality on phase 8's graph ``s`` from its
+    first ``BC_SOURCES`` roots in batches of ``BC_BATCH``:
+    ``betweenness_centrality`` (gather SpMM) and
+    ``betweenness_centrality_dist`` on a side x side grid within
+    ``BC_RTOL`` relative, all scores finite; seconds, BC TEPS (sources x
+    undirected edges / seconds) and peak memory of each."""
+    from combblas_tpu_torch.models.bc import (
+        betweenness_centrality,
+        betweenness_centrality_dist,
+    )
+
+    dev = s.device
+    roots = bfs_roots(s, seed)[:BC_SOURCES]
+    edges = int(s.nnz) // 2
+    dm = DistSpMat.from_local(s, ProcGrid.make(side, side, device=dev))
+    out = dict(n=s.shape[0], nnz=int(s.nnz), sources=len(roots),
+               batch=BC_BATCH, grid=[side, side])
+    scores = {}
+    for name, run in (
+            ("local", lambda: betweenness_centrality(s, BC_BATCH, roots)),
+            ("dist", lambda: betweenness_centrality_dist(dm, BC_BATCH,
+                                                         roots))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _sync(dev)
+        t = time.perf_counter()
+        scores[name] = run()
+        secs = time.perf_counter() - t
+        if not np.isfinite(scores[name]).all():
+            raise AssertionError(f"betweenness_centrality ({name}): "
+                                 f"scores not finite")
+        out[name] = dict(secs=secs, teps=len(roots) * edges / secs,
+                         peak_mem_gb=torch.cuda.max_memory_allocated()
+                         / 2**30)
+    out["rel_diff"] = _bc_rel(scores["dist"], scores["local"])
+    if not out["rel_diff"] <= BC_RTOL:
+        raise AssertionError(f"BC local vs distributed: {out['rel_diff']} "
+                             f"relative")
+    out["max_score"] = float(scores["local"].max())
+    log(f"  BC from {len(roots)} roots, batches of {BC_BATCH}: local "
+        f"{out['local']['secs']:.3f} s ({out['local']['teps'] / 1e9:.3f} "
+        f"GTEPS, peak {out['local']['peak_mem_gb']:.2f} GiB), "
+        f"{side}x{side} {out['dist']['secs']:.3f} s "
+        f"({out['dist']['teps'] / 1e9:.3f} GTEPS, peak "
+        f"{out['dist']['peak_mem_gb']:.2f} GiB); equal within "
+        f"{out['rel_diff']:.3g} relative")
+    return out
+
+
+def bc_card_vs_cpu(seed: int, dev, scale: int = BC_CHECK_SCALE) -> dict:
+    """``betweenness_centrality`` of the scale-``scale`` symmetrized G500
+    graph (built on the CPU, copied to the card) from its first
+    ``BC_SOURCES`` roots, on the card and on the CPU: within
+    ``BC_CHECK_RTOL`` relative."""
+    from combblas_tpu_torch.models.bc import betweenness_centrality
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    cpu = torch.device("cpu")
+    s = spmm_bfs_graphs(seed, cpu, scale)["s"]
+    roots = bfs_roots(s, seed)[:BC_SOURCES]
+    sc = SpCOO.from_numpy(*s.to_numpy(), device=dev)
+    got = betweenness_centrality(sc, BC_BATCH, roots)
+    want = betweenness_centrality(s, BC_BATCH, roots)
+    rel = _bc_rel(got, want)
+    if not rel <= BC_CHECK_RTOL:
+        raise AssertionError(f"BC card vs CPU: {rel} relative")
+    log(f"  BC card vs CPU, scale {scale}: within {rel:.3g} relative")
+    return dict(scale=scale, rel_diff=rel)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -2811,6 +3685,7 @@ def main() -> int:
     dist_line = dist_graph_full(graphs["s"], *graphs["bfs_check"], args.seed)
     log(json.dumps(dict(dist_line, scale=GRAPH_SCALE)))
     phase_secs["17"] = time.perf_counter() - t
+    s21 = graphs["s"]        # phase 8's graph, for phases 19 and 21
     del graphs
     torch.cuda.empty_cache()
 
@@ -2897,12 +3772,56 @@ def main() -> int:
     log(f"phase 18: mcl_dist, phase 15's graph with self loops, "
         f"{DIST_SIDE}x{DIST_SIDE} grid, phases=1")
     mcl_dist_line = mcl_dist_full(a_mcl, args.seed, mcl_line)
-    del a_mcl
     torch.cuda.empty_cache()
     mcl_dist_line["card_vs_cpu"] = mcl_dist_card_vs_cpu(args.seed, dev)
     log(json.dumps(mcl_dist_line))
     torch.cuda.empty_cache()
     phase_secs["18"] = time.perf_counter() - t
+
+    # 19. the distributed vector layer and indexing
+    t = time.perf_counter()
+    grid44 = ProcGrid.make(DIST_SIDE, DIST_SIDE, device=dev)
+    log(f"phase 19: dist_sort / dist_sort_auto of 2^{SORT_LOG2} float32, "
+        f"the vector functions at {VEC_LEN}, dist_permute of phase 17's "
+        f"graph, dist_spref / dist_prune_block / dist_spasgn of phase 15's, "
+        f"{DIST_SIDE}x{DIST_SIDE}")
+    vector_line = dict(sorts=check_sorts(grid44, gen),
+                       vectors=check_vectors(grid44, gen))
+    torch.cuda.empty_cache()
+    vector_line["permute"] = permute_full(s21, args.seed)
+    torch.cuda.empty_cache()
+    vector_line["indexing"] = dist_indexing_full(a_mcl, args.seed)
+    log(json.dumps(vector_line))
+    torch.cuda.empty_cache()
+    phase_secs["19"] = time.perf_counter() - t
+
+    # 20. HipMCL with its preprocessing
+    t = time.perf_counter()
+    log(f"phase 20: mcl_dist(preprocess=True), phase 15's graph with self "
+        f"loops on its vertices of degree >= 1, {DIST_SIDE}x{DIST_SIDE}")
+    preprocess_line = mcl_preprocess_full(a_mcl, args.seed)
+    del a_mcl
+    torch.cuda.empty_cache()
+    preprocess_line["card_vs_cpu"] = mcl_preprocess_card_vs_cpu(args.seed,
+                                                                dev)
+    log(json.dumps(preprocess_line))
+    torch.cuda.empty_cache()
+    phase_secs["20"] = time.perf_counter() - t
+
+    # 21. the orderings and betweenness centrality
+    t = time.perf_counter()
+    log(f"phase 21: rcm_order(_dist) of the {RCM_SIDE}^3 stencil, "
+        f"md_order(_dist) of the {MD_SIDE}x{MD_SIDE} stencil, "
+        f"betweenness_centrality(_dist) of phase 8's graph")
+    order_line = dict(rcm=rcm_full(args.seed, dev))
+    torch.cuda.empty_cache()
+    order_line["md"] = md_full(dev)
+    order_line["bc"] = bc_full(s21, args.seed)
+    del s21
+    torch.cuda.empty_cache()
+    order_line["bc"]["card_vs_cpu"] = bc_card_vs_cpu(args.seed, dev)
+    log(json.dumps(order_line))
+    phase_secs["21"] = time.perf_counter() - t
 
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
@@ -2921,14 +3840,18 @@ def main() -> int:
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
                for name in KERNELS]
-    for k in kernels:    # K1-K4 also carry the MCL and spref paths
+    for k in kernels:    # K1-K4 also carry the MCL and indexing paths
         if k["name"] in ("expand_i32", "compress_i32", "expand_i64",
                          "compress_i64"):
             k.update(launches_mcl=mcl_line["launches"].get(k["name"], 0),
                      launches_mcl_dist=mcl_dist_line["launches"].get(
                          k["name"], 0),
                      launches_spref=index_line["spref"]["launches"].get(
-                         k["name"], 0))
+                         k["name"], 0),
+                     launches_dist_indexing=vector_line["indexing"][
+                         "launches"].get(k["name"], 0),
+                     launches_mcl_preprocess=preprocess_line[
+                         "launches"].get(k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")
@@ -2939,7 +3862,8 @@ def main() -> int:
                    auto=auto_line, phase12=k12, summa=summa_line,
                    ring_3d=ring_line, mcl=mcl_line, indexing=index_line,
                    dist=dist_line, mcl_dist=mcl_dist_line,
-                   phase_secs=phase_secs)
+                   vectors=vector_line, mcl_preprocess=preprocess_line,
+                   orderings=order_line, phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

@@ -19,9 +19,9 @@ The loops run on the host (capacities change between iterations).
   packed route (K1, K2) when ``(mb+1)*(nb+1) < 2^31``, as on a 4x4 grid at
   scale 17, and the wide route (K3, K4) otherwise.  With ``layers > 1`` the
   expansion is the 3D SUMMA.  Clusters are ``fastsv_dist`` of ``A +
-  A^T``.  ``preprocess=True`` (isolated-vertex removal and a random
-  permutation) needs the distributed permutation, not ported yet, and
-  raises.
+  A^T``.  ``preprocess=True`` first runs HipMCL's ``RemoveIsolated`` and
+  ``RandPermute`` (:func:`dist_remove_isolated`, :func:`dist_rand_permute`:
+  ``dist_permute`` owner exchanges) and translates the labels back.
 """
 
 from __future__ import annotations
@@ -52,11 +52,18 @@ from combblas_tpu_torch.parallel.elementwise import (
     dist_reduce,
     dist_transpose,
 )
+from combblas_tpu_torch.parallel.indexing import dist_permute
 from combblas_tpu_torch.parallel.memefficient import mem_efficient_spgemm
+from combblas_tpu_torch.parallel.vector import dist_rand_perm
 from combblas_tpu_torch.semiring import MAX_FIRST, PLUS_TIMES
 
 __all__ = ["MCLParams", "mcl_local", "mcl_dist", "dist_mcl_prune",
+           "dist_remove_isolated", "dist_rand_permute",
            "make_col_stochastic", "chaos"]
+
+#: The seed of ``mcl_dist``'s permutation when no generator is given (the
+#: JAX package defaults to ``PRNGKey(17)``).
+PREPROCESS_SEED = 17
 
 #: ``spgemm_auto``'s slab budget in MCL: the default 2^24 would cut the
 #: expansion into many more row slabs at bench scales.
@@ -339,10 +346,55 @@ def _mcl_dist_iteration(a: DistSpMat, p: MCLParams, expand: Callable):
     return a2, float(_dist_chaos(a2))
 
 
+def dist_remove_isolated(a: DistSpMat):
+    """``RemoveIsolated`` (``MCL.cpp:477``): the vertices with an empty
+    column dropped by compacting the kept ones to the front of the index
+    space (``gshape`` stays), one ``dist_permute``.  Returns (compacted
+    matrix, host int32 map with -1 for a dropped vertex, kept count)."""
+    n = a.gshape[1]
+    keep = dist_nnz_per_col(a)[:n].cpu().numpy() > 0
+    n_keep = int(keep.sum())
+    vmap = np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
+    return dist_permute(a, vmap, vmap), vmap, n_keep
+
+
+def dist_rand_permute(a: DistSpMat, generator: torch.Generator):
+    """``RandPermute`` (``MCL.cpp:497``): the symmetric random relabelling
+    A(p, p), a ``dist_rand_perm`` drawn from ``generator`` and one
+    ``dist_permute``.  Returns (matrix, host permutation of length n)."""
+    n = a.gshape[1]
+    perm = dist_rand_perm(generator, n, a.grid)[:n].cpu().numpy()
+    return dist_permute(a, perm), perm
+
+
+def _preprocess(a: DistSpMat, generator):
+    """``RemoveIsolated`` then ``RandPermute``: the matrix and the map of
+    every original vertex to its permuted compacted index (-1: dropped)."""
+    if generator is None:
+        generator = torch.Generator(device=a.grid.device).manual_seed(
+            PREPROCESS_SEED)
+    a, vmap, _ = dist_remove_isolated(a)
+    a, perm = dist_rand_permute(a, generator)
+    return a, np.where(vmap >= 0, perm[np.maximum(vmap, 0)], -1)
+
+
+def _labels_back(labels: torch.Tensor, vmap: np.ndarray,
+                 n_cols: int) -> torch.Tensor:
+    """The labels of the original vertices: a kept vertex takes its
+    permuted index's label, an isolated vertex ``n_cols + its index`` (a
+    singleton, apart from every kept label)."""
+    kept = torch.from_numpy(vmap >= 0).to(labels.device)
+    idx = torch.from_numpy(np.maximum(vmap, 0).astype(np.int64)).to(
+        labels.device)
+    own = n_cols + torch.arange(vmap.shape[0], device=labels.device)
+    return torch.where(kept, labels[idx], own.to(labels.dtype))
+
+
 def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
              phases: int = 1, verbose: bool = False,
-             preprocess: bool = False, use_kselect2: bool = False,
-             layers: int = 1, grid3=None):
+             preprocess: bool = False,
+             generator: Optional[torch.Generator] = None,
+             use_kselect2: bool = False, layers: int = 1, grid3=None):
     """Distributed HipMCL on a square block grid: the expansion is
     ``mem_efficient_spgemm`` in ``phases`` column slabs with
     :func:`dist_mcl_prune` applied inside every phase, then inflation and
@@ -351,19 +403,18 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
     loops are added (``params.add_self_loops`` is not read).
 
     ``layers > 1`` runs the expansion on the 3D grid ``grid3`` (its
-    ``layers`` layers over ``a``'s 2D grid).  ``preprocess=True``
-    (``RemoveIsolated`` + ``RandPermute``) needs ``dist_permute``
-    (``parallel/indexing.py``) and ``dist_rand_perm``
-    (``parallel/vector.py``), which are not ported yet: it raises
-    ``NotImplementedError`` (so the port has no ``rng_key`` for that
-    permutation yet).  Returns (labels, iterations); the labels are the
-    column-space FullyDist vector of length ``col_vec_len``."""
-    if preprocess:
-        raise NotImplementedError(
-            "mcl_dist(preprocess=True) needs dist_permute "
-            "(parallel/indexing.py) and dist_rand_perm (parallel/vector.py)"
-            ", which the port does not have yet")
+    ``layers`` layers over ``a``'s 2D grid).  ``preprocess=True`` runs
+    ``RemoveIsolated`` and ``RandPermute`` first (the permutation drawn
+    from ``generator``, on any device; default: one on the grid's device
+    seeded ``PREPROCESS_SEED``; JAX takes ``rng_key``) and translates the
+    labels back.  Returns (labels, iterations): the labels are the
+    column-space FullyDist vector of length ``col_vec_len``, or with
+    ``preprocess`` one label per original vertex (length n), an isolated
+    vertex labelled ``n + its index``."""
     p = params or MCLParams()
+    vmap = None
+    if preprocess:
+        a, vmap = _preprocess(a, generator)
 
     def hook(c: DistSpMat) -> DistSpMat:
         return dist_mcl_prune(c, p, use_kselect2=use_kselect2)
@@ -389,4 +440,7 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
         if ch < p.eps:
             break
     sym = dist_add(a, dist_transpose(a))
-    return fastsv_dist(sym), it
+    labels = fastsv_dist(sym)
+    if vmap is not None:
+        return _labels_back(labels, vmap, a.gshape[1]), it
+    return labels, it

@@ -71,15 +71,16 @@ def spmsv_masked(a: SpCOO, x_val: torch.Tensor, x_mask: torch.Tensor,
     else:
         src, dst, out_len, src_len = a.col, a.row, m, n
     src_c = src.clamp(max=src_len - 1).long()
-    active = valid & x_mask[src_c]
-    prod = sr.mul(a.val, x_val[src_c])
+    # only the active entries fold (one host read): every inactive entry
+    # sent to one spare slot would serialise the card's atomics there
+    idx = torch.nonzero(valid & x_mask[src_c]).squeeze(1)
+    src_c = src_c[idx]
+    prod = sr.mul(a.val[idx], x_val[src_c])
     zero = sr.zero(prod.dtype).to(prod.device)
-    prod = torch.where(active, prod, zero)
-    seg = torch.where(active, dst, out_len).long()
+    seg = dst[idx].long()
     y = _segment_reduce(prod, seg, out_len, sr)
-    y_mask = torch.zeros(out_len + 1, dtype=torch.bool, device=a.device)
-    y_mask[seg] = True          # inactive entries land on the spare slot
-    y_mask = y_mask[:out_len]
+    y_mask = torch.zeros(out_len, dtype=torch.bool, device=a.device)
+    y_mask[seg] = True
     return torch.where(y_mask, y, zero), y_mask
 
 

@@ -107,19 +107,21 @@ def _fold(vals: torch.Tensor, seg: torch.Tensor, dims, length: int,
     matrix, by row) one ``segment_reduce`` over the segments' lengths;
     otherwise, on the card,
     ``index_put_(accumulate=True)``, which sorts the entries by segment
-    (stably) first and folds each in entry order.  Returns (pr, pc, length / axis size)."""
+    (stably) first and folds each in entry order.  ``vals`` may carry
+    trailing dimensions (a dense SpMM's rows), flattened into the
+    partials.  Returns (pr, pc, length * trailing / axis size)."""
     num = dims[0] * dims[1] * length
     if ascending and sr.add_kind == "sum" and vals.is_floating_point():
         part = torch.segment_reduce(
             vals, "sum", lengths=torch.bincount(seg, minlength=num),
             unsafe=True)
     elif sr.add_kind == "sum" and vals.is_floating_point() and vals.is_cuda:
-        part = torch.zeros(num, dtype=vals.dtype, device=vals.device)
+        part = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype,
+                           device=vals.device)
         part.index_put_((seg,), vals, accumulate=True)
     else:
         part = _segment_reduce(vals, seg, num, sr)
-    return _axis_reduce_scatter(part.reshape(dims[0], dims[1], length), axis,
-                                sr)
+    return _axis_reduce_scatter(part.reshape(dims[0], dims[1], -1), axis, sr)
 
 
 def dist_spmv(a: DistSpMat, x: torch.Tensor, sr: Semiring = PLUS_TIMES,

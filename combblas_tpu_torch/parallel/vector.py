@@ -1,0 +1,244 @@
+"""The distributed vector layer: sort, RandPerm, routing, gather, Invert and
+Uniq (port of ``combblas_tpu/parallel/vector.py``).
+
+Vectors keep the FullyDist layout of :mod:`parallel.dist`: one flat tensor
+whose padded length is a multiple of ``grid.nprocs`` (which counts the
+layers of a 3D grid), chunk ``c`` being device ``c``'s shard under the JAX
+package.  Sparse vectors are (values, bool mask) pairs in that layout.
+
+Every function's result is fully defined by its inputs, whatever the
+number of devices, and the port computes it for the whole padded vector at
+once on the grid's device:
+
+- the JAX sample sort (local sorts, splitters, a bucket exchange, a
+  rebalance) leaves the vector sorted by (key, global index), payloads
+  carried: here one stable sort of the whole vector on that key;
+- the owner shuffle of :func:`dist_route` delivers the pairs in (source
+  device, slot) order, which is the flat order of the input: ``set``
+  keeps the last pair a slot receives, ``sum`` folds them in that order
+  on the CPU (``index_add_``) and in a fixed order on the card
+  (``index_put_(accumulate=True)``, sorted by slot first), ``min`` and
+  ``max`` do not depend on the order.
+
+Keys are :func:`_sortable_u32` values carried in int64: floats order as
+JAX orders them, -0.0 before +0.0 and NaNs by their bits, which a float
+sort would tie or move.  Nothing here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from combblas_tpu_torch.parallel.grid import ProcGrid
+
+__all__ = [
+    "dist_sort",
+    "dist_sort_auto",
+    "dist_rand_perm",
+    "perm_from_keys",
+    "dist_route",
+    "dist_gather",
+    "dist_apply_perm",
+    "dist_invert",
+    "dist_uniq",
+]
+
+#: The pad key: past every value's key (ties broken by the global index).
+_PAD_KEY = 0xFFFFFFFF
+_SIGN = 0x80000000
+_COMBINES = ("set", "sum", "min", "max")
+
+
+def _sortable_u32(x: torch.Tensor) -> torch.Tensor:
+    """The order-preserving uint32 key of ``x``, as int64 in [0, 2^32):
+    floats (as float32) by their bits, negatives complemented and positives
+    with the sign bit set, so -0.0 < +0.0 and a NaN sorts by its bits (a
+    positive NaN after +inf, a negative one before -inf); ints as int32
+    offset by 2^31; uint32 as they are."""
+    if x.is_floating_point():
+        b = x.to(torch.float32).view(torch.int32).to(torch.int64) & _PAD_KEY
+        return torch.where(b >= _SIGN, _PAD_KEY - b, b | _SIGN)
+    if x.dtype == getattr(torch, "uint32", None):
+        return x.to(torch.int64)
+    return x.to(torch.int32).to(torch.int64) + _SIGN
+
+
+def _check_layout(n_pad: int, grid: ProcGrid) -> None:
+    if n_pad % grid.nprocs:
+        raise ValueError(f"padded length {n_pad} is not a multiple of the "
+                         f"grid's {grid.nprocs} devices")
+
+
+def _sort_on(key: torch.Tensor, n: int, *tensors: torch.Tensor):
+    """``tensors`` in the order of (``key``, global index): ``key`` holds
+    uint32 values in int64, the pad key from index ``n`` on (so padding
+    sorts to the tail), and ties keep the index order (a stable sort)."""
+    if n < key.shape[0]:
+        key = key.clone()
+        key[n:] = _PAD_KEY
+    _, order = torch.sort(key, stable=True)
+    return tuple(t[order] for t in tensors)
+
+
+def dist_sort(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
+              length: int | None = None, descending: bool = False):
+    """The vector ``x`` (padded FullyDist layout, true prefix ``length``,
+    default the padded length) sorted by (key, global index), in the same
+    layout, with ``payloads`` carried: JAX's sample sort
+    (``par::sampleSort``), whose result one stable sort of the whole vector
+    gives element for element.  Padding sorts to the tail.  Returns
+    ``sorted_x`` alone, or ``(sorted_x, *sorted_payloads)``."""
+    _check_layout(x.shape[0], grid)
+    n = x.shape[0] if length is None else int(length)
+    key = _sortable_u32(x)
+    if descending:
+        key = _PAD_KEY - key
+    out = _sort_on(key, n, x, *payloads)
+    return out if len(out) > 1 else out[0]
+
+
+def dist_sort_auto(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
+                   length: int | None = None, descending: bool = False,
+                   oversample: int = 32):
+    """JAX's scale-safe sample sort, which sizes its exchange buffers from
+    a planning pass: its result is :func:`dist_sort`'s, and so is the
+    port's (``oversample``, JAX's splitter samples per device, has nothing
+    to choose here)."""
+    del oversample
+    return dist_sort(x, grid, *payloads, length=length,
+                     descending=descending)
+
+
+def perm_from_keys(keys: torch.Tensor, n: int,
+                   grid: ProcGrid) -> torch.Tensor:
+    """The permutation of [0, n) that sorting the random uint32 ``keys``
+    (padded length; values in [0, 2^32), int64) carries the identity
+    into, the padding slots holding ``n``: ``FullyDistVec::RandPerm``
+    given its keys (int32)."""
+    _check_layout(keys.shape[0], grid)
+    iota = torch.arange(keys.shape[0], dtype=torch.int32,
+                        device=keys.device)
+    perm, = _sort_on(keys.to(torch.int64), n, iota)
+    perm[n:] = n
+    return perm
+
+
+def dist_rand_perm(generator: torch.Generator, n: int,
+                   grid: ProcGrid) -> torch.Tensor:
+    """A random permutation of [0, n) in the FullyDist layout (padded
+    length a multiple of ``grid.nprocs``, padding slots ``n``), on the
+    grid's device: uint32 keys drawn from ``generator`` (on its own
+    device, so that one CPU generator gives the card and the CPU the same
+    permutation; JAX draws threefry keys, which cannot be carried
+    across), then :func:`perm_from_keys`."""
+    p = grid.nprocs
+    n_pad = -(-n // p) * p
+    keys = torch.randint(0, 1 << 32, (n_pad,), generator=generator,
+                         dtype=torch.int64, device=generator.device)
+    return perm_from_keys(keys.to(grid.device), n, grid)
+
+
+def _targets(idx: torch.Tensor, mask: torch.Tensor,
+             n_pad: int) -> torch.Tensor:
+    """Each pair's output slot: its index where ``mask`` holds and the
+    index lies in [0, n_pad); a dropped pair gets a slot of its own past
+    the vector (``n_pad`` + its position), so that no one slot gathers
+    them all."""
+    pos = idx.to(torch.int32).to(torch.int64)
+    ok = mask.to(torch.bool) & (pos >= 0) & (pos < n_pad)
+    spare = n_pad + torch.arange(pos.shape[0], device=pos.device)
+    return torch.where(ok, pos, spare)
+
+
+def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
+               init: torch.Tensor, grid: ProcGrid, *, combine: str = "set"):
+    """Deliver the (idx, val) pairs where ``mask`` holds to the owner of
+    each index (the SparseCommon alltoallv): ``init`` (its padded length
+    is the index space) updated at every slot a pair hits.  ``combine``:
+    ``set`` (the last pair in (device, slot) order, i.e. in flat order,
+    wins), ``sum``, ``min`` or ``max``.  Returns ``(out, out_mask)``,
+    the mask marking the slots hit."""
+    if combine not in _COMBINES:
+        raise ValueError(f"combine must be one of {_COMBINES}, got "
+                         f"{combine!r}")
+    n_pad = init.shape[0]
+    _check_layout(n_pad, grid)
+    _check_layout(idx.shape[0], grid)
+    tgt = _targets(idx, mask, n_pad)
+    k = tgt.shape[0]
+    dev = init.device
+    hit = torch.zeros(n_pad + k, dtype=torch.bool, device=dev)
+    hit[tgt] = True
+    hit = hit[:n_pad]
+    val = val.to(init.dtype)
+    if combine == "set":
+        win = torch.full((n_pad + k,), -1, dtype=torch.int64, device=dev)
+        win.scatter_reduce_(0, tgt, torch.arange(k, device=dev), "amax")
+        win = win[:n_pad]
+        out = torch.where(hit, val[win.clamp(min=0)], init)
+        return out, hit
+    buf = torch.cat([init, torch.zeros(k, dtype=init.dtype, device=dev)])
+    if combine == "sum":
+        if buf.is_floating_point() and buf.is_cuda:
+            buf.index_put_((tgt,), val, accumulate=True)
+        else:
+            buf.index_add_(0, tgt, val)
+    else:
+        buf.scatter_reduce_(0, tgt, val, "amin" if combine == "min"
+                            else "amax")
+    return buf[:n_pad], hit
+
+
+def dist_gather(x: torch.Tensor, idx: torch.Tensor,
+                grid: ProcGrid) -> torch.Tensor:
+    """out[i] = x[idx[i]] (``FullyDistVec::operator()``); an index outside
+    [0, len(x)) gives 0.  The JAX package's two owner exchanges (requests
+    out, answers back) deliver exactly this."""
+    _check_layout(x.shape[0], grid)
+    _check_layout(idx.shape[0], grid)
+    i = idx.to(torch.int64)
+    ok = (i >= 0) & (i < x.shape[0])
+    got = x[i.clamp(0, x.shape[0] - 1)]
+    return torch.where(ok, got, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def dist_apply_perm(x: torch.Tensor, perm: torch.Tensor,
+                    grid: ProcGrid) -> torch.Tensor:
+    """y[perm[i]] = x[i]; padding slots (perm == len) are dropped."""
+    out, _ = dist_route(perm, x, perm < x.shape[0], torch.zeros_like(x),
+                        grid, combine="set")
+    return out
+
+
+def _gidx(n_pad: int, device) -> torch.Tensor:
+    return torch.arange(n_pad, dtype=torch.int32, device=device)
+
+
+def dist_invert(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
+    """Sparse-vector Invert (``FullyDistSpVec.h:89``): out[val[i]] = i for
+    the live entries, a duplicate value keeping the largest index.
+    Returns ``(out, out_mask)``, out int32 of ``val``'s padded length, -1
+    where no entry landed."""
+    n_pad = val.shape[0]
+    init = torch.full((n_pad,), -1, dtype=torch.int32, device=val.device)
+    return dist_route(val.to(torch.int32), _gidx(n_pad, val.device), mask,
+                      init, grid, combine="max")
+
+
+def dist_uniq(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
+    """Uniq (``FullyDistSpVec.cpp:1029``): of the live entries with one
+    value (one ``_sortable_u32`` key: -0.0 and +0.0 differ) only the one of
+    the smallest index stays, at its index.  A sort by (key, index), run
+    heads kept, the survivors routed home.  Returns ``(out, out_mask)``."""
+    n_pad = val.shape[0]
+    _check_layout(n_pad, grid)
+    dev = val.device
+    live = mask.to(torch.bool)
+    key = torch.where(live, _sortable_u32(val), _PAD_KEY)
+    gidx = torch.where(live, _gidx(n_pad, dev), 0x7FFFFFFF)
+    ks, is_, vs, ms = _sort_on(key, n_pad, key, gidx, val, live)
+    first = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    first[1:] = ks[1:] != ks[:-1]
+    return dist_route(is_, vs, first & ms, torch.zeros_like(val), grid,
+                      combine="set")

@@ -23,10 +23,12 @@ print(" ".join(names))
 print(len(names))
 """
 
-#: The modules of the distributed SpMV, graph-algorithm and HipMCL slice.
+#: The modules of the distributed SpMV, graph-algorithm and HipMCL slice,
+#: and of the distributed vector, indexing, dense, ordering and BC slice.
 DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
               "models.bfs", "models.cc", "models.lacc", "models.mis",
-              "models.mcl")
+              "models.mcl", "parallel.vector", "parallel.indexing",
+              "parallel.dense", "models.ordering", "models.bc")
 
 
 def test_port_imports_no_jax():
@@ -36,9 +38,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     # every module of the seg2, SpMM/BFS, materialized SpGEMM, distributed
-    # SpGEMM, local-ops/MCL and distributed SpMV/MCL slices was imported
+    # SpGEMM, local-ops/MCL, distributed SpMV/MCL and distributed
+    # vector/indexing/ordering/BC slices was imported
     lines = out.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 42
+    assert int(lines[-1]) >= 47
     names = set(lines[-2].split())
     for mod in DIST_SLICE:
         assert f"combblas_tpu_torch.{mod}" in names, mod

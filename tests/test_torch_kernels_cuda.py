@@ -722,3 +722,93 @@ def test_mcl_dist_card_matches_cpu(cuda):
     assert out["iters"] >= 3
     for name in ("expand_i32", "compress_i32"):
         assert out["launches"][name] >= out["iters"]
+
+
+def test_vector_layer_on_card_matches_numpy(cuda):
+    """chip_smoke's phase-19 vector checks at 2^16 elements on a 4x4 grid
+    of the card: both sorts equal the host order on (key, index) with
+    -0.0, +0.0 and NaNs among the values; RandPerm, invert, uniq, gather
+    and every route combine equal numpy, and every call repeats bit for
+    bit (a float ``sum`` and duplicate ``set`` slots included)."""
+    import chip_smoke
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+
+    grid = ProcGrid.make(4, 4, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    out = chip_smoke.check_sorts(grid, gen, log2=16)
+    assert out["n"] == 1 << 16
+    out = chip_smoke.check_vectors(grid, gen, n=(1 << 16) - 5)
+    assert out["n_pad"] == 1 << 16
+
+
+@pytest.mark.parametrize("fold", [False, True])
+def test_dist_permute_is_deterministic_on_card(cuda, fold):
+    """``dist_permute`` on the card: a random permutation of a scale-12
+    graph equals the host relabelling, repeats bit for bit and inverts
+    (chip_smoke's phase-19 check); a map folding pairs of vertices (the
+    sums of duplicates) repeats bit for bit and equals the CPU's stacks,
+    values within 1e-6."""
+    import chip_smoke
+    from combblas_tpu_torch.gen.graph500 import spmm_bfs_graphs
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+
+    s = spmm_bfs_graphs(8, cuda, 12)["s"]
+    if not fold:
+        out = chip_smoke.permute_full(s, 8)
+        assert out["nnz"] == int(s.nnz)
+        return
+    n = s.shape[0]
+    fmap = torch.arange(n, device=cuda) // 2
+    dm = DistSpMat.from_local(s, ProcGrid.make(4, 4, device=cuda))
+    vals = torch.rand(dm.val.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    dm = DistSpMat(row=dm.row, col=dm.col, val=vals, nnz=dm.nnz,
+                   gshape=dm.gshape, grid=dm.grid)
+    a, b = dist_permute(dm, fmap), dist_permute(dm, fmap)
+    assert torch.equal(a.val.view(torch.int32), b.val.view(torch.int32))
+    host = chip_smoke._dist_host_copy(dm)
+    c = dist_permute(host, fmap.cpu())
+    for f in ("row", "col", "nnz"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(c, f))
+    torch.testing.assert_close(a.val.cpu(), c.val, rtol=1e-6, atol=0)
+
+
+def test_dist_indexing_phase_on_card(cuda):
+    """chip_smoke's phase 19 indexing at scale 12 on the 4x4 grid:
+    ``dist_spref`` equal to ``spref``, the block prune and ``dist_spasgn``
+    to the host's, both products on the expansion and compress kernels
+    (the call holds each)."""
+    import chip_smoke
+
+    out = chip_smoke.dist_indexing_full(chip_smoke.mcl_graph(4, cuda, 12), 4)
+    assert out["launches"].get("expand_i32", 0) >= 2
+
+
+def test_mcl_preprocess_phase_on_card(cuda):
+    """chip_smoke's phase 20 at scale 12 on the 4x4 grid: labels checked,
+    equal to the hand-composed preprocessing and to a second run; then
+    the card against the CPU at scale 10 with one CPU generator."""
+    import chip_smoke
+
+    out = chip_smoke.mcl_preprocess_full(chip_smoke.mcl_graph(4, cuda, 12),
+                                         4)
+    assert out["isolated"] > 0 and out["iters"] >= 3
+    out = chip_smoke.mcl_preprocess_card_vs_cpu(5, cuda, scale=10)
+    assert out["iters"] >= 3
+
+
+def test_orderings_and_bc_phase_on_card(cuda):
+    """chip_smoke's phase 21 at small sizes: both RCM orders of a 16^3
+    stencil equal the host Cuthill-McKee of their rules, within 3 k^2;
+    ``md_order_dist`` equals ``md_order`` on a 10x10 stencil; BC local
+    and distributed agree on a scale-12 graph, and the card the CPU."""
+    import chip_smoke
+    from combblas_tpu_torch.gen.graph500 import spmm_bfs_graphs
+
+    out = chip_smoke.rcm_full(3, cuda, k=16)
+    assert out["bandwidth"]["rcm_order_dist"] <= 3 * 16 ** 2
+    chip_smoke.md_full(cuda, k=10)
+    chip_smoke.bc_full(spmm_bfs_graphs(3, cuda, 12)["s"], 3)
+    chip_smoke.bc_card_vs_cpu(3, cuda, scale=10)

@@ -22,6 +22,7 @@ from combblas_tpu.models import mcl as jmcl  # noqa: E402
 from combblas_tpu.parallel import dist as jdist  # noqa: E402
 from combblas_tpu.parallel import elementwise as jel  # noqa: E402
 from combblas_tpu.parallel import memefficient as jme  # noqa: E402
+from combblas_tpu.parallel import vector as jvec  # noqa: E402
 from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix  # noqa: E402
 from combblas_tpu_torch.models import mcl as tmcl  # noqa: E402
 from combblas_tpu_torch.parallel import dist as tdist  # noqa: E402
@@ -288,9 +289,95 @@ def test_mcl_dist_3d_partition_equals_2d():
         tmcl.mcl_dist(tm, p, layers=2)
 
 
-def test_mcl_dist_preprocess_not_ported_yet():
-    """``preprocess=True`` needs dist_permute and dist_rand_perm: it
-    raises, naming them, and never skips the preprocessing silently."""
-    _, t = dist_pair(two_components(8) + np.eye(8, dtype=np.float32), 2, 2)
-    with pytest.raises(NotImplementedError, match="dist_rand_perm"):
-        tmcl.mcl_dist(t, preprocess=True)
+def _jax_perm(key, grid):
+    """A stand-in for the port's ``dist_rand_perm`` that returns JAX's
+    permutation from ``key`` on the JAX twin of ``grid`` (JAX's threefry
+    draws cannot be made by a torch generator)."""
+    def perm(generator, n, tg):
+        assert isinstance(generator, torch.Generator)
+        jg = jgrid(tg.pr, tg.pc)
+        return torch.from_numpy(np.array(
+            jvec.dist_rand_perm(key, n, jg))).to(tg.device)
+    return perm
+
+
+def two_cliques_isolated():
+    """Two 6-cliques with self loops on vertices 0-11, vertices 12-15
+    isolated (``tests/test_mcl_fidelity.py``'s graph)."""
+    d = np.zeros((16, 16), np.float32)
+    d[:12, :12] = two_components(12) + np.eye(12, dtype=np.float32)
+    r, c = np.nonzero(d)
+    return r, c, d[r, c], d.shape
+
+
+def rmat7_isolated(seed=4):
+    """The seeded scale-7 SSCA R-MAT, symmetrized, uniform weights, with
+    self loops only on the vertices of degree >= 1 (HipMCL's order): its
+    isolated vertices stay empty columns."""
+    g = torch.Generator().manual_seed(seed)
+    a = rmat_matrix(g, 7, 4, symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    row, col, _val, nnz, shape = a.to_numpy()
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, nnz).astype(np.float32)
+    live = np.unique(row[:nnz])
+    assert live.size < shape[0]     # some vertices are isolated
+    return (np.concatenate([row[:nnz], live]),
+            np.concatenate([col[:nnz], live]),
+            np.concatenate([w, np.ones(live.size, np.float32)]), shape)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2), (4, 2)])
+def test_dist_remove_isolated_matches_jax(grid):
+    """The keep map, the kept count and the compacted matrix (stacks slot
+    for slot) equal JAX's."""
+    r, c, w, shape = rmat7_isolated()
+    jm = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(*grid))
+    tm = tdist.DistSpMat.from_coo_arrays(r, c, w, shape, tgrid(*grid))
+    jb, jmap, jk = jmcl.dist_remove_isolated(jm)
+    tb, tmap, tk = tmcl.dist_remove_isolated(tm)
+    np.testing.assert_array_equal(tmap, jmap)
+    assert tk == jk == int((tmap >= 0).sum()) < shape[0]
+    assert_same_blocks(tb, jb, exact=True)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2), (4, 2)])
+def test_dist_rand_permute_given_jax_perm(monkeypatch, grid):
+    """Given JAX's permutation (``dist_rand_perm`` patched on the port's
+    side), ``dist_rand_permute`` returns it and JAX's matrix, slot for
+    slot."""
+    r, c, w, shape = rmat7_isolated()
+    jm = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(*grid))
+    tm = tdist.DistSpMat.from_coo_arrays(r, c, w, shape, tgrid(*grid))
+    key = jax.random.PRNGKey(5)
+    monkeypatch.setattr(tmcl, "dist_rand_perm", _jax_perm(key, grid))
+    jb, jperm = jmcl.dist_rand_permute(jm, key)
+    tb, tperm = tmcl.dist_rand_permute(tm, torch.Generator())
+    np.testing.assert_array_equal(tperm, np.asarray(jperm))
+    assert_same_blocks(tb, jb, exact=True)
+
+
+@pytest.mark.parametrize("graph, params", [
+    ("two_cliques", dict(max_iters=30, add_self_loops=False)),
+    ("rmat7", dict(max_iters=30, select=8, recover_num=10)),
+])
+def test_mcl_dist_preprocess_matches_jax(monkeypatch, graph, params):
+    """``preprocess=True`` (RemoveIsolated, RandPermute, labels translated
+    back) against JAX's with its default key, the port's permutation
+    patched to JAX's: labels and iterations exact; every isolated vertex
+    a singleton labelled n + its index."""
+    r, c, w, shape = (two_cliques_isolated() if graph == "two_cliques"
+                      else rmat7_isolated())
+    grid = (2, 2)
+    jm = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(*grid))
+    tm = tdist.DistSpMat.from_coo_arrays(r, c, w, shape, tgrid(*grid))
+    monkeypatch.setattr(tmcl, "dist_rand_perm",
+                        _jax_perm(jax.random.PRNGKey(17), grid))
+    lj, ij = jmcl.mcl_dist(jm, jmcl.MCLParams(**params), preprocess=True)
+    lt, it = tmcl.mcl_dist(tm, tmcl.MCLParams(**params), preprocess=True)
+    np.testing.assert_array_equal(lt.numpy(), np.asarray(lj))
+    assert it == ij
+    n = shape[0]
+    iso = np.setdiff1d(np.arange(n), r)
+    assert iso.size and lt.shape == (n,)
+    np.testing.assert_array_equal(lt[iso].numpy(), n + iso)
+    assert not np.isin(lt[iso].numpy(), np.delete(lt.numpy(), iso)).any()
