@@ -128,7 +128,36 @@ Phases, each raising on failure:
      ``md_order`` on the 24x24 5-point stencil; ``betweenness_centrality``
      and ``betweenness_centrality_dist`` (4x4) of phase 8's graph from 64
      of its roots, within 1e-4, and at scale 12 the card against the CPU
-     within 1e-5.
+     within 1e-5;
+ 22. bipartite matchings of a scale-20 G500 ef-16 R-MAT (not symmetrized,
+     seeded weights in (0, 1]): ``bp_maximal_matching``,
+     ``bp_maximum_matching`` and ``awpm``, then ``dist_bp_maximal``,
+     ``dist_bp_maximum`` and ``dist_awpm`` on 4x4, each checked on the
+     host against the edge list (consistent mates, matched pairs edges,
+     the maximal ones maximal), the maximum cardinalities equal to scipy's
+     ``maximum_bipartite_matching``, every grid result equal to the local
+     one mate for mate; at scale 12 ``awpm(complete=False)`` with at least
+     half the weight of ``linear_sum_assignment``;
+ 23. multigrid on phase 21's 128^3 stencil with weights 6 / -1 on 4x4:
+     ``mis2_dist`` (``mis2_verify_dist`` on the 0/1 pattern and a host
+     check on the patterns of A and A²), ``restriction_op_dist`` (one
+     entry a column, coarse vertices in their own aggregates, every
+     vertex within two hops of its coarse vertex), ``galerkin_dist`` and
+     ``galerkin`` of R and A on one block equal to scipy's R·A·Rᵀ
+     exactly (both take the wide keys, K3/K4: the coarse x fine key space
+     passes 2^31), launches read around each; local ``mis2`` +
+     ``restriction_op`` of the 48^3 stencil, card against CPU with one
+     CPU generator, and its ``galerkin`` on K1/K2;
+ 24. a ``TwitterGraph`` over phase 8's graph (seeded attributes, one an
+     undirected edge, a window passing about a quarter): the subgraphs
+     equal to the host filter, ``bfs_within`` and ``bfs_within_dist``
+     (4x4) from 4 of phase 8's roots equal to a host BFS of the filtered
+     graph and validated on it, ``mis_filtered_dist`` independent and
+     maximal; ``parallel_write_mtx`` / ``parallel_write_binary`` of a 4x4
+     scale-18 matrix read back by ``parallel_read_mtx`` / ``read_binary``
+     equal; the CLI in process (``gen``, ``convert``, ``spgemm``,
+     ``match --max``, ``bfs --dist``, ``cc``, ``galerkin``, ``mcl``), each
+     line equal to the library call it wraps.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -146,6 +175,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3596,6 +3626,750 @@ def bc_card_vs_cpu(seed: int, dev, scale: int = BC_CHECK_SCALE) -> dict:
     return dict(scale=scale, rel_diff=rel)
 
 
+# ---------------------------------------------------------- phases 22-24 --
+
+#: Phase 22's matchings: a G500 R-MAT of this scale (ef 16), not
+#: symmetrized, rows and columns the two vertex classes.
+MATCH_SCALE = 20
+#: Phase 22's weight check: ``awpm(complete=False)`` against
+#: ``linear_sum_assignment`` on the dense matrix of this scale.
+MATCH_WEIGHT_SCALE = 12
+#: Phase 23's local MIS-2 / ``restriction_op`` / ``galerkin`` stencil side:
+#: R's attachment is a host loop over the stored edges (three sweeps, as
+#: JAX's), about a second a sweep at 48^3 (0.77M entries), and R·A·Rᵀ of
+#: this size still has packed keys (K1/K2), which the 128^3 products,
+#: with coarse x fine key spaces past 2^31, do not (K3/K4).
+MG_LOCAL_SIDE = 48
+#: Phase 23's grid for R·A·Rᵀ at 128^3 on packed keys: 16 x 16 blocks of
+#: R (188,715 x 2^21 at seed 42) span 11,808 x 131,072 < 2^31 keys, so
+#: both products take K1/K2 (on 4x4 and on one block they go wide).
+MG_PACKED_SIDE = 16
+#: Phase 24: the time window of the semantic graph (latest in [begin,
+#: end] of 1000 buckets, retweet count > 0 in 5 of 6 edges: about a
+#: quarter of the edges pass), the I/O matrix's scale, and the scale of the
+#: CLI's ``mcl`` graph.
+TWITTER_WINDOW = (200, 499)
+IO_SCALE = 18
+CLI_MCL_SCALE = 12
+
+
+class Calls:
+    """Count the calls of module functions (``(module, name)`` pairs) while
+    active, keeping each one's last result; the modules' own calls go
+    through the patched names."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.counts = {}
+        self.last = {}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.counts[name] = 0
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                self.counts[_name] += 1
+                self.last[_name] = _fn(*a, **k)
+                return self.last[_name]
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _timed(fn, dev):
+    """(result, seconds) of ``fn()``, the card idle before and after."""
+    _sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t
+
+
+def _host_keys(row, col, n: int) -> np.ndarray:
+    """Sorted int64 keys row * n + col of host (or card) coordinates."""
+    if isinstance(row, torch.Tensor):
+        row, col = row.cpu().numpy(), col.cpu().numpy()
+    return np.sort(row.astype(np.int64) * n + col.astype(np.int64))
+
+
+def _has_keys(keys: np.ndarray, want: np.ndarray) -> np.ndarray:
+    pos = np.searchsorted(keys, want).clip(max=max(len(keys) - 1, 0))
+    return (keys[pos] == want) if len(keys) else np.zeros(len(want), bool)
+
+
+def check_matching(keys, row, col, n: int, mr, mc, maximal: bool) -> int:
+    """Host check of a matching of the (m, n) edge list ``keys`` (sorted
+    row * n + col): mates consistent both ways, every matched pair an edge;
+    ``maximal``: no edge has both ends free.  Returns the cardinality."""
+    mr = mr.cpu().numpy().astype(np.int64)
+    mc = mc.cpu().numpy().astype(np.int64)
+    r = np.nonzero(mr >= 0)[0]
+    c = np.nonzero(mc >= 0)[0]
+    if not ((mc[mr[r]] == r).all() and (mr[mc[c]] == c).all()):
+        raise AssertionError("mates are not consistent")
+    if not _has_keys(keys, r * n + mr[r]).all():
+        raise AssertionError("a matched pair is not an edge")
+    if maximal and ((mr[row] < 0) & (mc[col] < 0)).any():
+        raise AssertionError("an edge has both ends free: not maximal")
+    return int(r.size)
+
+
+def weighted_rmat(seed: int, dev, scale: int):
+    """Phase 22's bipartite graph: a G500 ef-16 R-MAT with seeded uniform
+    weights in (0, 1] on its entries."""
+    from combblas_tpu_torch.gen.graph500 import EDGEFACTOR
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = rmat_matrix(gen, scale, EDGEFACTOR)
+    k = int(a.nnz)
+    val = torch.zeros_like(a.val)
+    val[:k] = 1.0 - torch.rand(k, generator=gen, device=dev)
+    return SpCOO(row=a.row, col=a.col, val=val, nnz=a.nnz, shape=a.shape)
+
+
+def matching_full(seed: int, dev, scale: int = MATCH_SCALE,
+                  side: int = DIST_SIDE,
+                  weight_scale: int = MATCH_WEIGHT_SCALE) -> dict:
+    """Phase 22: ``bp_maximal_matching``, ``bp_maximum_matching`` and
+    ``awpm`` of the weighted G500 R-MAT, then ``dist_bp_maximal``,
+    ``dist_bp_maximum`` and ``dist_awpm`` on a side x side grid: each
+    checked on the host against the edge list (mates consistent, matched
+    pairs edges, the maximal ones maximal), the maximum cardinalities
+    (and AWPM's completed one) equal to scipy's, each grid result equal to
+    the local one mate for mate (as the CPU tests show JAX's are); then
+    ``awpm(complete=False)`` at ``weight_scale`` with at least half the
+    weight of ``linear_sum_assignment(maximize=True)``."""
+    from scipy.optimize import linear_sum_assignment
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+
+    from combblas_tpu_torch.models import matching as mm
+    from combblas_tpu_torch.parallel import matching as pm
+
+    a = weighted_rmat(seed, dev, scale)
+    m, n = a.shape
+    k = int(a.nnz)
+    row = a.row[:k].cpu().numpy().astype(np.int64)
+    col = a.col[:k].cpu().numpy().astype(np.int64)
+    keys = row * n + col            # a's entries are (row, col) sorted
+    t = time.perf_counter()
+    want = int((maximum_bipartite_matching(csr_matrix(
+        (np.ones(k, np.int8), (row, col)), shape=(m, n)),
+        perm_type="column") >= 0).sum())
+    scipy_secs = time.perf_counter() - t
+    out = dict(scale=scale, m=m, n=n, nnz=k, scipy_maximum=want,
+               scipy_secs=scipy_secs)
+    local = {}
+    targets = ((mm, "_propose_accept"), (mm, "_dominant_round"),
+               (mm, "_alt_bfs"), (mm, "_alt_level"))
+    for name, fn, maximal in (
+            ("bp_maximal_matching", mm.bp_maximal_matching, True),
+            ("bp_maximum_matching", mm.bp_maximum_matching, False),
+            ("awpm", mm.awpm, False)):
+        with Calls(*targets) as calls:
+            (mr, mc), secs = _timed(lambda: fn(a), dev)
+        card = check_matching(keys, row, col, n, mr, mc, maximal)
+        if name != "bp_maximal_matching" and card != want:
+            raise AssertionError(f"{name}: cardinality {card}, scipy {want}")
+        local[name] = (mr, mc)
+        out[name] = dict(secs=secs, cardinality=card,
+                         rounds=calls.counts["_propose_accept"]
+                         + calls.counts["_dominant_round"],
+                         phases=calls.counts["_alt_bfs"],
+                         levels=calls.counts["_alt_level"])
+        log(f"  {name}: {card} matched in {secs:.3f} s, {out[name]}")
+    dm = DistSpMat.from_local(a, ProcGrid.make(side, side, device=dev))
+    targets = ((pm, "_propose_accept_round"), (pm, "_dist_dominant"),
+               (pm, "_dist_alt_bfs"), (pm, "_dist_alt_level"))
+    for name, fn, ref in (("dist_bp_maximal", pm.dist_bp_maximal,
+                           "bp_maximal_matching"),
+                          ("dist_bp_maximum", pm.dist_bp_maximum,
+                           "bp_maximum_matching"),
+                          ("dist_awpm", pm.dist_awpm, "awpm")):
+        with Calls(*targets) as calls:
+            (mr, mc), secs = _timed(lambda: fn(dm), dev)
+        mr, mc = mr[:m], mc[:n]
+        if not (torch.equal(mr, local[ref][0])
+                and torch.equal(mc, local[ref][1])):
+            raise AssertionError(f"{name} differs from {ref}")
+        out[name] = dict(secs=secs, grid=[side, side],
+                         cardinality=out[ref]["cardinality"],
+                         rounds=calls.counts["_propose_accept_round"]
+                         + calls.counts["_dist_dominant"],
+                         phases=calls.counts["_dist_alt_bfs"],
+                         levels=calls.counts["_dist_alt_level"])
+        log(f"  {name} {side}x{side}: equal to {ref}, {secs:.3f} s, "
+            f"{out[name]}")
+    del dm, a, local
+    # the weight of the 1/2-approximation against the optimum
+    a = weighted_rmat(seed + 1, dev, weight_scale)
+    m = a.shape[0]
+    k = int(a.nnz)
+    r, c, v = (x[:k].cpu().numpy() for x in (a.row, a.col, a.val))
+    dense = np.zeros(a.shape, np.float32)
+    dense[r, c] = v
+    mr, _ = mm.awpm(a, complete=False)
+    mr = mr.cpu().numpy()
+    got = float(dense[np.nonzero(mr >= 0)[0], mr[mr >= 0]].sum())
+    ri, ci = linear_sum_assignment(dense, maximize=True)
+    best = float(dense[ri, ci].sum())
+    if not got >= 0.5 * best:
+        raise AssertionError(f"awpm weight {got} below half of {best}")
+    out["awpm_weight"] = dict(scale=weight_scale, awpm=got, optimum=best,
+                              ratio=got / best)
+    log(f"  awpm(complete=False) at scale {weight_scale}: weight {got:.2f}, "
+        f"{got / best:.4f} of linear_sum_assignment's {best:.2f}")
+    return out
+
+
+def mg_stencil(k: int, dev):
+    """The 7-point stencil of a k^3 grid with integer weights, 6 on the
+    diagonal and -1 off it (every product and sum of R·A·Rᵀ exact in
+    float32): global COO tensors on ``dev``."""
+    r, c, _ = stencil(k, 3, dev, diagonal=True)
+    return r, c, torch.where(r == c, 6.0, -1.0)
+
+
+def _host_csr(r, c, v, n: int):
+    from scipy.sparse import csr_matrix
+
+    m = csr_matrix((v.cpu().numpy(), (r.cpu().numpy(), c.cpu().numpy())),
+                   shape=(n, n))
+    m.sort_indices()
+    return m
+
+
+def check_mis2_host(pattern, in_set: np.ndarray) -> None:
+    """MIS-2 on the host from the patterns of A (no diagonal) and A²: no
+    two set vertices within two hops, every vertex within two hops of the
+    set (or in it)."""
+    near = ((pattern + pattern @ pattern) != 0).tocsr()
+    s = np.nonzero(in_set)[0]
+    sub = near[s][:, s].tocsr()
+    sub.setdiag(0)
+    sub.eliminate_zeros()
+    if sub.nnz:
+        raise AssertionError(f"MIS-2: {sub.nnz} set pairs within two hops")
+    if not (in_set | (near[:, s].getnnz(axis=1) > 0)).all():
+        raise AssertionError("MIS-2: a vertex is farther than two hops")
+    return near
+
+
+def _coarse_vertices(in_set: np.ndarray, agg: np.ndarray) -> np.ndarray:
+    """R's coarse vertex of every aggregate: the MIS-2 vertices in order,
+    then the vertices that became coarse themselves (each alone in an
+    aggregate past them), checked to map to their own aggregates."""
+    s = np.nonzero(in_set)[0]
+    left = np.nonzero(agg >= s.size)[0]
+    cv = np.concatenate([s, left])
+    if not np.array_equal(agg[cv], np.arange(cv.size)):
+        raise AssertionError("a coarse vertex is not in its own aggregate")
+    return cv
+
+
+def check_r_host(rows, cols, n: int, in_set, near_keys=None,
+                 pattern=None) -> dict:
+    """R on the host: one entry a column (each fine vertex in one
+    aggregate), every coarse vertex in its own, and each fine vertex
+    within two hops of its coarse vertex (``near_keys``: sorted keys of the
+    pattern of A + A²), or, for the local rule, every aggregate a connected
+    piece of ``pattern`` around its coarse vertex."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    if not np.array_equal(np.bincount(cols, minlength=n), np.ones(n)):
+        raise AssertionError("R: a column without exactly one entry")
+    agg = np.empty(n, np.int64)
+    agg[cols] = rows
+    cv = _coarse_vertices(in_set, agg)
+    far = 0
+    if near_keys is not None:
+        fine = np.arange(n)
+        tgt = cv[agg]
+        ok = (tgt == fine) | _has_keys(near_keys, fine * n + tgt)
+        far = int((~ok).sum())
+        if far:
+            raise AssertionError(f"R: {far} vertices past two hops")
+    if pattern is not None:
+        p = pattern.tocoo()
+        same = agg[p.row] == agg[p.col]
+        inner = coo_matrix((np.ones(int(same.sum())), (p.row[same],
+                                                       p.col[same])),
+                           shape=(n, n))
+        ncomp, lab = connected_components(inner, directed=False)
+        if ncomp != cv.size or np.unique(lab[cv]).size != cv.size:
+            raise AssertionError("R: an aggregate is not connected")
+    return dict(ncoarse=int(cv.size), mis2=int(in_set.sum()),
+                self_coarse=int(cv.size - in_set.sum()))
+
+
+def _same_as_scipy(c, ref, label: str) -> None:
+    """A SpCOO (or DistSpMat) equal to the scipy matrix ``ref`` exactly:
+    the same nonzeros (scipy drops the sums that cancel to 0, the port
+    keeps them as stored zeros)."""
+    if isinstance(c, DistSpMat):
+        c = c.to_local()
+    k = int(c.nnz)
+    val = c.val[:k].cpu().numpy()
+    nz = val != 0
+    ncols = ref.shape[1]
+    got = (c.row[:k].cpu().numpy().astype(np.int64) * ncols
+           + c.col[:k].cpu().numpy())[nz]
+    ref = ref.tocoo()
+    ref.eliminate_zeros()
+    order = np.lexsort((ref.col, ref.row))
+    want = ref.row[order].astype(np.int64) * ncols + ref.col[order]
+    if not (np.array_equal(got, want) and np.array_equal(
+            val[nz], ref.data[order].astype(np.float32))):
+        raise AssertionError(f"{label}: R·A·Rᵀ differs from scipy's")
+
+
+def _galerkin_launches(label: str, run, dev):
+    """(result, seconds, launches) of one Galerkin product, the expansion
+    and compress kernels' launches read around it (at least one of one
+    pair, each expansion with its compress)."""
+    reset_launches()
+    c, secs = _timed(run, dev)
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    _expand_compress_launches(launches, label)
+    return c, secs, launches
+
+
+def _r_scipy(rows, cols, shape):
+    from scipy.sparse import csr_matrix
+
+    return csr_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                      shape=shape)
+
+
+def multigrid_full(seed: int, dev, k: int = RCM_SIDE, side: int = DIST_SIDE,
+                   local_k: int = MG_LOCAL_SIDE,
+                   packed_side: int = MG_PACKED_SIDE) -> dict:
+    """Phase 23: the k^3 7-point stencil (6 / -1) on a side x side grid:
+    ``mis2_dist`` (``mis2_verify_dist`` on the 0/1 pattern, and a host
+    check on the patterns of A and A²), ``restriction_op_dist`` (R checked
+    on the host), ``galerkin_dist(R, A)`` and ``galerkin`` of R and A on
+    one block, both equal to scipy's R·A·Rᵀ exactly, the expansion and
+    compress kernels' launches read around each (both wide, K3/K4), and
+    ``galerkin_dist`` on a ``packed_side`` grid, whose blocks' keys pack
+    (K1/K2, at least one launch each); then at ``local_k``^3
+    local ``mis2`` + ``restriction_op`` (host checks, R card against CPU
+    exactly with one CPU generator) and ``galerkin`` (K1/K2) against
+    scipy."""
+    from combblas_tpu_torch.models import multigrid as mg
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    n = k ** 3
+    grid = ProcGrid.make(side, side, device=dev)
+    r, c, v = mg_stencil(k, dev)
+    dm = _grid_dist(r, c, v, n, grid)
+    off = r != c
+    pat = _grid_dist(r[off], c[off], torch.ones_like(v[off]), n, grid)
+    a_host = _host_csr(r, c, v, n)
+    p_host = _host_csr(r[off], c[off], torch.ones_like(v[off]), n)
+    del r, c, v, off
+    out = dict(k=k, n=n, nnz=a_host.nnz, grid=[side, side])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with Calls((mg, "_priorities")) as calls:
+        in_set, secs = _timed(lambda: mg.mis2_dist(dm, gen), dev)
+    if not mg.mis2_verify_dist(pat, in_set):
+        raise AssertionError("mis2_verify_dist fails")
+    t = time.perf_counter()
+    near = check_mis2_host(p_host, in_set)
+    near_keys = _host_keys(*near.nonzero(), n)
+    out["mis2_dist"] = dict(secs=secs, rounds=calls.counts["_priorities"],
+                            size=int(in_set.sum()),
+                            host_check_secs=time.perf_counter() - t)
+    log(f"  mis2_dist: {out['mis2_dist']}")
+    del pat
+    with Calls((mg, "mis2_dist")) as calls:
+        R, secs = _timed(lambda: mg.restriction_op_dist(
+            dm, torch.Generator(device=dev).manual_seed(seed + 1)), dev)
+    r_set = calls.last["mis2_dist"]
+    rl = R.to_local()
+    nr = int(rl.nnz)
+    rows = rl.row[:nr].cpu().numpy().astype(np.int64)
+    cols = rl.col[:nr].cpu().numpy().astype(np.int64)
+    out["restriction_op_dist"] = dict(secs=secs, shape=list(R.gshape),
+                                      **check_r_host(rows, cols, n, r_set,
+                                                     near_keys=near_keys))
+    log(f"  restriction_op_dist: {out['restriction_op_dist']}")
+    del near, near_keys
+    r_s = _r_scipy(rows, cols, R.gshape)
+    ref = (r_s @ a_host @ r_s.T).tocsr()
+    cd, secs, launches = _galerkin_launches(
+        "galerkin_dist", lambda: mg.galerkin_dist(R, dm), dev)
+    _same_as_scipy(cd, ref, "galerkin_dist")
+    out["galerkin_dist"] = dict(secs=secs, nnz=int(cd.total_nnz()),
+                                launches=launches)
+    log(f"  galerkin_dist {side}x{side}: equal to scipy, {out['galerkin_dist']}")
+    del cd
+    # a grid whose blocks' coarse x fine keys pack into int32: K1/K2
+    gp = ProcGrid.make(packed_side, packed_side, device=dev)
+    r, c, v = mg_stencil(k, dev)
+    dmp = _grid_dist(r, c, v, n, gp)
+    del r, c, v
+    rp = DistSpMat.from_coo_arrays(rows, cols, np.ones(nr, np.float32),
+                                   R.gshape, gp)
+    cp, secs, launches_p = _galerkin_launches(
+        f"galerkin_dist {packed_side}x{packed_side}",
+        lambda: mg.galerkin_dist(rp, dmp), dev)
+    _k1k2_each_iteration(launches_p, 1, f"galerkin_dist {packed_side}x"
+                         f"{packed_side} at {k}^3")
+    _same_as_scipy(cp, ref, f"galerkin_dist {packed_side}x{packed_side}")
+    out["galerkin_dist_packed"] = dict(secs=secs, grid=[packed_side] * 2,
+                                       nnz=int(cp.total_nnz()),
+                                       launches=launches_p)
+    log(f"  galerkin_dist {packed_side}x{packed_side}: equal to scipy, "
+        f"{out['galerkin_dist_packed']}")
+    del cp, dmp, rp
+    a_loc = dm.to_local()
+    cl, secs, launches_l = _galerkin_launches(
+        "galerkin", lambda: mg.galerkin(rl, a_loc), dev)
+    _same_as_scipy(cl, ref, "galerkin")
+    out["galerkin"] = dict(secs=secs, nnz=int(cl.nnz), launches=launches_l)
+    log(f"  galerkin (one block): equal to scipy, {out['galerkin']}")
+    del cl, a_loc, rl, R, dm, ref
+    # local MIS-2 + restriction_op (host loop), card against CPU
+    n = local_k ** 3
+    r, c, v = mg_stencil(local_k, dev)
+    host = [x.cpu().numpy() for x in (r, c, v)]
+    a_host = _host_csr(r, c, v, n)
+    p_host = _host_csr(r[r != c], c[r != c], v[r != c], n)
+    del r, c, v
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        a = SpCOO.from_arrays(*host, (n, n), device=where)
+        with Calls((mg, "_priorities"), (mg, "mis2")) as calls:
+            R, secs = _timed(lambda: mg.restriction_op(
+                a, torch.Generator().manual_seed(seed + 2)), where)
+        runs[where.type] = (R, calls.last["mis2"].cpu().numpy(), secs,
+                            calls.counts["_priorities"], a)
+    R, s_card, secs, rounds, a = runs[dev.type]
+    R_cpu, s_cpu, cpu_secs, _, _ = runs["cpu"]
+    if not (np.array_equal(s_card, s_cpu) and all(
+            torch.equal(getattr(R, f).cpu(), getattr(R_cpu, f))
+            for f in ("row", "col", "val", "nnz"))):
+        raise AssertionError("restriction_op: card and CPU differ")
+    check_mis2_host(p_host, s_card)
+    nr = int(R.nnz)
+    rows = R.row[:nr].cpu().numpy().astype(np.int64)
+    cols = R.col[:nr].cpu().numpy().astype(np.int64)
+    line = dict(k=local_k, n=n, secs=secs, cpu_secs=cpu_secs,
+                mis2_rounds=rounds, shape=list(R.shape),
+                **check_r_host(rows, cols, n, s_card, pattern=p_host))
+    r_s = _r_scipy(rows, cols, R.shape)
+    cs, gsecs, launches_s = _galerkin_launches(
+        "galerkin (local)", lambda: mg.galerkin(R, a), dev)
+    _same_as_scipy(cs, (r_s @ a_host @ r_s.T).tocsr(), "galerkin (local)")
+    _k1k2_each_iteration(launches_s, 1, f"galerkin at {local_k}^3")
+    line.update(galerkin_secs=gsecs, galerkin_nnz=int(cs.nnz),
+                launches=launches_s)
+    out["local"] = line
+    log(f"  restriction_op {local_k}^3: card = CPU, {line}")
+    total = {}
+    for part in (out["galerkin_dist"], out["galerkin_dist_packed"],
+                 out["galerkin"], line):
+        for name, cnt in part["launches"].items():
+            total[name] = total.get(name, 0) + cnt
+    out["launches"] = total
+    return out
+
+
+def _twitter_codes(s, seed: int):
+    """Seeded attributes of the symmetric graph ``s``, one draw an
+    undirected edge (both of its entries get it): follower, retweet count
+    in [0, 5], latest time bucket in [0, 1000); packed on the host.
+    Returns the packed codes of ``s``'s live entries (host float32)."""
+    from combblas_tpu_torch.models.semantic import pack_twitter
+
+    n = s.shape[0]
+    k = int(s.nnz)
+    dev = s.device
+    r, c = s.row[:k].long(), s.col[:k].long()
+    order = torch.argsort(torch.minimum(r, c) * n + torch.maximum(r, c),
+                          stable=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    half = k // 2
+    pair = torch.empty(k, dtype=torch.int64, device=dev)
+    pair[order] = torch.arange(k, device=dev) // 2
+    fol = torch.rand(half, generator=gen, device=dev) < 0.5
+    cnt = torch.randint(0, 6, (half,), generator=gen, device=dev)
+    lat = torch.randint(0, 1000, (half,), generator=gen, device=dev)
+    return pack_twitter(fol[pair].cpu().numpy(), cnt[pair].cpu().numpy(),
+                        lat[pair].cpu().numpy())
+
+
+def _host_window(codes: np.ndarray, begin: int, end: int) -> np.ndarray:
+    """The time-window filter decoded on the host."""
+    x = codes.astype(np.int64) - 1
+    cnt, lat = (x >> 1) % 128, x // 256
+    return (cnt > 0) & (lat >= begin) & (lat <= end)
+
+
+def _same_entries_host(a, r, c, v, label: str) -> None:
+    if isinstance(a, DistSpMat):
+        a = a.to_local()
+    k = int(a.nnz)
+    if not (k == len(r) and np.array_equal(a.row[:k].cpu().numpy(), r)
+            and np.array_equal(a.col[:k].cpu().numpy(), c)
+            and np.array_equal(a.val[:k].cpu().numpy(), v)):
+        raise AssertionError(f"{label} differs from the host filter")
+
+
+def _run_cli(argv, dev) -> str:
+    """``cli.main(argv)`` in process; its printed line(s)."""
+    import contextlib
+    import io
+
+    from combblas_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv, device=dev)
+    return buf.getvalue().strip()
+
+
+def _untimed(line: str) -> str:
+    import re
+
+    return re.sub(r"[ ,]*(in )?\d+\.\d+s$", "", line)
+
+
+def cli_full(seed: int, dev) -> dict:
+    """Phase 24's CLI: each command line run in process on files under
+    ``chiprun_out/cli``, each printed line held against the library call it
+    wraps (and scipy where it counts)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import (
+        connected_components,
+        maximum_bipartite_matching,
+    )
+
+    from combblas_tpu_torch.io.binary import read_binary
+    from combblas_tpu_torch.io.mtx import read_mtx, write_mtx
+    from combblas_tpu_torch.models.bfs import bfs_dist
+    from combblas_tpu_torch.models.mcl import MCLParams, mcl_local
+    from combblas_tpu_torch.models.multigrid import galerkin, restriction_op
+    from combblas_tpu_torch.ops.coo import SpCOO, merge
+    from combblas_tpu_torch.parallel.grid import default_grid
+
+    d = os.path.join("chiprun_out", "cli")
+    os.makedirs(d, exist_ok=True)
+    g18, m18 = os.path.join(d, "g18.bin"), os.path.join(d, "g18.mtx")
+    out, secs = {}, {}
+
+    def run(name, argv):
+        t = time.perf_counter()
+        line = _run_cli(argv, dev)
+        secs[name] = time.perf_counter() - t
+        out[name] = line
+        log(f"  cli {' '.join(argv)}: {line}")
+        return _untimed(line)
+
+    line = run("gen", ["gen", "--scale", str(IO_SCALE), "--seed", str(seed),
+                       "-o", g18])
+    a = read_binary(g18, device=dev)
+    lib = rmat_matrix(torch.Generator(device=dev).manual_seed(seed),
+                      IO_SCALE, 16)
+    k = int(lib.nnz)
+    if line != f"gen: rmat scale {IO_SCALE}, nnz {k}" or int(a.nnz) != k \
+            or not all(torch.equal(getattr(a, f)[:k], getattr(lib, f)[:k])
+                       for f in ("row", "col", "val")):
+        raise AssertionError(f"gen: {line}")
+    del lib
+    run("convert", ["convert", g18, "-o", m18])
+    b = read_mtx(m18, device=dev)
+    if not all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("row", "col", "val", "nnz")):
+        raise AssertionError("convert: the .mtx differs from the .bin")
+    del b
+    line = run("spgemm", ["spgemm", g18])
+    want = f"spgemm: C {a.shape} nnz {int(spgemm_auto(a, a).nnz)}"
+    if line != want:
+        raise AssertionError(f"spgemm: {line} vs {want}")
+    k = int(a.nnz)
+    row, col = (x[:k].cpu().numpy() for x in (a.row, a.col))
+    host = csr_matrix((np.ones(k, np.int8), (row, col)), shape=a.shape)
+    line = run("match", ["match", g18, "--max"])
+    card = int((maximum_bipartite_matching(host, perm_type="column")
+                >= 0).sum())
+    if line != f"match[maximum]: cardinality {card}":
+        raise AssertionError(f"match: {line}, scipy {card}")
+    s = merge(a, a.transpose())
+    root = int(bfs_roots(s, seed, 1)[0])
+    line = run("bfs", ["bfs", g18, "--dist", "--symmetrize", "--root",
+                       str(root)])
+    _, lv = bfs_dist(DistSpMat.from_local(s, default_grid(device=dev)), root)
+    lv = lv[: s.shape[0]]
+    want = (f"bfs: visited {int((lv >= 0).sum())} vertices, max level "
+            f"{int(lv.max())}")
+    if line != want:
+        raise AssertionError(f"bfs: {line} vs {want}")
+    del s
+    line = run("cc", ["cc", g18])
+    ncomp = connected_components(host, directed=False)[0]
+    if line != f"cc[fastsv]: {ncomp} components":
+        raise AssertionError(f"cc: {line}, scipy {ncomp}")
+    del a, host
+    # galerkin on a stencil, mcl on a scale-12 graph
+    st = os.path.join(d, "stencil.mtx")
+    ks = 24
+    r, c, v = mg_stencil(ks, dev)
+    sten = SpCOO.from_arrays(*(x.cpu().numpy() for x in (r, c, v)),
+                             (ks ** 3, ks ** 3), device=dev)
+    write_mtx(st, sten)
+    line = run("galerkin", ["galerkin", st, "--seed", str(seed)])
+    rr = restriction_op(sten, torch.Generator(device=dev).manual_seed(seed))
+    cc = galerkin(rr, sten)
+    want = f"galerkin: coarse {cc.shape} nnz {int(cc.nnz)} (R {rr.shape})"
+    if line != want:
+        raise AssertionError(f"galerkin: {line} vs {want}")
+    g12 = os.path.join(d, "g12.bin")
+    run("gen12", ["gen", "--scale", str(CLI_MCL_SCALE), "--seed",
+                  str(seed), "--symmetrize", "-o", g12])
+    line = run("mcl", ["mcl", g12, "--select", "64"])
+    labels, iters = mcl_local(read_binary(g12, device=dev),
+                              MCLParams(select=64))
+    want = (f"mcl: {len(np.unique(labels.cpu().numpy()))} clusters in "
+            f"{iters} iterations")
+    if line != want:
+        raise AssertionError(f"mcl: {line} vs {want}")
+    shutil.rmtree(d)     # chiprun_out/ stays small enough to come back
+    return dict(lines=out, secs=secs)
+
+
+def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
+    """Phase 24: a ``TwitterGraph`` over phase 8's graph with seeded
+    symmetric attributes and a time window passing about a quarter of the
+    edges: ``subgraph_within`` and ``materialize_filtered_dist`` equal to
+    the host filter; ``bfs_within`` and ``bfs_within_dist`` (side x side)
+    from ``roots``, levels equal to each other and to a host BFS of the
+    filtered graph, parents validated on it; ``mis_filtered_dist``
+    independent and maximal on the filtered edges.  Then the block-
+    streamed I/O of a side x side scale-``IO_SCALE`` matrix read back,
+    and the CLI (:func:`cli_full`)."""
+    from combblas_tpu_torch.io.binary import read_binary
+    from combblas_tpu_torch.io.parallel import (
+        parallel_read_mtx,
+        parallel_write_binary,
+        parallel_write_mtx,
+    )
+    from combblas_tpu_torch.models.filtered import (
+        materialize_filtered_dist,
+        mis_filtered_dist,
+    )
+    from combblas_tpu_torch.models.semantic import (
+        TwitterGraph,
+        tweet_within_interval,
+    )
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    dev = s.device
+    n = s.shape[0]
+    k = int(s.nnz)
+    begin, end = TWITTER_WINDOW
+    codes = _twitter_codes(s, seed)
+    val = torch.zeros(s.capacity, dtype=torch.float32, device=dev)
+    val[:k] = torch.from_numpy(codes).to(dev)
+    tg = TwitterGraph(SpCOO(row=s.row, col=s.col, val=val, nnz=s.nnz,
+                            shape=s.shape))
+    keep = _host_window(codes, begin, end)
+    hr = s.row[:k].cpu().numpy()[keep]
+    hc = s.col[:k].cpu().numpy()[keep]
+    out = dict(n=n, nnz=k, window=[begin, end], passing=int(keep.sum()),
+               passing_share=float(keep.mean()))
+    sub, secs = _timed(lambda: tg.subgraph_within(begin, end), dev)
+    _same_entries_host(sub, hr, hc, codes[keep], "subgraph_within")
+    out["subgraph_secs"] = secs
+    dm, secs = _timed(lambda: tg.distribute(ProcGrid.make(side, side,
+                                                          device=dev)), dev)
+    out["distribute_secs"] = secs
+    pred = tweet_within_interval(begin, end)
+    dsub, secs = _timed(lambda: materialize_filtered_dist(dm, pred), dev)
+    _same_entries_host(dsub, hr, hc, codes[keep], "materialize_filtered_dist")
+    out["materialize_dist_secs"] = secs
+    del dsub
+    indptr = np.searchsorted(hr, np.arange(n + 1))
+    out["bfs"] = []
+    for root in roots:
+        root = int(root)
+        (p1, l1), t1 = _timed(lambda: tg.bfs_within(root, begin, end), dev)
+        (p2, l2), t2 = _timed(lambda: tg.bfs_within_dist(dm, root, begin,
+                                                          end), dev)
+        p2, l2 = p2[:n], l2[:n]
+        want = _host_levels(indptr, hc, root, n)
+        if not (torch.equal(l1, l2) and np.array_equal(
+                l1.cpu().numpy(), want)):
+            raise AssertionError(f"filtered BFS from {root}: levels differ")
+        for p, lv in ((p1, l1), (p2, l2)):
+            if not validate_bfs(sub, root, p, lv):
+                raise AssertionError(f"filtered BFS from {root} does not "
+                                     f"validate")
+        out["bfs"].append(dict(root=root, local_secs=t1, dist_secs=t2,
+                               visited=int((l1 >= 0).sum()),
+                               levels=int(l1.max())))
+    log(f"  filtered BFS from {len(roots)} roots: levels equal local, "
+        f"{side}x{side} and host, parents validate: {out['bfs']}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    in_set, secs = _timed(lambda: mis_filtered_dist(dm, gen, pred), dev)
+    in_set = in_set[:n].cpu().numpy()
+    hit = np.zeros(n, bool)
+    hit[hr[in_set[hc]]] = True
+    if (in_set[hr] & in_set[hc]).any() or not (in_set | hit).all():
+        raise AssertionError("mis_filtered_dist: not a maximal independent "
+                             "set of the filtered edges")
+    out["mis_filtered_dist"] = dict(secs=secs, size=int(in_set.sum()))
+    log(f"  subgraph_within / materialize_filtered_dist equal the host "
+        f"filter ({out['passing']} of {k} entries); mis_filtered_dist "
+        f"{out['mis_filtered_dist']}")
+    del dm, sub, tg, val
+    torch.cuda.empty_cache()
+    # block-streamed I/O of a side x side matrix
+    d = os.path.join("chiprun_out", "io")
+    os.makedirs(d, exist_ok=True)
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed), IO_SCALE,
+                    16)
+    grid = ProcGrid.make(side, side, device=dev)
+    dm = DistSpMat.from_local(a, grid)
+    pm, pb = os.path.join(d, "a.mtx"), os.path.join(d, "a.bin")
+    io_secs = {}
+    for name, fn in (
+            ("parallel_write_mtx", lambda: parallel_write_mtx(pm, dm)),
+            ("parallel_write_binary", lambda: parallel_write_binary(pb, dm)),
+            ("parallel_read_mtx", lambda: parallel_read_mtx(pm, grid)),
+            ("read_binary", lambda: read_binary(pb, device=dev))):
+        io_secs[name] = _timed(fn, dev)
+    back, bin_back = io_secs["parallel_read_mtx"][0], io_secs[
+        "read_binary"][0]
+    if not all(torch.equal(getattr(back, f), getattr(dm, f))
+               for f in ("row", "col", "val", "nnz")):
+        raise AssertionError("parallel_read_mtx: stacks differ")
+    loc = dm.to_local()
+    kk = int(loc.nnz)
+    _same_entries_host(bin_back, *(x[:kk].cpu().numpy()
+                                   for x in (loc.row, loc.col, loc.val)),
+                       "read_binary")
+    out["io"] = dict(scale=IO_SCALE, nnz=kk, bytes_mtx=os.path.getsize(pm),
+                     bytes_bin=os.path.getsize(pb),
+                     secs={k_: v for k_, (_, v) in io_secs.items()})
+    shutil.rmtree(d)     # chiprun_out/ stays small enough to come back
+    log(f"  I/O {side}x{side} scale {IO_SCALE}: stacks and entries read "
+        f"back equal, {out['io']}")
+    del a, dm, back, bin_back, loc
+    out["cli"] = cli_full(seed, dev)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
@@ -3685,7 +4459,8 @@ def main() -> int:
     dist_line = dist_graph_full(graphs["s"], *graphs["bfs_check"], args.seed)
     log(json.dumps(dict(dist_line, scale=GRAPH_SCALE)))
     phase_secs["17"] = time.perf_counter() - t
-    s21 = graphs["s"]        # phase 8's graph, for phases 19 and 21
+    s21 = graphs["s"]        # phase 8's graph, for phases 19, 21 and 24
+    roots21 = graphs["bfs_check"][0]
     del graphs
     torch.cuda.empty_cache()
 
@@ -3817,11 +4592,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     order_line["md"] = md_full(dev)
     order_line["bc"] = bc_full(s21, args.seed)
-    del s21
     torch.cuda.empty_cache()
     order_line["bc"]["card_vs_cpu"] = bc_card_vs_cpu(args.seed, dev)
     log(json.dumps(order_line))
     phase_secs["21"] = time.perf_counter() - t
+
+    # 22. bipartite matchings, local and on the grid
+    t = time.perf_counter()
+    log(f"phase 22: matchings of the scale-{MATCH_SCALE} G500 R-MAT, local "
+        f"and {DIST_SIDE}x{DIST_SIDE}")
+    torch.cuda.reset_peak_memory_stats()
+    match_line = matching_full(args.seed, dev)
+    match_line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps(match_line))
+    torch.cuda.empty_cache()
+    phase_secs["22"] = time.perf_counter() - t
+
+    # 23. MIS-2, restriction and Galerkin products
+    t = time.perf_counter()
+    log(f"phase 23: mis2_dist / restriction_op_dist / galerkin(_dist) of "
+        f"the {RCM_SIDE}^3 stencil, {DIST_SIDE}x{DIST_SIDE}; local "
+        f"restriction_op at {MG_LOCAL_SIDE}^3")
+    torch.cuda.reset_peak_memory_stats()
+    mg_line = multigrid_full(args.seed, dev)
+    mg_line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(json.dumps(mg_line))
+    torch.cuda.empty_cache()
+    phase_secs["23"] = time.perf_counter() - t
+
+    # 24. filtered traversals, semantic graphs, I/O and the CLI
+    t = time.perf_counter()
+    log(f"phase 24: TwitterGraph over phase 8's graph, filtered BFS / MIS "
+        f"local and {DIST_SIDE}x{DIST_SIDE}, block-streamed I/O at scale "
+        f"{IO_SCALE}, the CLI")
+    torch.cuda.reset_peak_memory_stats()
+    semantic_line = semantic_io_cli_full(s21, roots21, args.seed)
+    semantic_line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del s21
+    log(json.dumps(semantic_line))
+    torch.cuda.empty_cache()
+    phase_secs["24"] = time.perf_counter() - t
 
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
@@ -3851,7 +4661,9 @@ def main() -> int:
                      launches_dist_indexing=vector_line["indexing"][
                          "launches"].get(k["name"], 0),
                      launches_mcl_preprocess=preprocess_line[
-                         "launches"].get(k["name"], 0))
+                         "launches"].get(k["name"], 0),
+                     launches_galerkin=mg_line["launches"].get(k["name"],
+                                                               0))
     for name, n_launch in launches.items():
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")
@@ -3863,7 +4675,9 @@ def main() -> int:
                    ring_3d=ring_line, mcl=mcl_line, indexing=index_line,
                    dist=dist_line, mcl_dist=mcl_dist_line,
                    vectors=vector_line, mcl_preprocess=preprocess_line,
-                   orderings=order_line, phase_secs=phase_secs)
+                   orderings=order_line, matching=match_line,
+                   multigrid=mg_line, semantic_io_cli=semantic_line,
+                   phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

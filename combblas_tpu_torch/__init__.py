@@ -8,5 +8,33 @@ path is a hand-written CUDA kernel for Hopper under ``csrc/``, built with
 ``nvcc`` at first use (``ops/kernels/_build.py``); each has a plain PyTorch
 version beside it, which is what runs for tensors on the CPU.
 
+The package-level names are the JAX package's: the semirings, ``SpCOO``
+and its helpers, ``spgemm_auto``, the SpMV family and :func:`square`.
+``python -m combblas_tpu_torch.cli`` runs the applications.
+
 This package imports ``torch`` and never ``jax``.
 """
+
+from combblas_tpu_torch.semiring import (
+    MAX_FIRST,
+    MAX_PLUS,
+    MAX_SECOND,
+    MAX_TIMES,
+    MIN_PLUS,
+    MIN_SECOND,
+    OR_AND,
+    PLUS_TIMES,
+    Semiring,
+    get_semiring,
+)
+from combblas_tpu_torch.ops.coo import SpCOO, find, merge, sort_coo
+from combblas_tpu_torch.ops.spgemm import spgemm_auto
+from combblas_tpu_torch.ops.spmv import spmm, spmsv_masked, spmv, spmv_transpose
+
+__version__ = "0.1.0"
+
+
+def square(a: SpCOO, sr=PLUS_TIMES, **kw) -> SpCOO:
+    """A² (``SpParMat::Square``, ``SpParMat.cpp:3456``) through
+    :func:`spgemm_auto`."""
+    return spgemm_auto(a, a, sr, **kw)

@@ -1,5 +1,5 @@
-"""R-MAT (Kronecker) edge generator on the device (port of
-``combblas_tpu/gen/rmat.py``).
+"""R-MAT (Kronecker) and Erdős–Rényi edge generators on the device (port
+of ``combblas_tpu/gen/rmat.py``).
 
 Same construction as the JAX package: one uniform per (level, edge) picks the
 quadrant at each of ``scale`` levels of the recursive descent, then a random
@@ -17,8 +17,8 @@ import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO, compress_sorted
 
-__all__ = ["G500_PROBS", "SSCA_PROBS", "rmat_edges", "edges_to_coo",
-           "rmat_matrix"]
+__all__ = ["G500_PROBS", "SSCA_PROBS", "rmat_edges", "er_edges",
+           "edges_to_coo", "rmat_matrix"]
 
 #: Graph500 quadrant probabilities (a, b, c, d) = (.57, .19, .19, .05).
 G500_PROBS = (0.57, 0.19, 0.19, 0.05)
@@ -52,6 +52,19 @@ def rmat_edges(generator: torch.Generator, scale: int, nedges: int,
         perm = torch.randperm(1 << scale, generator=generator, device=dev,
                               dtype=torch.int64).to(torch.int32)
         rows, cols = perm[rows.long()], perm[cols.long()]
+    return rows, cols
+
+
+def er_edges(generator: torch.Generator, scale: int, nedges: int):
+    """``nedges`` uniform Erdős–Rényi edges over 2**scale vertices (the
+    reference's ER input class, ``3DSpGEMM/mpipspgemm.cpp``) on the
+    generator's device: (rows, cols) int32, duplicates and loops kept."""
+    n = 1 << scale
+    dev = generator.device
+    rows = torch.randint(0, n, (nedges,), generator=generator, device=dev,
+                         dtype=torch.int32)
+    cols = torch.randint(0, n, (nedges,), generator=generator, device=dev,
+                         dtype=torch.int32)
     return rows, cols
 
 

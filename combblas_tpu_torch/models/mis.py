@@ -28,9 +28,11 @@ __all__ = ["luby_mis", "luby_mis_dist"]
 
 
 def _priorities(n: int, live: torch.Tensor, generator: torch.Generator):
-    """uniform[1, 2) priorities on the live vertices, 0 on the dead."""
-    pri = torch.rand(n, generator=generator, device=live.device) + 1.0
-    return torch.where(live, pri, 0.0)
+    """uniform[1, 2) priorities on the live vertices, 0 on the dead, drawn
+    on the generator's device (so one CPU generator gives the card and the
+    CPU the same draws)."""
+    pri = torch.rand(n, generator=generator, device=generator.device) + 1.0
+    return torch.where(live, pri.to(live.device), 0.0)
 
 
 def luby_mis(a: SpCOO, generator: torch.Generator) -> torch.Tensor:

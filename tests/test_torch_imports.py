@@ -24,11 +24,15 @@ print(len(names))
 """
 
 #: The modules of the distributed SpMV, graph-algorithm and HipMCL slice,
-#: and of the distributed vector, indexing, dense, ordering and BC slice.
+#: of the distributed vector, indexing, dense, ordering and BC slice, and
+#: of the matching, multigrid, filtered / semantic, I/O and CLI slice.
 DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
               "models.bfs", "models.cc", "models.lacc", "models.mis",
               "models.mcl", "parallel.vector", "parallel.indexing",
-              "parallel.dense", "models.ordering", "models.bc")
+              "parallel.dense", "models.ordering", "models.bc",
+              "models.matching", "parallel.matching", "models.multigrid",
+              "models.filtered", "models.semantic", "io.mtx", "io.binary",
+              "io.labels", "io.parallel", "utils.timers", "cli")
 
 
 def test_port_imports_no_jax():
@@ -39,9 +43,10 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     # every module of the seg2, SpMM/BFS, materialized SpGEMM, distributed
     # SpGEMM, local-ops/MCL, distributed SpMV/MCL and distributed
-    # vector/indexing/ordering/BC slices was imported
+    # vector/indexing/ordering/BC and matching/multigrid/I/O/CLI slices was
+    # imported
     lines = out.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 47
+    assert int(lines[-1]) >= 60
     names = set(lines[-2].split())
     for mod in DIST_SLICE:
         assert f"combblas_tpu_torch.{mod}" in names, mod

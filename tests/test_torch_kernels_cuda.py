@@ -812,3 +812,73 @@ def test_orderings_and_bc_phase_on_card(cuda):
     chip_smoke.md_full(cuda, k=10)
     chip_smoke.bc_full(spmm_bfs_graphs(3, cuda, 12)["s"], 3)
     chip_smoke.bc_card_vs_cpu(3, cuda, scale=10)
+
+
+def test_galerkin_card_matches_cpu(cuda):
+    """``restriction_op`` of a 10^3 stencil (6 / -1) with one CPU generator
+    gives the same R on the card and on the CPU, and ``galerkin`` on the
+    card (K1 and K2, launches read around it) equals the CPU's R·A·Rᵀ
+    exactly (integer sums)."""
+    import chip_smoke
+    from combblas_tpu_torch.models.multigrid import galerkin, restriction_op
+    from combblas_tpu_torch.ops.coo import SpCOO
+    from combblas_tpu_torch.ops.kernels import reset_launches
+
+    k = 10
+    host = [x.cpu().numpy() for x in chip_smoke.mg_stencil(k, "cpu")]
+    a_card, a_cpu = (SpCOO.from_arrays(*host, (k ** 3, k ** 3), device=dev)
+                     for dev in (cuda, "cpu"))
+    r_card, r_cpu = (restriction_op(a, torch.Generator().manual_seed(7))
+                     for a in (a_card, a_cpu))
+    for f in ("row", "col", "val", "nnz"):
+        assert torch.equal(getattr(r_card, f).cpu(), getattr(r_cpu, f))
+    reset_launches()
+    got = galerkin(r_card, a_card)
+    torch.cuda.synchronize()
+    assert LAUNCHES["expand_i32"] >= 1 and LAUNCHES["compress_i32"] >= 1
+    want = galerkin(r_cpu, a_cpu)
+    n = int(want.nnz)
+    assert int(got.nnz) == n
+    for f in ("row", "col", "val"):
+        assert torch.equal(getattr(got, f)[:n].cpu(), getattr(want, f)[:n])
+
+
+def test_matching_phase_on_card(cuda):
+    """chip_smoke's phase 22 at scale 12 on a 4x4 grid: every matching
+    checked on the host, the maximum ones against scipy, the grid results
+    equal to the local ones; AWPM's weight against linear_sum_assignment
+    at scale 9 (the call holds each)."""
+    import chip_smoke
+
+    out = chip_smoke.matching_full(3, cuda, scale=12, weight_scale=9)
+    assert out["bp_maximum_matching"]["cardinality"] == out["scipy_maximum"]
+    assert out["dist_bp_maximum"]["levels"] >= 1
+
+
+def test_multigrid_phase_on_card(cuda):
+    """chip_smoke's phase 23 at 16^3 on a 4x4 grid and 12^3 locally:
+    MIS-2 checked on the host, R's aggregates, both Galerkin products
+    equal to scipy's, the local R card against CPU (the call holds
+    each)."""
+    import chip_smoke
+
+    out = chip_smoke.multigrid_full(3, cuda, k=16, local_k=12)
+    assert out["restriction_op_dist"]["ncoarse"] > 0
+    assert out["launches"].get("expand_i32", 0) >= 1
+
+
+def test_semantic_io_cli_phase_on_card(cuda, monkeypatch, tmp_path):
+    """chip_smoke's phase 24 on a scale-12 graph: the filtered subgraphs,
+    BFS (local and 4x4, validated) and MIS, the block-streamed I/O at
+    scale 12 and every CLI line against its library call (the call holds
+    each; files under ``tmp_path``)."""
+    import chip_smoke
+    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+
+    monkeypatch.setattr(chip_smoke, "IO_SCALE", 12)
+    monkeypatch.setattr(chip_smoke, "CLI_MCL_SCALE", 9)
+    monkeypatch.chdir(tmp_path)
+    s = spmm_bfs_graphs(3, cuda, 12)["s"]
+    out = chip_smoke.semantic_io_cli_full(s, bfs_roots(s, 3)[:4], 3)
+    assert 0.15 < out["passing_share"] < 0.35
+    assert set(out["cli"]["lines"]) >= {"gen", "spgemm", "mcl", "galerkin"}
