@@ -157,7 +157,15 @@ Phases, each raising on failure:
      scale-18 matrix read back by ``parallel_read_mtx`` / ``read_binary``
      equal; the CLI in process (``gen``, ``convert``, ``spgemm``,
      ``match --max``, ``bfs --dist``, ``cc``, ``galerkin``, ``mcl``), each
-     line equal to the library call it wraps.
+     line equal to the library call it wraps;
+ 25. (run right after phase 5, on its matrix) the row-classed seg digest
+     of the scale-22 A² through ``seg_prepare`` / ``seg_step`` in slabs of
+     2^28 products, one sync a slab: nnz equal to phase 5's, checksum
+     within 1e-5 relative, not truncated, K1 and K2 launched once a slab
+     and nothing else; the heaviest, middle and last slabs again against
+     the plain versions; the scale-16 classed digest against scipy; the
+     one-process ``initialize_multihost`` / ``is_coordinator`` /
+     ``pod_grid``.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -212,6 +220,7 @@ from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
 from combblas_tpu_torch.ops.kernels.ring import ring_shift
 from combblas_tpu_torch.ops.spgemm import (
     _pallas_slab_plan,
+    _slab_stats,
     round_capacity_frac,
     spgemm_auto,
     spgemm_flops,
@@ -222,6 +231,8 @@ from combblas_tpu_torch.ops.spgemm import (
 from combblas_tpu_torch.ops.spgemm_seg import (
     seg2_prepare,
     seg2_step,
+    seg_prepare,
+    seg_step,
     seg_zero_state,
 )
 from combblas_tpu_torch.ops.spmm_ell import spmm_ell_prepare
@@ -236,7 +247,12 @@ from combblas_tpu_torch.ops.spmm_kernel import (
 )
 from combblas_tpu_torch.ops.spmv import spmm
 from combblas_tpu_torch.parallel.dist import DistSpMat, _live_entries
-from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.parallel.grid import ProcGrid, default_grid
+from combblas_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_coordinator,
+    pod_grid,
+)
 from combblas_tpu_torch.profile_summa import grid_cells
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_PLUS, PLUS_TIMES
 
@@ -591,14 +607,15 @@ def check_adversarial(gen, dev, log2: int = 20) -> dict:
 
 # ------------------------------------------------------------ phases 4, 5 --
 
-def run_slabs(a, prep, dev, sync_each: bool):
-    """Every slab of the digest; with ``sync_each`` one scalar sync per slab
-    (its nnz), returning per-slab nnz deltas and seconds."""
+def run_slabs(step, num_slabs: int, dev, sync_each: bool):
+    """Every slab of a digest, ``state = step(s, state)``; with
+    ``sync_each`` one scalar sync per slab (its nnz), returning per-slab nnz
+    deltas and seconds."""
     state = seg_zero_state(dev)
     nnz_prev, per_nnz, per_secs = 0, [], []
-    for s in range(len(prep[1]["slabs"])):
+    for s in range(num_slabs):
         ts = time.perf_counter()
-        state = seg2_step(a, prep, s, state, PLUS_TIMES)
+        state = step(s, state)
         if sync_each:
             nnz_now = int(state[0])
             per_secs.append(time.perf_counter() - ts)
@@ -607,13 +624,30 @@ def run_slabs(a, prep, dev, sync_each: bool):
     return state, per_nnz, per_secs
 
 
-def check_scipy(seed: int, scale: int, dev) -> None:
+def check_scipy(seed: int, scale: int, dev, classed: bool = False) -> None:
+    """The scale-``scale`` SSCA A² digest against scipy's product: through
+    seg2 (phase 4) or, with ``classed``, the classed seg pipeline in slabs
+    of ``SEG_CHECK_SLAB_FLOPS`` products (phase 25)."""
     import scipy.sparse as sp
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     a = rmat_matrix(gen, scale, 8, probs=SSCA_PROBS)
-    prep = seg2_prepare(a, a, flops_cap=1 << 20, max_widths=20)
-    state, _, _ = run_slabs(a, prep, dev, sync_each=False)
+    if classed:
+        prep = seg_prepare(a, a, num_slabs=-(-spgemm_flops(a, a)
+                                              // SEG_CHECK_SLAB_FLOPS))
+        n = len(prep[0]["bounds"]) - 1
+        state, _, _ = run_slabs(
+            lambda s, st: seg_step(a, a, prep, s, st, PLUS_TIMES), n, dev,
+            sync_each=False)
+        what = f"{n} classed slabs ({len(prep[0]['classes'])} classes)"
+    else:
+        prep = seg2_prepare(a, a, flops_cap=1 << 20, max_widths=20)
+        slabs = prep[1]["slabs"]
+        state, _, _ = run_slabs(
+            lambda s, st: seg2_step(a, prep, s, st, PLUS_TIMES), len(slabs),
+            dev, sync_each=False)
+        what = (f"{len(slabs)} slabs "
+                f"({sum(not sl['flat'] for sl in slabs)} windowed)")
     nnz, cks, trunc = int(state[0]), float(state[1]), bool(state[2])
     row, col, val, annz, shape = a.to_numpy()
     s = sp.csr_matrix((val[:annz].astype(np.float64),
@@ -621,15 +655,15 @@ def check_scipy(seed: int, scale: int, dev) -> None:
     c = s @ s
     ref_nnz, ref_cks = int(c.nnz), float(c.sum())
     rel = abs(cks - ref_cks) / abs(ref_cks)
-    nw = sum(not sl["flat"] for sl in prep[1]["slabs"])
-    log(f"  scale {scale}: {len(prep[1]['slabs'])} slabs ({nw} windowed), "
-        f"nnz {nnz} vs scipy {ref_nnz}, checksum {cks!r} vs {ref_cks!r} "
-        f"(rel {rel:.2e}), truncated {trunc}")
+    log(f"  scale {scale}: {what}, nnz {nnz} vs scipy {ref_nnz}, checksum "
+        f"{cks!r} vs {ref_cks!r} (rel {rel:.2e}), truncated {trunc}")
     if nnz != ref_nnz or trunc or not rel <= 1e-4:
         raise AssertionError("scale-%d digest disagrees with scipy" % scale)
 
 
-def main_path(seed: int, scale: int, dev, details: dict) -> dict:
+def main_path(seed: int, scale: int, dev, details: dict):
+    """Phase 5.  Returns the launch counts, the phase's line and its
+    matrix, which phase 25 multiplies again."""
     t = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(seed)
     a = rmat_matrix(gen, scale, 8, probs=SSCA_PROBS)
@@ -646,7 +680,9 @@ def main_path(seed: int, scale: int, dev, details: dict) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    state, per_nnz, per_secs = run_slabs(a, prep, dev, sync_each=True)
+    state, per_nnz, per_secs = run_slabs(
+        lambda s, st: seg2_step(a, prep, s, st, PLUS_TIMES), len(slabs), dev,
+        sync_each=True)
     secs = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     nnz_c, checksum, truncated = (int(state[0]), float(state[1]),
@@ -699,7 +735,96 @@ def main_path(seed: int, scale: int, dev, details: dict) -> dict:
                                  "disagree")
         if bool(got[2]) or bool(ref[2]):
             raise AssertionError(f"slab {s}: truncated")
-    return launches
+    return launches, line, a
+
+
+# ---------------------------------------------------------------- phase 25 --
+
+#: Products per slab of phase 25's classed digest: the slab count is the
+#: product count over this (``scripts/run_headline.py --seg``'s cut).
+SEG_SLAB_FLOPS = 1 << 28
+#: Products per slab of phase 25's scale-16 check against scipy.
+SEG_CHECK_SLAB_FLOPS = 1 << 20
+
+
+def seg_full(a, want: dict, dev, details: dict) -> dict:
+    """Phase 25: the classed seg digest of phase 5's A² (``want`` is phase
+    5's line), every slab with one scalar sync, then three slabs again with
+    the kernels and their plain versions."""
+    flops = want["flops"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    prep = seg_prepare(a, a, num_slabs=-(-flops // SEG_SLAB_FLOPS))
+    plan_secs = time.perf_counter() - t
+    plan = prep[0]
+    S = len(plan["bounds"]) - 1
+
+    def step(s, state, plain=False):
+        return seg_step(a, a, prep, s, state, PLUS_TIMES, plain=plain)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, per_nnz, per_secs = run_slabs(step, S, dev, sync_each=True)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    nnz_c, checksum, truncated = (int(state[0]), float(state[1]),
+                                  bool(state[2]))
+    rel = abs(checksum - want["checksum"]) / abs(want["checksum"])
+    _nnz_s, _ch_s, fl_s = _slab_stats(a, a, prep[3], S)
+    line = dict(
+        slabs=S, classes=len(plan["classes"]), widest=plan["classes"][-1],
+        padded=plan["padded"], pad_ratio=plan["padded"] * S / flops,
+        span_cap=plan["span_cap"], stream_cap=plan["stream_cap"],
+        slab_out_cap=prep[4], plan_secs=plan_secs, secs=secs,
+        products_per_s=flops / secs, nnz_c=nnz_c, checksum=checksum,
+        checksum_rel_vs_phase5=rel, truncated=truncated,
+        launches={k: v for k, v in launches.items() if v},
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    log(json.dumps(line))
+    details["seg_slabs"] = [dict(flops=int(fl_s[s]), nnz=per_nnz[s],
+                                 secs=per_secs[s]) for s in range(S)]
+    if nnz_c != want["nnz_c"] or truncated or not rel <= 1e-5:
+        raise AssertionError(
+            f"classed digest (nnz {nnz_c}, checksum {checksum!r}, truncated "
+            f"{truncated}) != phase 5's (nnz {want['nnz_c']}, checksum "
+            f"{want['checksum']!r})")
+    want_launches = dict.fromkeys(LAUNCHES, 0)
+    want_launches.update(expand_i32=S, compress_i32=S)
+    if launches != want_launches:
+        raise AssertionError(f"launch counts {launches} != {want_launches}")
+    # the heaviest, the middle and the last slab again, kernels and plain
+    # versions, each from a zero state
+    for s in dict.fromkeys([int(np.argmax(fl_s)), S // 2, S - 1]):
+        got = step(s, seg_zero_state(dev))
+        ref = step(s, seg_zero_state(dev), plain=True)
+        g_nnz, r_nnz = int(got[0]), int(ref[0])
+        g_cks, r_cks = float(got[1]), float(ref[1])
+        s_rel = abs(g_cks - r_cks) / max(abs(r_cks), 1e-30)
+        log(f"  slab {s} ({int(fl_s[s])} products): nnz {g_nnz} kernels vs "
+            f"{r_nnz} plain (main pass {per_nnz[s]}), checksum rel "
+            f"{s_rel:.2e}")
+        if not (g_nnz == r_nnz == per_nnz[s]) or not s_rel <= 1e-5:
+            raise AssertionError(f"slab {s}: kernels and plain versions "
+                                 "disagree")
+        if bool(got[2]) or bool(ref[2]):
+            raise AssertionError(f"slab {s}: truncated")
+    del prep, got, ref
+    torch.cuda.empty_cache()
+    return line
+
+
+def multihost_one_process() -> None:
+    """Phase 25's single-process join: a no-op, rank 0, and the pod grid
+    equal to the default grid on the card."""
+    n, coord = initialize_multihost(), is_coordinator()
+    grid, want = pod_grid(), default_grid()
+    log(f"  initialize_multihost() = {n}, is_coordinator() = {coord}, "
+        f"pod_grid() = {grid}")
+    if n != 1 or not coord or grid != want:
+        raise AssertionError(f"one-process multihost: {n}, {coord}, {grid} "
+                             f"(default grid {want})")
 
 # ------------------------------------------------------------ phases 6-8 --
 
@@ -4161,7 +4286,6 @@ def cli_full(seed: int, dev) -> dict:
     from combblas_tpu_torch.models.mcl import MCLParams, mcl_local
     from combblas_tpu_torch.models.multigrid import galerkin, restriction_op
     from combblas_tpu_torch.ops.coo import SpCOO, merge
-    from combblas_tpu_torch.parallel.grid import default_grid
 
     d = os.path.join("chiprun_out", "cli")
     os.makedirs(d, exist_ok=True)
@@ -4425,9 +4549,22 @@ def main() -> int:
     # 5. the main path at full size
     t = time.perf_counter()
     log(f"phase 5: scale-{args.scale} A² seg2 digest, every slab")
-    launches = main_path(args.seed, args.scale, dev, details)
+    launches, main_line, a22 = main_path(args.seed, args.scale, dev, details)
     torch.cuda.empty_cache()
     phase_secs["5"] = time.perf_counter() - t
+
+    # 25. the classed seg digest of phase 5's matrix, one-process multihost
+    t = time.perf_counter()
+    log(f"phase 25: scale-{args.scale} A² classed seg digest of phase 5's "
+        f"matrix, every slab; scale-{args.check_scale} against scipy; "
+        f"one-process multihost")
+    seg_line = seg_full(a22, main_line, dev, details)
+    del a22
+    torch.cuda.empty_cache()
+    check_scipy(args.seed, args.check_scale, dev, classed=True)
+    multihost_one_process()
+    torch.cuda.empty_cache()
+    phase_secs["25"] = time.perf_counter() - t
 
     # 6. SpMM/BFS kernels vs plain versions at the shapes of phases 7, 8
     t = time.perf_counter()
@@ -4663,7 +4800,8 @@ def main() -> int:
                      launches_mcl_preprocess=preprocess_line[
                          "launches"].get(k["name"], 0),
                      launches_galerkin=mg_line["launches"].get(k["name"],
-                                                               0))
+                                                               0),
+                     launches_seg=seg_line["launches"].get(k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")
@@ -4671,9 +4809,10 @@ def main() -> int:
     log(f"phase seconds: {json.dumps(phase_secs)}")
     details.update(kernels=kernels, phase3=k3, phase6=k6, spmm=spmm_line,
                    bfs=bfs_line, phase9=k9, narrow=narrow_line,
-                   auto=auto_line, phase12=k12, summa=summa_line,
-                   ring_3d=ring_line, mcl=mcl_line, indexing=index_line,
-                   dist=dist_line, mcl_dist=mcl_dist_line,
+                   auto=auto_line, seg=seg_line, phase12=k12,
+                   summa=summa_line, ring_3d=ring_line, mcl=mcl_line,
+                   indexing=index_line, dist=dist_line,
+                   mcl_dist=mcl_dist_line,
                    vectors=vector_line, mcl_preprocess=preprocess_line,
                    orderings=order_line, matching=match_line,
                    multigrid=mg_line, semantic_io_cli=semantic_line,

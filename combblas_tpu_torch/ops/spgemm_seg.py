@@ -1,20 +1,30 @@
-"""Sorted-row uniform-width ("seg2") streamed digest SpGEMM — the seg2
-subset of ``combblas_tpu/ops/spgemm_seg.py``.
+"""Streamed digest SpGEMM over row windows (port of
+``combblas_tpu/ops/spgemm_seg.py``): the sorted-row uniform-width pipeline
+("seg2") and the row-classed pipeline ("seg") it replaced as the headline.
 
-A's rows are permuted by descending product count (the digest is invariant
-under row permutation) and cut into slabs.  A windowed slab gives each of its
-rows one window of a single width ``w`` strictly greater than the row's
-product count, so every window ends in at least one sentinel:
+Both expand each slab with int32 keys equal to B's column ids (K1, stride
+0), so the stream is grouped by output row but unsorted within a row.  Each
+row gets one window of a width strictly greater than its product count, so
+every window ends in at least one sentinel:
 
-  expand (int32 keys = B column ids, stride 0) -> per-row window gather ->
-  batched within-row sort (``torch.sort`` along dim 1) -> compress ->
-  digest fold.
+  expand -> per-row window gather -> batched within-row sort
+  (``torch.sort`` along dim 1) -> compress (K2) -> digest fold.
 
-Rows with fewer than ``flat_max_fl`` products ride flat slabs through
-:func:`ops.spgemm._slab_digest_step` (int64 keys ``row*(n+1)+col``, one
-1-D sort).  The host plan :func:`seg2_plan` is the JAX package's numpy plan
-unchanged; its TPU-sized constants are keyword parameters whose defaults
-equal the JAX values, so plans match bit for bit.
+seg2 permutes A's rows by descending product count (the digest is invariant
+under row permutation) and cuts them into slabs of one width each.  Rows
+with fewer than ``flat_max_fl`` products ride flat slabs through
+:func:`ops.spgemm._slab_digest_step` (int64 keys ``row*(n+1)+col``, one 1-D
+sort).  :func:`seg2_plan` is the JAX package's numpy plan unchanged; its
+TPU-sized constants are keyword parameters whose defaults equal the JAX
+values, so plans match bit for bit.
+
+seg keeps A's rows in place and cuts equal-flops slabs
+(:func:`ops.spgemm._pallas_slab_plan`).  A row's class is the first width
+of the half-octave ladder 128, 192, 256, 384, ... above its product count;
+every slab sorts every class at the largest row count any slab has in it
+(:func:`seg_plan`), and the classes are laid end to end, in class order,
+into one buffer for K2.  That layout is JAX's, and it is kept: K2's float
+sums depend on where a run falls in the stream.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from combblas_tpu_torch.ops.kernels.expand import (
 )
 from combblas_tpu_torch.ops.spgemm import (
     SORT_ELEM_LIMIT,
+    _pallas_slab_plan,
     _slab_digest_step,
     _slab_extract,
     check_sort_limit,
@@ -41,7 +52,8 @@ from combblas_tpu_torch.ops.spgemm import (
 )
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
-__all__ = ["seg_zero_state", "seg2_plan", "seg2_prepare", "seg2_step",
+__all__ = ["seg_zero_state", "seg_plan", "seg_prepare", "seg_step",
+           "spgemm_streamed_seg", "seg2_plan", "seg2_prepare", "seg2_step",
            "spgemm_streamed_seg2"]
 
 _SENT = KEY_SENTINEL[torch.int32]
@@ -78,6 +90,207 @@ def seg_zero_state(device=None):
             torch.zeros((), dtype=torch.float32, device=device),
             torch.zeros((), dtype=torch.bool, device=device))
 
+
+# -- seg: row-classed slabs ---------------------------------------------
+
+def _widths_upto(max_row: int) -> list[int]:
+    """Half-octave window widths 128, 192, 256, 384, 512, ...; the last is
+    the first width strictly greater than ``max_row``."""
+    out = []
+    c = _MIN_CLS
+    while True:
+        for w in (1 << c, 3 << (c - 1)):
+            out.append(w)
+            if w > max_row:
+                return out
+        c += 1
+
+
+def seg_plan(a: SpCOO, b: SpCOO, num_slabs: int) -> dict:
+    """Host (numpy) plan for the row-classed pipeline — the JAX ``seg_plan``
+    key for key.
+
+    Equal-flops row slabs from :func:`ops.spgemm._pallas_slab_plan` (wide),
+    the class widths (:func:`_widths_upto` of the heaviest row's product
+    count) and, per class, ``s_caps[i]``: the most rows of class ``i`` in
+    any slab, rounded up so every class buffer is whole ``TILE``-element
+    tiles.  Returns bounds, span_cap, slab_nnz_cap, chunk_cap, worst_fl,
+    classes, s_caps, stream_cap and padded (elements a slab sorts)."""
+    m, k = a.shape
+    bounds, span_cap, slab_nnz_cap, chunk_cap, worst_fl = _pallas_slab_plan(
+        a, b, num_slabs, wide=True)
+    # exact per-row flops over the whole matrix, classed on the host
+    b_rp = b.row_ptr().cpu().numpy().astype(np.int64)
+    nnz = int(a.nnz)
+    arow = a.row[:nnz].cpu().numpy()
+    acol = np.minimum(a.col[:nnz].cpu().numpy(), k - 1)
+    cnt = b_rp[acol + 1] - b_rp[acol]
+    rowfl = np.bincount(arow, weights=cnt, minlength=m).astype(np.int64)
+    widths = _widths_upto(int(rowfl.max(initial=1)))
+    nz = rowfl > 0
+    # class of a row = first width strictly greater than its flops
+    cls = np.searchsorted(np.asarray(widths, np.int64), rowfl, side="right")
+    S = len(bounds) - 1
+    s_caps = []
+    for i, w in enumerate(widths):
+        per_slab = np.zeros((S,), np.int64)
+        sel_rows = np.flatnonzero(nz & (cls == i))
+        if sel_rows.size:
+            sid = np.searchsorted(bounds, sel_rows, side="right") - 1
+            per_slab = np.bincount(sid, minlength=S)
+        cap = int(per_slab.max(initial=0))
+        gran = _width_gran(w)
+        s_caps.append(max(-(-max(cap, 1) // gran) * gran, gran))
+    stream_cap = stream_capacity(worst_fl + widths[-1])
+    # JAX builds the class key cls * (span_cap + 1) + row in int32 with cls
+    # up to len(widths) + 1; the port's key is int64, but refuses the same
+    # plans
+    if (len(widths) + 2) * (span_cap + 1) >= 2**31:
+        raise ValueError(
+            "seg pipeline class key overflows int32: slab row span too large "
+            f"(span_cap={span_cap}, classes={len(widths)}); raise num_slabs")
+    return dict(
+        bounds=bounds,
+        span_cap=int(span_cap),
+        slab_nnz_cap=int(slab_nnz_cap),
+        chunk_cap=int(chunk_cap),
+        worst_fl=int(worst_fl),
+        classes=tuple(widths),
+        s_caps=tuple(s_caps),
+        stream_cap=int(stream_cap),
+        padded=int(sum(sc * w for sc, w in zip(s_caps, widths))),
+    )
+
+
+def _class_windows(colstream, valstream, rowfl, row_start, *,
+                   classes: tuple, s_caps: tuple, span_cap: int) -> list:
+    """Group a slab's rows by class and gather each row's window from the
+    stream.  Returns, per class, (col2d, val2d, rows_c, lens): the
+    (s_caps[i], classes[i]) windows with lanes past ``lens`` at the
+    sentinel / 0, windows in ascending row order, then dead windows (all
+    sentinel, ``rows_c = span_cap``).  Windows stay inside the stream while
+    ``stream_cap >= slab flops + classes[-1]`` (checked in
+    :func:`seg_prepare`)."""
+    dev = rowfl.device
+    R = span_cap + 1
+    ncls = len(classes)
+    widths = torch.tensor(classes, dtype=rowfl.dtype, device=dev)
+    cls = torch.searchsorted(widths, rowfl, right=True)
+    cls = torch.where(rowfl > 0, cls, ncls + 1)  # empty rows sort last
+    skey = torch.sort(cls * R + torch.arange(R, device=dev)).values
+    # a class's dead windows read up to max(s_caps) keys past its start
+    skey = torch.cat([skey, torch.full((max(s_caps),), (ncls + 2) * R,
+                                       dtype=skey.dtype, device=dev)])
+    cstarts = torch.searchsorted(skey[:R],
+                                 torch.arange(ncls + 1, device=dev) * R)
+    out = []
+    for i, L in enumerate(classes):
+        t = torch.arange(s_caps[i], device=dev)
+        live = t < cstarts[i + 1] - cstarts[i]
+        rows_c = torch.where(live, skey[cstarts[i] + t] % R, span_cap)
+        lens = torch.where(live, rowfl[rows_c], 0)
+        starts = torch.where(live, row_start[rows_c], 0)
+        j = torch.arange(L, device=dev)
+        idx = starts[:, None] + j[None, :]
+        keep = j[None, :] < lens[:, None]
+        col2d = torch.where(keep, colstream[idx], _SENT)
+        val2d = torch.where(keep, valstream[idx], 0.0)
+        del idx, keep
+        out.append((col2d, val2d, rows_c, lens))
+    return out
+
+
+def _seg_slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
+                          sr: Semiring, *, span_cap: int, slab_nnz_cap: int,
+                          slab_out_cap: int, stream_cap: int, classes: tuple,
+                          s_caps: tuple, plain: bool = False):
+    """One slab of the classed digest: expand with int32 column keys (K1,
+    stride 0), per-class batched within-row sorts into one buffer laid out
+    class after class, one compress (K2), digest fold.  All on the device;
+    ``plain=True`` runs the kernels' plain versions."""
+    k = a.shape[1]
+    dev = a.device
+    sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
+                                 slab_nnz_cap=slab_nnz_cap)
+    colstream, valstream, _total = expand_chunks_compact(
+        sub.row, sub.col, sub.val, sub.mask(), b_rp, b.col, b.val, sr,
+        stride=0, stream_cap=stream_cap, plain=plain)
+    rowfl, row_start = _row_flops_exact(sub, b_rp, span_cap)
+    wins = _class_windows(colstream, valstream, rowfl, row_start,
+                          classes=classes, s_caps=s_caps, span_cap=span_cap)
+    del colstream
+    padded = sum(sc * w for sc, w in zip(s_caps, classes))
+    cat_k = torch.empty(padded, dtype=torch.int32, device=dev)
+    cat_v = torch.empty(padded, dtype=valstream.dtype, device=dev)
+    del valstream
+    off = 0
+    for i, (S_c, L) in enumerate(zip(s_caps, classes)):
+        # each class sorts straight into its slice of the buffer; its
+        # windows and permutation go before the next class's sort
+        col2d, val2d, _rows, _lens = wins[i]
+        wins[i] = None
+        n = S_c * L
+        perm = torch.empty((S_c, L), dtype=torch.int64, device=dev)
+        torch.sort(col2d, dim=1, stable=True,
+                   out=(cat_k[off:off + n].view(S_c, L), perm))
+        del col2d
+        torch.gather(val2d, 1, perm, out=cat_v[off:off + n].view(S_c, L))
+        del val2d, perm
+        off += n
+    okey, oval, nnz = compress_sorted_packed(
+        cat_k, cat_v, sr, out_capacity=slab_out_cap, plain=plain)
+    cs = oval.sum()  # entries past nnz hold 0
+    nnz_total, checksum, truncated = state
+    return (nnz_total + nnz, checksum + cs,
+            truncated | (nnz >= slab_out_cap))
+
+
+def seg_prepare(a: SpCOO, b: SpCOO, num_slabs: int,
+                slab_out_cap: int | None = None):
+    """Hoistable state for the classed digest: (plan, b_rp, None,
+    bounds_dev, slab_out_cap).  The ``None`` holds the place of JAX's B lane
+    tables, which the CUDA expansion does not need."""
+    plan = seg_plan(a, b, num_slabs)
+    if plan["worst_fl"] + plan["classes"][-1] > plan["stream_cap"]:
+        raise ValueError(
+            f"windows of width {plan['classes'][-1]} would read past the "
+            f"{plan['stream_cap']}-element stream of a slab of "
+            f"{plan['worst_fl']} products")
+    if slab_out_cap is None:
+        slab_out_cap = round_capacity_frac(max(plan["worst_fl"], 2048))
+    slab_out_cap = max(-(-slab_out_cap // 128) * 128, 2048)
+    bounds_dev = torch.as_tensor(plan["bounds"].astype(np.int64),
+                                 device=a.device)
+    return plan, b.row_ptr(), None, bounds_dev, slab_out_cap
+
+
+def seg_step(a: SpCOO, b: SpCOO, prep, s: int, state,
+             sr: Semiring = PLUS_TIMES, *, plain: bool = False):
+    """One slab step of the classed digest on hoisted ``prep`` state (the
+    host loop drives ``s``).  Returns the new digest state; nothing syncs
+    with the host."""
+    plan, b_rp, _tables, bounds_dev, slab_out_cap = prep
+    return _seg_slab_digest_step(
+        a, b, b_rp, bounds_dev, s, state, sr, span_cap=plan["span_cap"],
+        slab_nnz_cap=plan["slab_nnz_cap"], slab_out_cap=slab_out_cap,
+        stream_cap=plan["stream_cap"], classes=plan["classes"],
+        s_caps=plan["s_caps"], plain=plain)
+
+
+def spgemm_streamed_seg(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
+                        num_slabs: int, slab_out_cap: int | None = None):
+    """Slab-streamed digest SpGEMM via the classed pipeline: every product
+    formed, every duplicate merged, each slab folded into the digest.
+    Returns (nnz_total int, checksum float, truncated bool)."""
+    prep = seg_prepare(a, b, num_slabs, slab_out_cap)
+    state = seg_zero_state(a.device)
+    for s in range(len(prep[0]["bounds"]) - 1):
+        state = seg_step(a, b, prep, s, state, sr)
+    nnz, checksum, truncated = state
+    return int(nnz), float(checksum), bool(truncated)
+
+
+# -- seg2: sorted-row uniform-width slabs ---------------------------------
 
 def _pow4_cap(n: int) -> int:
     """Round up to the next power of 4 (at least 256)."""

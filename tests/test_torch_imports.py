@@ -1,9 +1,12 @@
 """The port never imports JAX, and importing it builds nothing."""
 
+import importlib
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -34,6 +37,16 @@ DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
               "models.filtered", "models.semantic", "io.mtx", "io.binary",
               "io.labels", "io.parallel", "utils.timers", "cli")
 
+#: Names each slice added to a module that existed before it: the classed
+#: seg pipeline and the single-process join.
+SLICE_NAMES = {
+    "ops.spgemm_seg": ("seg_plan", "seg_prepare", "seg_step",
+                       "spgemm_streamed_seg", "seg2_plan", "seg2_prepare",
+                       "seg2_step", "spgemm_streamed_seg2", "seg_zero_state"),
+    "parallel.multihost": ("initialize_multihost", "is_coordinator",
+                           "pod_grid", "global_put"),
+}
+
 
 def test_port_imports_no_jax():
     env = dict(os.environ)
@@ -50,3 +63,11 @@ def test_port_imports_no_jax():
     names = set(lines[-2].split())
     for mod in DIST_SLICE:
         assert f"combblas_tpu_torch.{mod}" in names, mod
+
+
+@pytest.mark.parametrize("mod", sorted(SLICE_NAMES))
+def test_slice_names_exported(mod):
+    m = importlib.import_module(f"combblas_tpu_torch.{mod}")
+    for name in SLICE_NAMES[mod]:
+        assert name in m.__all__, name
+        assert callable(getattr(m, name)), name

@@ -226,6 +226,31 @@ def test_seg2_slice_kernels_match_plain(cuda):
     assert abs(float(got[1]) - float(want[1])) <= 1e-5 * abs(float(want[1]))
 
 
+def test_seg_slice_kernels_match_plain(cuda):
+    """The classed seg digest of a scale-12 A² on the card, every slab from
+    a zero state: K1 and K2 launched once a slab, nnz equal to the plain
+    versions', checksums within 1e-5."""
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.ops.spgemm_seg import (
+        seg_prepare,
+        seg_step,
+        seg_zero_state,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = rmat_matrix(gen, 12, 8, probs=SSCA_PROBS)
+    prep = seg_prepare(a, a, num_slabs=4)
+    S = len(prep[0]["bounds"]) - 1
+    before = dict(LAUNCHES)
+    got = [seg_step(a, a, prep, s, seg_zero_state(cuda)) for s in range(S)]
+    assert LAUNCHES["expand_i32"] - before["expand_i32"] == S
+    assert LAUNCHES["compress_i32"] - before["compress_i32"] == S
+    for s, g in enumerate(got):
+        w = seg_step(a, a, prep, s, seg_zero_state(cuda), plain=True)
+        assert int(g[0]) == int(w[0]) > 0 and not g[2] and not w[2], s
+        assert abs(float(g[1]) - float(w[1])) <= 1e-5 * abs(float(w[1])), s
+
+
 def _ragged_coo(seed, m, n, dev):
     """A sparse (m, n) with power-law row degrees, one hub row, and a third
     of the rows empty (so degree-sorted groups at the tail are empty)."""
