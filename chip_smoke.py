@@ -165,7 +165,24 @@ Phases, each raising on failure:
      and nothing else; the heaviest, middle and last slabs again against
      the plain versions; the scale-16 classed digest against scipy; the
      one-process ``initialize_multihost`` / ``is_coordinator`` /
-     ``pod_grid``.
+     ``pod_grid``;
+ 26. the pod on the one card: block grids spread over several processes
+     (fresh interpreters of this script, ``--pod-worker``, joined by
+     ``gloo`` on 127.0.0.1, exchanging card tensors through CUDA IPC).
+     Two processes: ``summa_spgemm_auto`` 2x2 of phase 11's A² (K3/K4),
+     every block equal to phase 13's (per-block digests of the keys and
+     value bits), and the cooperative ``parallel_write_mtx`` /
+     ``parallel_write_binary`` of phase 24's scale-18 graph, byte for byte
+     one process's files, ``parallel_read_mtx`` equal to one process's
+     blocks.  Four processes: ``summa_spgemm_auto`` 4x4 (K1/K2) equal to
+     phase 13's, ``summa_spgemm_rma`` 4x4 equal to phase 14's with K9's
+     cross-process form launched, K9 across processes alone bit for bit
+     its ``gloo`` plain version and timed, at the ring SUMMA's own launch
+     (its skewed 4x4 stacks, one block row a process) and on A's 2x2
+     blocks (one a process),
+     ``bfs_dist`` of phase 8's graph from 4 of its roots (phase 8's
+     levels, Graph500-valid) and ``dist_sort_auto`` of 2^26 float32 with
+     a payload equal to ``torch.sort``'s stable order.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -174,6 +191,7 @@ peaks.  The last stdout line is ``{"ok": true, "device": {...}}``, printed
 only when every phase passed.  Details go to ``chiprun_out/chip_smoke.json``.
 
 Usage: python3 chip_smoke.py [--seed 42] [--scale 22] [--check-scale 16]
+(``--pod-worker`` is phase 26's own entry for its processes.)
 """
 
 from __future__ import annotations
@@ -276,6 +294,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                           "combblas_tpu/ops/pallas/expand_kernel.py:574"),
     "ring_shift": ("combblas_tpu_torch/csrc/ring.cu",
                    "combblas_tpu/parallel/rma.py:47"),
+    "ring_shift_pod": ("combblas_tpu_torch/csrc/ring.cu",
+                       "combblas_tpu/parallel/rma.py:47"),
 }
 #: The forced small piece length of phase 6's second check (positions of
 #: an ELL piece, entries of a K8 range).
@@ -1440,7 +1460,8 @@ def _grid_call(label: str, run, ref, flops: int) -> dict:
         times), launches=launches, peak_mem_gb=peak / 2**30,
         capacity=c.row.shape[-1], block_nnz_max=int(nnz.max()),
         block_nnz_min=int(nnz.min()),
-        imbalance=float(nnz.max().float() / nnz.float().mean()))
+        imbalance=float(nnz.max().float() / nnz.float().mean()),
+        digests=block_digests(c) if isinstance(c, DistSpMat) else None)
     local = c.to_local()
     del c
     check_against_ref(local, ref, label)
@@ -4494,11 +4515,455 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 26 --
+
+#: The processes of phase 26's two pods on the one card, and each pod's
+#: timeout (on expiry every worker is killed).
+POD_SCENARIOS = {"two": 2, "four": 4}
+POD_TIMEOUT_SECS = 420
+#: Phase 26's sample sort: phase 19's length.
+POD_SORT_LOG2 = 26
+
+
+def block_digests(c) -> list:
+    """[i, j, nnz, keys, values] of each of this process's blocks of ``c``:
+    the live entries' keys (row * 2^32 + col) and value bits, each times a
+    hash of its slot, summed modulo 2^64.  Two blocks whose live slots hold
+    the same keys and the same value bits in the same order have the same
+    digest; the sums of integers do not depend on the order they run in."""
+    from combblas_tpu_torch.parallel.dist import live_counts
+
+    lc = c.grid.local_shape()[1]
+    r0, c0 = c.grid.origin()
+    out = []
+    for b, k in enumerate(live_counts(c)):
+        i, j = divmod(b, lc)
+        t = torch.arange(1, k + 1, device=c.row.device)
+        w = ((t * 0x9E3779B1) & 0x7FFFFFFF) | 1
+        key = (c.row[i, j, :k].long() << 32) | c.col[i, j, :k].long()
+        bits = c.val[i, j, :k].contiguous().view(torch.int32).long()
+        out.append([r0 + i, c0 + j, k, int((key * w).sum()),
+                    int((bits * w).sum())])
+    return out
+
+
+def _pod_sync(dev) -> None:
+    from combblas_tpu_torch.parallel import exchange
+    torch.cuda.synchronize(dev)
+    exchange.barrier()
+
+
+def _pod_call(label: str, fn, dev) -> tuple:
+    """``fn()`` between two rendezvous of the pod, its launches counted:
+    (result, dict of secs and launches)."""
+    _pod_sync(dev)
+    reset_launches()
+    t = time.perf_counter()
+    got = fn()
+    _pod_sync(dev)
+    secs = time.perf_counter() - t
+    return got, dict(secs=secs, launches={k: v for k, v in LAUNCHES.items()
+                                         if v})
+
+
+def _pod_summa(dm, dev) -> dict:
+    from combblas_tpu_torch.parallel.summa import summa_spgemm_auto
+    side = dm.grid.pr
+    c, line = _pod_call(f"summa {side}x{side}",
+                        lambda: summa_spgemm_auto(dm, dm), dev)
+    line.update(digests=block_digests(c), capacity=c.capacity,
+                nnz=int(c.nnz.sum()))
+    return line
+
+
+def _pod_rma(dm, dev) -> dict:
+    from combblas_tpu_torch.parallel.rma import summa_spgemm_rma
+    from combblas_tpu_torch.parallel.summa import summa_bounds
+    fc, oc = summa_bounds(dm, dm)
+    c, line = _pod_call("rma 4x4", lambda: summa_spgemm_rma(
+        dm, dm, stage_flops_cap=fc, out_capacity=oc), dev)
+    line.update(digests=block_digests(c), nnz=int(c.nnz.sum()))
+    return line
+
+
+#: Bytes read between two timed K9 pushes across processes: past the
+#: H100's 50 MB L2, so that no push finds its stacks there.
+POD_FLUSH_BYTES = 256 << 20
+#: Cycles the card sleeps before a timed push (about 1 ms), so that the
+#: host has queued the push before its start event is reached.
+POD_SLEEP_CYCLES = 2_000_000
+
+
+def _pod_k9_case(srcs, axes, g, dev, reps: int = 5) -> dict:
+    """K9's cross-process form on this process's ``srcs``: the hop as the
+    ring SUMMA makes it (:func:`ring_hop`) against its ``gloo`` plain
+    version, bit for bit; then its times.  ``ms``: one launch with this
+    process pushing alone (the others wait at a barrier, so no other
+    context shares the card), by CUDA events, L2 flushed before each
+    push and the push queued behind a sleep (checked: the start event is
+    not reached before the push is queued); ``hop_ms``: the whole hop with
+    every process pushing and the rendezvous, on the host clock (the least
+    of ``reps``);
+    ``plain_ms``: the plain version on the host clock."""
+    from combblas_tpu_torch.ops.kernels.ring import (
+        _pod_launch,
+        _pod_slot,
+        ring_hop,
+        ring_shift_pod_plain,
+    )
+    from combblas_tpu_torch.parallel import exchange
+    srcs = [x.contiguous() for x in srcs]
+    want = ring_shift_pod_plain(srcs, axes, g)
+    if not _bitwise_equal(ring_hop(srcs, axes, g), want):
+        raise AssertionError("K9 across processes: kernel and gloo plain "
+                             "version differ")
+    del want
+    nbytes = sum(x.numel() * x.element_size() for x in srcs)
+    hop = []
+    for _ in range(reps):
+        _pod_sync(dev)
+        t = time.perf_counter()
+        ring_hop(srcs, axes, g)
+        hop.append((time.perf_counter() - t) * 1e3)
+    slot, offs = _pod_slot(srcs, dev)
+    flush = torch.empty(POD_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    solo = []
+    for turn in range(exchange.size()):
+        _pod_sync(dev)
+        if exchange.rank() != turn:
+            continue
+        for k in range(reps):
+            flush.sum()
+            torch.cuda._sleep(POD_SLEEP_CYCLES)
+            start[k].record()
+            _pod_launch(srcs, axes, g, slot, offs)
+            end[k].record()
+            if start[k].query():
+                raise AssertionError("the card reached a timed push's "
+                                     "start before the push was queued")
+        torch.cuda.synchronize(dev)
+        solo = [s.elapsed_time(e) for s, e in zip(start, end)]
+    _pod_sync(dev)
+    t = time.perf_counter()
+    ring_shift_pod_plain(srcs, axes, g)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    return dict(ms=sum(solo) / reps, hop_ms=min(hop), plain_ms=plain_ms,
+                bytes=nbytes, max_abs_err=0.0)
+
+
+def _pod_k9(dm, a, dev) -> dict:
+    """K9's cross-process form held against its ``gloo`` plain version
+    and timed (:func:`_pod_k9_case`), first at the ring SUMMA's own launch
+    (``main``): ``dm``'s 4x4 blocks over the 4 processes after Cannon's
+    skew, A's (1, 4) shares along 'c' (a ring inside the process) and B's
+    along 'r' (every block crossing) in one launch; then on A's 2x2
+    blocks (one a process, both axes crossing) along each axis and both
+    at once."""
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    from combblas_tpu_torch.parallel.rma import _skew
+    out = {"main": _pod_k9_case([*_skew(dm, "c"), *_skew(dm, "r")],
+                                ["c"] * 4 + ["r"] * 4, dm.grid, dev)}
+    torch.cuda.empty_cache()
+    g = pod_grid(pr=2, pc=2, device=dev)
+    d2 = DistSpMat.from_local(a, g)
+    stacks = [d2.row, d2.col, d2.val, d2.local_nnz]
+    for name, (srcs, axes) in {
+            "2x2_c": (stacks, ["c"] * 4), "2x2_r": (stacks, ["r"] * 4),
+            "2x2_both": (stacks * 2, ["c"] * 4 + ["r"] * 4)}.items():
+        out[name] = _pod_k9_case(srcs, axes, g, dev)
+    return out
+
+
+def _pod_bfs(dev, d: str, seed: int) -> dict:
+    """``bfs_dist`` of phase 8's graph on a 4x4 grid over the processes
+    from phase 8's first roots: levels equal phase 8's, Graph500-valid."""
+    from combblas_tpu_torch.models.bfs import bfs_dist
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    s = spmm_bfs_graphs(seed, dev, GRAPH_SCALE)["s"]
+    n = s.shape[0]
+    dm = DistSpMat.from_local(s, pod_grid(pr=DIST_SIDE, pc=DIST_SIDE,
+                                          device=dev))
+    roots = np.load(os.path.join(d, "roots.npy"))
+    want = np.load(os.path.join(d, "levels.npy"))
+    runs = []
+    for i, r in enumerate(roots):
+        (par, lv), line = _pod_call("bfs", lambda r=r: bfs_dist(dm, int(r)),
+                                    dev)
+        par, lv = exchange.allgather_var([par, lv])
+        par, lv = par[:n], lv[:n]
+        if not np.array_equal(lv.cpu().numpy(), want[i]):
+            raise AssertionError(f"bfs_dist across processes from {r}: "
+                                 "levels differ from phase 8's")
+        if exchange.rank() == 0 and not validate_bfs(s, int(r), par, lv):
+            raise AssertionError(f"bfs_dist across processes from {r} does "
+                                 "not validate")
+        runs.append(dict(line, root=int(r), levels=int(lv.max()) + 1))
+    return dict(runs=runs, nnz=int(s.nnz))
+
+
+def _pod_sort(dev, seed: int) -> dict:
+    """``dist_sort_auto`` of phase 19's kind of 2^26 float32 with an int32
+    payload on a 4x4 grid over the processes: this process's slice equal
+    to ``torch.sort``'s stable order of the whole vector, element for
+    element."""
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    from combblas_tpu_torch.parallel.vector import (_sortable_u32,
+                                                    dist_sort_auto)
+    n = 1 << POD_SORT_LOG2
+    x = sort_values(torch.Generator(device=dev).manual_seed(seed + 26), n,
+                    dev)
+    # the duplicate-index writes of sort_values land in any order on the
+    # card: every process takes process 0's vector
+    x, = exchange.pull([x], [(0, 0, 0, n)])
+    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
+    lo, hi = g.vec_range(n)
+    xs = x[lo:hi].clone()
+    ps = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    (sx, sp), line = _pod_call("sort", lambda: dist_sort_auto(xs, g, ps),
+                               dev)
+    order = torch.sort(_sortable_u32(x), stable=True)[1][lo:hi]
+    if not (_same_bits(sx, x[order]) and torch.equal(sp, order.int())):
+        raise AssertionError("dist_sort_auto across processes differs from "
+                             "torch.sort's order")
+    return dict(line, n=n)
+
+
+def _pod_io(dev, d: str, seed: int) -> dict:
+    """The scale-``IO_SCALE`` graph of phase 24 on a 2x2 grid over the 2
+    processes: the cooperative writes (the parent holds them against one
+    process's files) and the cooperative read of one process's file, equal
+    to this process's blocks."""
+    from combblas_tpu_torch.io.parallel import (
+        parallel_read_mtx,
+        parallel_write_binary,
+        parallel_write_mtx,
+    )
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed), IO_SCALE,
+                    16)
+    g = pod_grid(pr=2, pc=2, device=dev)
+    dm = DistSpMat.from_local(a, g)
+    out = {}
+    for name, fn in (
+            ("parallel_write_mtx", lambda: parallel_write_mtx(
+                os.path.join(d, "pod.mtx"), dm)),
+            ("parallel_write_binary", lambda: parallel_write_binary(
+                os.path.join(d, "pod.bin"), dm)),
+            ("parallel_read_mtx", lambda: parallel_read_mtx(
+                os.path.join(d, "one.mtx"), g))):
+        got, out[name] = _pod_call(name, fn, dev)
+    if not all(torch.equal(getattr(got, f), getattr(dm, f))
+               for f in ("row", "col", "val", "nnz")):
+        raise AssertionError("parallel_read_mtx across processes: blocks "
+                             "differ from one process's")
+    return out
+
+
+def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
+               seed: int) -> int:
+    """One process of a phase-26 pod on the card (``--pod-worker``): joins
+    the group, runs its scenario and writes its results to
+    ``d/<scenario>_rank<rank>.json``."""
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    dev = torch.device("cuda", 0)
+    initialize_multihost(f"127.0.0.1:{port}", nproc, rank)
+    _build.library()          # the parent's build, loaded
+    res = dict(rank=rank)
+    if scenario == "two":
+        a = a2_matrix(seed, dev, AUTO_SCALE)
+        res["summa_2x2"] = _pod_summa(DistSpMat.from_local(
+            a, pod_grid(pr=2, pc=2, device=dev)), dev)
+        del a
+        torch.cuda.empty_cache()
+        res["io"] = _pod_io(dev, d, seed)
+    else:
+        a = a2_matrix(seed, dev, AUTO_SCALE)
+        dm = DistSpMat.from_local(a, pod_grid(pr=4, pc=4, device=dev))
+        res["summa_4x4"] = _pod_summa(dm, dev)
+        torch.cuda.empty_cache()
+        res["rma_4x4"] = _pod_rma(dm, dev)
+        torch.cuda.empty_cache()
+        res["k9"] = _pod_k9(dm, a, dev)
+        del a, dm
+        torch.cuda.empty_cache()
+        res["bfs"] = _pod_bfs(dev, d, seed)
+        torch.cuda.empty_cache()
+        res["sort"] = _pod_sort(dev, seed)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(d, f"{scenario}_rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    exchange.close()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_pod(scenario: str, d: str, seed: int) -> list:
+    """Start the scenario's workers (fresh interpreters of this script, all
+    on the one card), wait for all of them, kill all on the timeout or on
+    a failure; returns their results in rank order."""
+    import socket
+
+    nproc = POD_SCENARIOS[scenario]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ)
+    env.pop("MASTER_ADDR", None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--pod-worker", scenario, str(r), str(nproc), str(port), d],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(nproc)]
+    outs = []
+    try:
+        deadline = time.perf_counter() + POD_TIMEOUT_SECS
+        for p in procs:
+            left = max(deadline - time.perf_counter(), 1.0)
+            outs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"pod {scenario} rank {r} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    res = []
+    for r in range(nproc):
+        with open(os.path.join(d, f"{scenario}_rank{r}.json")) as fh:
+            res.append(json.load(fh))
+    return res
+
+
+def _same_digests(ranks, key: str, want: list, label: str) -> None:
+    got = sorted(tuple(x) for r in ranks for x in r[key]["digests"])
+    if got != sorted(tuple(x) for x in want):
+        raise AssertionError(f"{label}: blocks differ from one process's")
+
+
+def _sum_launches(ranks, key: str) -> dict:
+    out = {}
+    for r in ranks:
+        for k, v in r[key]["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def pod_full(seed: int, refs: dict, dev) -> dict:
+    """Phase 26: the pod on the one card.  A 2-process pod (2 blocks
+    each): ``summa_spgemm_auto`` 2x2 of phase 11's A² (K3/K4) equal to
+    phase 13's blocks, and the cooperative I/O of phase 24's graph (files
+    byte for byte one process's, the read equal to one process's blocks);
+    a 4-process pod: ``summa_spgemm_auto`` 4x4 (K1/K2) equal to phase
+    13's, the ring SUMMA 4x4 equal to phase 14's (K9 across processes), K9
+    across processes alone against its ``gloo`` plain version, ``bfs_dist``
+    from 4 of phase 8's roots and ``dist_sort_auto`` of 2^26 float32."""
+    d = os.path.abspath(os.path.join("chiprun_out", "pod"))
+    os.makedirs(d, exist_ok=True)
+    try:
+        return _pod_phase(seed, refs, dev, d)
+    finally:
+        shutil.rmtree(d)   # chiprun_out/ stays small enough to come back
+
+
+def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
+    from combblas_tpu_torch.io.parallel import (
+        parallel_write_binary,
+        parallel_write_mtx,
+    )
+    np.save(os.path.join(d, "roots.npy"), np.asarray(refs["roots"]))
+    np.save(os.path.join(d, "levels.npy"), refs["levels"])
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed), IO_SCALE,
+                    16)
+    dm = DistSpMat.from_local(a, ProcGrid.make(2, 2, device=dev))
+    parallel_write_mtx(os.path.join(d, "one.mtx"), dm)
+    parallel_write_binary(os.path.join(d, "one.bin"), dm)
+    del a, dm
+    torch.cuda.empty_cache()
+    out = {}
+    t = time.perf_counter()
+    two = _run_pod("two", d, seed)
+    out["two_secs"] = time.perf_counter() - t
+    for ext in ("mtx", "bin"):
+        with open(os.path.join(d, f"pod.{ext}"), "rb") as f1, \
+                open(os.path.join(d, f"one.{ext}"), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"parallel_write across 2 processes: "
+                                     f"the .{ext} file differs from one "
+                                     "process's")
+    _same_digests(two, "summa_2x2", refs["summa_spgemm_auto 2x2"],
+                  "summa_spgemm_auto 2x2 across 2 processes")
+    t = time.perf_counter()
+    four = _run_pod("four", d, seed)
+    out["four_secs"] = time.perf_counter() - t
+    _same_digests(four, "summa_4x4", refs["summa_spgemm_auto 4x4"],
+                  "summa_spgemm_auto 4x4 across 4 processes")
+    _same_digests(four, "rma_4x4", refs["summa_spgemm_rma 4x4"],
+                  "summa_spgemm_rma 4x4 across 4 processes")
+    launches = {"summa_2x2": _sum_launches(two, "summa_2x2"),
+                "summa_4x4": _sum_launches(four, "summa_4x4"),
+                "rma_4x4": _sum_launches(four, "rma_4x4")}
+    want = {"summa_2x2": ("expand_i64", "compress_i64"),
+            "summa_4x4": ("expand_i32", "compress_i32"),
+            "rma_4x4": ("ring_shift", "ring_shift_pod")}
+    for key, names in want.items():
+        if any(launches[key].get(k, 0) < 1 for k in names):
+            raise AssertionError(f"pod {key} launched {launches[key]}, "
+                                 f"want {names}")
+    k9 = {}
+    for case in four[0]["k9"]:   # the slowest process's, as the hop waits
+        k9[case] = {k: max(r["k9"][case][k] for r in four) for k in (
+            "ms", "hop_ms", "plain_ms", "bytes", "max_abs_err")}
+        k9[case].update(bound(2 * k9[case]["bytes"], 0))
+    peaks = {f"{sc}_rank{r['rank']}": r["peak_gib"]
+             for sc, ranks in (("two", two), ("four", four)) for r in ranks}
+    out.update(
+        launches=launches, k9=k9, peak_gib=peaks,
+        secs={key: max(r[key]["secs"] for r in ranks)
+              for key, ranks in (("summa_2x2", two), ("summa_4x4", four),
+                                 ("rma_4x4", four), ("sort", four))},
+        io_secs={k: max(r["io"][k]["secs"] for r in two)
+                 for k in two[0]["io"]},
+        bfs=[dict(root=run["root"], levels=run["levels"], secs=max(
+            r["bfs"]["runs"][i]["secs"] for r in four))
+            for i, run in enumerate(four[0]["bfs"]["runs"])])
+    log(f"  2 processes: summa_spgemm_auto 2x2 equals phase 13's blocks "
+        f"({out['secs']['summa_2x2']:.3f} s, launches "
+        f"{launches['summa_2x2']}); I/O files byte-equal, read equal "
+        f"({out['io_secs']})")
+    log(f"  4 processes: summa_spgemm_auto 4x4 equals phase 13's "
+        f"({out['secs']['summa_4x4']:.3f} s, {launches['summa_4x4']}); "
+        f"summa_spgemm_rma 4x4 equals phase 14's "
+        f"({out['secs']['rma_4x4']:.3f} s, {launches['rma_4x4']}); "
+        f"bfs_dist levels equal phase 8's and validate ({out['bfs']}); "
+        f"dist_sort_auto 2^{POD_SORT_LOG2} equals torch.sort "
+        f"({out['secs']['sort']:.3f} s)")
+    for case, r in k9.items():
+        log(f"  K9 across 4 processes ({case}): bit for bit its gloo plain "
+            f"version; one push alone {r['ms']:.4f} ms (CUDA events, L2 "
+            f"flushed), hop with rendezvous {r['hop_ms']:.3f} ms, gloo "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bytes']} bytes a process; the slowest process's)")
+    log(f"  peak GiB per worker: {peaks}")
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--check-scale", type=int, default=16)
+    ap.add_argument("--pod-worker", nargs=5, default=None,
+                    metavar=("SCENARIO", "RANK", "NPROC", "PORT", "DIR"),
+                    help="run one process of phase 26's pod (started by "
+                    "phase 26 itself)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     phase_secs = {}
@@ -4508,6 +4973,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.pod_worker is not None:
+        sc, rank, nproc, port, d = args.pod_worker
+        return pod_worker(sc, int(rank), int(nproc), int(port), d,
+                          args.seed)
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"phase 1: {card} | torch {torch.__version__} cuda "
@@ -4598,6 +5067,8 @@ def main() -> int:
     phase_secs["17"] = time.perf_counter() - t
     s21 = graphs["s"]        # phase 8's graph, for phases 19, 21 and 24
     roots21 = graphs["bfs_check"][0]
+    pod_refs = dict(roots=np.asarray(roots21),
+                    levels=graphs["bfs_check"][1].cpu().numpy())
     del graphs
     torch.cuda.empty_cache()
 
@@ -4646,6 +5117,7 @@ def main() -> int:
         f"{AUTO_SCALE} G500 ef-16, on 2x2 and 4x4 block grids")
     cells = grid_cells(a17, dev)
     summa_line = grid_phase(cells[:3], c_ref, auto_line["flops"])
+    pod_refs.update({k: v.pop("digests") for k, v in summa_line.items()})
     log(json.dumps(dict(summa_line, scale=AUTO_SCALE)))
     phase_secs["13"] = time.perf_counter() - t
 
@@ -4654,6 +5126,7 @@ def main() -> int:
     log(f"phase 14: summa_spgemm_rma 4x4 and summa3d_spgemm 2x2x2 A², "
         f"scale-{AUTO_SCALE}")
     ring_line = grid_phase(cells[3:], c_ref, auto_line["flops"])
+    pod_refs.update({k: v.pop("digests") for k, v in ring_line.items()})
     log(json.dumps(dict(ring_line, scale=AUTO_SCALE)))
     del cells, a17, c_ref
     torch.cuda.empty_cache()
@@ -4770,14 +5243,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_secs["24"] = time.perf_counter() - t
 
+    # 26. the pod: block grids over several processes on the one card
+    t = time.perf_counter()
+    log(f"phase 26: the pod on one card: summa_spgemm_auto 2x2 over 2 "
+        f"processes and 4x4 over 4, summa_spgemm_rma 4x4 (K9 across "
+        f"processes), bfs_dist of phase 8's graph, dist_sort_auto "
+        f"2^{POD_SORT_LOG2}, cooperative I/O at scale {IO_SCALE}")
+    torch.cuda.empty_cache()
+    pod_line = pod_full(args.seed, pod_refs, dev)
+    log(json.dumps(pod_line))
+    phase_secs["26"] = time.perf_counter() - t
+
     launches.update(ell_sum=spmm_line["launches"]["ell_sum"],
                     spmm_coo=spmm_line["launches"]["spmm_coo"],
                     ell_max=bfs_line["ell_max_launches"],
                     expand_chunks_i32=narrow_line["k5"]["launches"][
                         "expand_chunks_i32"],
                     ring_shift=ring_line["summa_spgemm_rma 4x4"][
-                        "launches"]["ring_shift"])
-    measured = dict(k3, expand_chunks_i32=k9, ring_shift=k12["phase14"])
+                        "launches"]["ring_shift"],
+                    ring_shift_pod=pod_line["launches"]["rma_4x4"][
+                        "ring_shift_pod"])
+    measured = dict(k3, expand_chunks_i32=k9, ring_shift=k12["phase14"],
+                    ring_shift_pod=dict(pod_line["k9"]["main"],
+                                        library_ms=None))
     for name, rows in k6.items():
         measured[name] = dict(rows[0], max_abs_err=max(
             r["max_abs_err"] for r in rows))
@@ -4816,7 +5304,7 @@ def main() -> int:
                    vectors=vector_line, mcl_preprocess=preprocess_line,
                    orderings=order_line, matching=match_line,
                    multigrid=mg_line, semantic_io_cli=semantic_line,
-                   phase_secs=phase_secs)
+                   pod=pod_line, phase_secs=phase_secs)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)

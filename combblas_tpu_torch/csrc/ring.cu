@@ -6,11 +6,21 @@
 // Pallas RDMA push with which the device at index d along a mesh axis
 // receives the (rows, 128) buffer of index (d-1) mod size; the ring SUMMA
 // (summa_spgemm_rma) shifts A along 'c' and B along 'r' after every stage
-// but the last.  The port keeps the whole (pr, pc) block stack on one card,
-// so the push is a copy between two stacks in device memory; within one
-// stream the launch order is the rendezvous, so there is no counterpart of
-// the send/recv semaphores (those come back when blocks live on different
-// cards).
+// but the last.  In one process the whole (pr, pc) block stack lies on one
+// card, so the push is a copy between two stacks in device memory; within
+// one stream the launch order is the rendezvous, so there is no
+// counterpart of the send/recv semaphores.
+//
+// Across processes (a pod, parallel/exchange.py) each process holds an
+// (outer, ring, inner) share of the stack and the ring continues in the
+// next process: a block that leaves the end of this process's ring is
+// written to `dst_wrap`, the next process's receive slot mapped into this
+// one by CUDA IPC, at the position it takes there (ring index 0), which is
+// the TPU kernel's remote copy.  Every other block lands in `dst`, this
+// process's own slot.  Where the whole ring is local, dst_wrap == dst and
+// the hop is the one-process push.  The rendezvous is outside the kernel:
+// the caller synchronises its stream and meets its peers at a barrier, and
+// the kernel never waits on a peer's write.
 //
 // Bound on the H100: bytes.  Every word is read once and written once, no
 // arithmetic: 2 x the stacks' bytes over 3.35 TB/s.
@@ -39,6 +49,7 @@ constexpr int64_t kMaxTiles = 1024;
 struct RingArgs {
   const uint32_t* src[kMaxArrays];
   uint32_t* dst[kMaxArrays];
+  uint32_t* dst_wrap[kMaxArrays];  // where a block past the ring's end goes
   int64_t words[kMaxArrays];  // per block
   int64_t outer[kMaxArrays];
   int64_t ring[kMaxArrays];
@@ -59,7 +70,8 @@ __global__ void __launch_bounds__(kThreads) ring_shift_kernel(RingArgs args) {
   const int64_t to = (o * ring + (r + 1) % ring) * inner + q;
   const int64_t w = args.words[a];
   const uint32_t* __restrict__ src = args.src[a] + b * w;
-  uint32_t* __restrict__ dst = args.dst[a] + to * w;
+  uint32_t* __restrict__ dst =
+      (r + 1 == ring ? args.dst_wrap[a] : args.dst[a]) + to * w;
   const int64_t start =
       static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads;
@@ -74,8 +86,8 @@ __global__ void __launch_bounds__(kThreads) ring_shift_kernel(RingArgs args) {
 
 }  // namespace
 
-// table: n_arrays rows of 6 int64 (src, dst, words per block, outer, ring,
-// inner), in host memory.
+// table: n_arrays rows of 7 int64 (src, dst, dst_wrap, words per block,
+// outer, ring, inner), in host memory.
 extern "C" int cbt_ring_shift(const int64_t* table, int32_t n_arrays,
                               void* stream) {
   if (n_arrays < 1 || n_arrays > kMaxArrays) {
@@ -84,16 +96,18 @@ extern "C" int cbt_ring_shift(const int64_t* table, int32_t n_arrays,
   RingArgs args = {};
   int64_t max_blocks = 1, max_units = 1;
   for (int a = 0; a < n_arrays; ++a) {
-    const int64_t* row = table + 6 * a;
+    const int64_t* row = table + 7 * a;
     args.src[a] = reinterpret_cast<const uint32_t*>(row[0]);
     args.dst[a] = reinterpret_cast<uint32_t*>(row[1]);
-    args.words[a] = row[2];
-    args.outer[a] = row[3];
-    args.ring[a] = row[4];
-    args.inner[a] = row[5];
-    args.vec4[a] = row[2] % 4 == 0 && row[0] % 16 == 0 && row[1] % 16 == 0;
-    const int64_t nb = row[3] * row[4] * row[5];
-    const int64_t units = args.vec4[a] ? row[2] / 4 : row[2];
+    args.dst_wrap[a] = reinterpret_cast<uint32_t*>(row[2]);
+    args.words[a] = row[3];
+    args.outer[a] = row[4];
+    args.ring[a] = row[5];
+    args.inner[a] = row[6];
+    args.vec4[a] = row[3] % 4 == 0 && row[0] % 16 == 0 &&
+                   row[1] % 16 == 0 && row[2] % 16 == 0;
+    const int64_t nb = row[4] * row[5] * row[6];
+    const int64_t units = args.vec4[a] ? row[3] / 4 : row[3];
     if (nb > max_blocks) max_blocks = nb;
     if (units > max_units) max_units = units;
   }

@@ -27,6 +27,7 @@ from combblas_tpu_torch.parallel.dist import (
     col_vec_len,
 )
 from combblas_tpu_torch.parallel.elementwise import dist_transpose
+from combblas_tpu_torch.parallel.grid import single_process
 
 __all__ = ["betweenness_centrality", "betweenness_centrality_dist"]
 
@@ -99,6 +100,7 @@ def betweenness_centrality(a: SpCOO, batch_size: int = 32,
     return bc
 
 
+@single_process
 def betweenness_centrality_dist(a: DistSpMat, batch_size: int = 32,
                                 sources: Optional[np.ndarray] = None
                                 ) -> np.ndarray:

@@ -36,6 +36,7 @@ from combblas_tpu_torch.ops.kernels.ell import ell_fold
 from combblas_tpu_torch.ops.kernels.expand import expand_chunks_compact
 from combblas_tpu_torch.ops.spmm_ell_blocked import ell_blocked_prepare
 from combblas_tpu_torch.ops.spmv import spmsv_masked
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _live_entries,
@@ -69,29 +70,38 @@ class _BfsState(NamedTuple):
     nfront: int
 
 
-def _init_state(n: int, root: int, device) -> _BfsState:
+def _init_state(n: int, root: int, device, lo: int | None = None
+                ) -> _BfsState:
+    """The state of the n vertices at level 0 of a BFS from ``root``; with
+    ``lo``, of vertices [lo, lo + n), a pod process's slice of them."""
     parents = torch.full((n,), -1, dtype=torch.int32, device=device)
     levels = torch.full((n,), -1, dtype=torch.int32, device=device)
     fv = torch.zeros(n, dtype=torch.int32, device=device)
     fm = torch.zeros(n, dtype=torch.bool, device=device)
-    parents[root] = root
-    levels[root] = 0
-    fv[root] = root + 1
-    fm[root] = True
+    if lo is None or lo <= root < lo + n:
+        at = root if lo is None else root - lo
+        parents[at] = root
+        levels[at] = 0
+        fv[at] = root + 1
+        fm[at] = True
     return _BfsState(parents, levels, fv, fm, 0, 1)
 
 
-def _advance(state: _BfsState, y: torch.Tensor, ym: torch.Tensor
-             ) -> _BfsState:
-    """Fold one level's candidate parents into the BFS state (one host
-    read: the next frontier's size)."""
+def _advance(state: _BfsState, y: torch.Tensor, ym: torch.Tensor,
+             lo: int = 0, pod: bool = False) -> _BfsState:
+    """Fold one level's candidate parents into the BFS state of vertices
+    [lo, ...) (one host read: the next frontier's size, summed over the
+    processes on a pod, so that every process stops at the same level)."""
     new = ym & (state.parents < 0)
     parents = torch.where(new, y.to(torch.int32) - 1, state.parents)
     levels = torch.where(new, state.depth + 1, state.levels)
     ids = torch.arange(new.shape[0], dtype=torch.int32, device=new.device)
-    fv = torch.where(new, ids + 1, 0)
-    return _BfsState(parents, levels, fv, new, state.depth + 1,
-                     int(new.sum()))
+    fv = torch.where(new, ids + (lo + 1), 0)
+    nfront = int(new.sum())
+    if pod:
+        nfront = int(exchange.allgather_host(
+            np.asarray([nfront], np.int64)).sum())
+    return _BfsState(parents, levels, fv, new, state.depth + 1, nfront)
 
 
 def bfs_local(a: SpCOO, root: int):
@@ -113,7 +123,9 @@ def _dist_levels(a: DistSpMat, root: int, pull: bool):
         raise ValueError(f"BFS needs a square adjacency matrix, got "
                          f"{a.gshape}")
     n_pad = row_vec_len(a.gshape, a.grid)
-    s = _init_state(n_pad, int(root), a.row.device)
+    lo, hi = a.grid.vec_range(n_pad)
+    s = _init_state(hi - lo, int(root), a.row.device,
+                    lo if a.grid.is_pod else None)
     live = _live_entries(a)
     while s.nfront > 0:
         if pull and s.nfront * BETA > n_pad:
@@ -123,7 +135,7 @@ def _dist_levels(a: DistSpMat, root: int, pull: bool):
         else:
             y, ym = dist_spmsv_masked(a, s.front_val, s.front_mask,
                                       MAX_SECOND, transpose=True, live=live)
-        s = _advance(s, y, ym)
+        s = _advance(s, y, ym, lo, a.grid.is_pod)
     return s.parents, s.levels
 
 
@@ -131,7 +143,9 @@ def bfs_dist(a: DistSpMat, root: int):
     """Distributed BFS over the block grid: each level one masked SpMSpV
     fan-out / fan-in (``dist_spmsv_masked``, transposed).  Returns
     (parents, levels), int32 FullyDist vectors of the padded length
-    ``row_vec_len`` (padding vertices have no edges and stay -1)."""
+    ``row_vec_len`` (padding vertices have no edges and stay -1); on a
+    pod, this process's slices of them, every level's stop read from the
+    frontier summed over the processes."""
     return _dist_levels(a, root, pull=False)
 
 

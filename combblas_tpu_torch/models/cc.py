@@ -25,6 +25,7 @@ from combblas_tpu_torch.parallel.dist import (
     _live_entries,
     col_vec_len,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmv
 from combblas_tpu_torch.semiring import MIN_SECOND
 
@@ -54,6 +55,7 @@ def fastsv_local(a: SpCOO) -> torch.Tensor:
             return f
 
 
+@single_process
 def fastsv_dist(a: DistSpMat) -> torch.Tensor:
     """Distributed FastSV: the neighbour-min SpMV runs over the block grid;
     the parent vector is a FullyDist int32 vector of the padded length

@@ -26,6 +26,7 @@ from combblas_tpu_torch.parallel.dist import (
     row_vec_len,
 )
 from combblas_tpu_torch.parallel.elementwise import dist_prune
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmsv_masked
 from combblas_tpu_torch.semiring import MAX_SECOND
 
@@ -69,12 +70,14 @@ def mis_filtered(a: SpCOO, generator: torch.Generator, pred: Callable):
     return luby_mis(materialize_filtered(a, pred), generator)
 
 
+@single_process
 def materialize_filtered_dist(a: DistSpMat, pred: Callable) -> DistSpMat:
     """The semantic subgraph on the grid: a blockwise prune, no exchange
     (``SemanticGraph.h``'s repeated-query path)."""
     return dist_prune(a, lambda v: ~pred(v))
 
 
+@single_process
 def bfs_filtered_dist(a: DistSpMat, root: int, pred: Callable):
     """Distributed filtered BFS (``FilteredBFS.cpp:129``): the predicate
     masks the entries of every level's ``dist_spmsv_masked``, as
@@ -91,6 +94,7 @@ def bfs_filtered_dist(a: DistSpMat, root: int, pred: Callable):
     return s.parents, s.levels
 
 
+@single_process
 def mis_filtered_dist(a: DistSpMat, generator: torch.Generator,
                       pred: Callable):
     """Distributed FilteredMIS (``FilteredMIS.cpp:147``): Luby rounds with

@@ -21,6 +21,7 @@ from combblas_tpu_torch.parallel.dist import (
     _live_entries,
     col_vec_len,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmv
 from combblas_tpu_torch.semiring import MIN_SECOND
 
@@ -80,6 +81,7 @@ def lacc_local(a: SpCOO) -> torch.Tensor:
     return _lacc(a.shape[0], a.device, lambda f: spmv(a, f, MIN_SECOND))
 
 
+@single_process
 def lacc_dist(a: DistSpMat) -> torch.Tensor:
     """Distributed LACC: the neighbour-parent minima through
     ``dist_spmv``, hooks on the FullyDist parent vector of the padded

@@ -52,6 +52,7 @@ from combblas_tpu_torch.parallel.elementwise import (
     dist_reduce,
     dist_transpose,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.indexing import dist_permute
 from combblas_tpu_torch.parallel.memefficient import mem_efficient_spgemm
 from combblas_tpu_torch.parallel.vector import dist_rand_perm
@@ -231,6 +232,7 @@ def _pow_closure(power: float):
     return f
 
 
+@single_process
 def dist_mcl_prune(c: DistSpMat, p: MCLParams,
                    use_kselect2: bool = False) -> DistSpMat:
     """Distributed ``MCLPruneRecoverySelect``: one threshold a column.
@@ -346,6 +348,7 @@ def _mcl_dist_iteration(a: DistSpMat, p: MCLParams, expand: Callable):
     return a2, float(_dist_chaos(a2))
 
 
+@single_process
 def dist_remove_isolated(a: DistSpMat):
     """``RemoveIsolated`` (``MCL.cpp:477``): the vertices with an empty
     column dropped by compacting the kept ones to the front of the index
@@ -358,6 +361,7 @@ def dist_remove_isolated(a: DistSpMat):
     return dist_permute(a, vmap, vmap), vmap, n_keep
 
 
+@single_process
 def dist_rand_permute(a: DistSpMat, generator: torch.Generator):
     """``RandPermute`` (``MCL.cpp:497``): the symmetric random relabelling
     A(p, p), a ``dist_rand_perm`` drawn from ``generator`` and one
@@ -390,6 +394,7 @@ def _labels_back(labels: torch.Tensor, vmap: np.ndarray,
     return torch.where(kept, labels[idx], own.to(labels.dtype))
 
 
+@single_process
 def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
              phases: int = 1, verbose: bool = False,
              preprocess: bool = False,

@@ -21,6 +21,7 @@ from combblas_tpu_torch.parallel.dist import (
     _live_entries,
     row_vec_len,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmsv_masked
 from combblas_tpu_torch.semiring import MAX_SECOND
 
@@ -53,6 +54,7 @@ def luby_mis(a: SpCOO, generator: torch.Generator) -> torch.Tensor:
     return in_set
 
 
+@single_process
 def luby_mis_dist(a: DistSpMat, generator: torch.Generator,
                   edge_pred=None) -> torch.Tensor:
     """Distributed Luby MIS on the block grid: two masked SpMV fan-out /

@@ -25,6 +25,7 @@ from combblas_tpu_torch.ops.spgemm import spgemm_auto
 from combblas_tpu_torch.ops.spmv import spmv
 from combblas_tpu_torch.parallel.dist import DistSpMat, row_vec_len
 from combblas_tpu_torch.parallel.elementwise import dist_transpose
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import _padded, dist_spmv
 from combblas_tpu_torch.parallel.summa import summa_spgemm_auto
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_SECOND, PLUS_TIMES
@@ -122,6 +123,7 @@ def galerkin(r: SpCOO, a: SpCOO) -> SpCOO:
 
 # -- on the block grid ------------------------------------------------------
 
+@single_process
 def mis2_dist(a: DistSpMat, generator: torch.Generator) -> np.ndarray:
     """Distributed MIS-2 (``RestrictionOp.h:118``): Luby rounds over the
     distance-2 neighbourhood, two chained (max, select2nd) ``dist_spmv``
@@ -136,6 +138,7 @@ def mis2_dist(a: DistSpMat, generator: torch.Generator) -> np.ndarray:
     return in_set.cpu().numpy()[:n]
 
 
+@single_process
 def mis2_verify_dist(a: DistSpMat, in_set) -> bool:
     """MIS-2 check (the reference's ``SpMV<MIS2verifySR>``) of a 0/1
     adjacency without self loops: no set vertex has a set neighbour, no
@@ -151,6 +154,7 @@ def mis2_verify_dist(a: DistSpMat, in_set) -> bool:
     return independent and bool(((cover[:n] > 0) | sp).all())
 
 
+@single_process
 def restriction_op_dist(a: DistSpMat, generator: torch.Generator
                         ) -> DistSpMat:
     """Distributed restriction matrix (``RestrictionOp.h:197``): coarse
@@ -176,6 +180,7 @@ def restriction_op_dist(a: DistSpMat, generator: torch.Generator
                                      (int(ncoarse), n), a.grid)
 
 
+@single_process
 def galerkin_dist(r: DistSpMat, a: DistSpMat) -> DistSpMat:
     """Distributed R·A·Rᵀ: two ``summa_spgemm_auto`` and one
     ``dist_transpose`` (``RestrictionOp.h:197``,

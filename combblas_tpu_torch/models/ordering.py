@@ -39,6 +39,7 @@ from combblas_tpu_torch.parallel.dist import (
     row_vec_len,
 )
 from combblas_tpu_torch.parallel.elementwise import dist_reduce
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmsv_masked, dist_spmv
 from combblas_tpu_torch.parallel.vector import (
     dist_apply_perm,
@@ -138,6 +139,7 @@ def _dist_ppv(a: DistSpMat, s: int, degh: np.ndarray, n: int):
     return s
 
 
+@single_process
 def rcm_order_dist(a: DistSpMat, start: int | None = None) -> np.ndarray:
     """Distributed RCM on the block grid (``RCM.cpp:332,361``): per
     component a pseudo-peripheral vertex by repeated ``bfs_dist``, then
@@ -238,6 +240,7 @@ def md_order(a: SpCOO) -> torch.Tensor:
     return torch.tensor(order, dtype=torch.int32, device=a.device)
 
 
+@single_process
 def md_order_dist(a: DistSpMat) -> torch.Tensor:
     """Distributed minimum degree (``MD.cpp:290-346``): per step the
     smallest-degree live vertex is eliminated, its reach set found by a

@@ -3,7 +3,9 @@ version.
 
 ``LAUNCHES`` counts, per kernel instance, the wrapper calls that launched
 the CUDA kernel (never the plain version): a run reads it to show that its
-main path went through the kernels.  :func:`poison_allocator` makes a
+main path went through the kernels.  ``ring_shift_pod`` counts the
+launches of K9 that also pushed blocks into another process (each is
+counted under ``ring_shift`` too).  :func:`poison_allocator` makes a
 kernel's unwritten output slots show in a check against the plain version.
 """
 
@@ -11,7 +13,8 @@ import torch
 
 LAUNCHES = {"expand_i32": 0, "expand_i64": 0, "expand_chunks_i32": 0,
             "compress_i32": 0, "compress_i64": 0,
-            "ell_sum": 0, "ell_max": 0, "spmm_coo": 0, "ring_shift": 0}
+            "ell_sum": 0, "ell_max": 0, "spmm_coo": 0, "ring_shift": 0,
+            "ring_shift_pod": 0}
 
 
 def reset_launches() -> None:

@@ -61,9 +61,16 @@ _SIGNATURES = {
                      _I64, _I32, _P, _P, _P],
     # row_ptr, col, val, m, ranges, piece_len, x, d, part, y, stream
     "cbt_spmm_coo": [_P, _P, _P, _I64, _I64, _I64, _P, _I64, _P, _P, _P],
-    # table (host int64[6 * n]: src, dst, words, outer, ring, inner), n,
-    # stream
+    # table (host int64[7 * n]: src, dst, dst_wrap, words, outer, ring,
+    # inner), n, stream
     "cbt_ring_shift": [_P, _I32, _P],
+    # device, bytes, ptr_out (void**), handle_out; device, handle, ptr_out;
+    # device, ptr; device, ptr; dst, src, bytes, stream (csrc/ipc.cu)
+    "cbt_ipc_alloc": [_I32, _I64, _P, _P],
+    "cbt_ipc_open": [_I32, _P, _P],
+    "cbt_ipc_close": [_I32, _P],
+    "cbt_ipc_free": [_I32, _P],
+    "cbt_copy": [_P, _P, _I64, _P],
 }
 
 _lib = None
@@ -141,6 +148,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cbt_error_string.argtypes = [ctypes.c_int]
     lib.cbt_error_string.restype = ctypes.c_char_p
+    lib.cbt_ipc_handle_bytes.argtypes = []
+    lib.cbt_ipc_handle_bytes.restype = ctypes.c_int64
     # the wrappers size their scratch by the kernels' tiles (imported here:
     # both wrapper modules import this one)
     from combblas_tpu_torch.ops.kernels.compress import COMPRESS_TILE

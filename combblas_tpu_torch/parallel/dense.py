@@ -20,7 +20,7 @@ from combblas_tpu_torch.parallel.dist import (
     _live_entries,
     block_dims,
 )
-from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.parallel.grid import ProcGrid, single_process
 from combblas_tpu_torch.parallel.spmv import _fold, _sum_ascends
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
@@ -28,6 +28,7 @@ __all__ = ["dense_put", "dense_to_host", "dist_spmm", "dense_add_sparse",
            "dense_reduce"]
 
 
+@single_process
 def dense_put(x: np.ndarray, grid: ProcGrid, gshape=None) -> torch.Tensor:
     """A host (m, n, ...) dense matrix on the grid's device, zero-padded to
     block multiples (``DenseParMat``'s constructor); ``gshape`` (default
@@ -46,6 +47,7 @@ def dense_to_host(x: torch.Tensor, shape) -> np.ndarray:
     return x[: shape[0], : shape[1]].cpu().numpy()
 
 
+@single_process
 def dist_spmm(a: DistSpMat, x: torch.Tensor, sr: Semiring = PLUS_TIMES, *,
               live=None) -> torch.Tensor:
     """Y = A ·_sr X, X dense (n_padded, d) in the column-space layout (cut
@@ -69,6 +71,7 @@ def dist_spmm(a: DistSpMat, x: torch.Tensor, sr: Semiring = PLUS_TIMES, *,
     return y.reshape(pr * mb, d)
 
 
+@single_process
 def dense_add_sparse(x: torch.Tensor, a: DistSpMat) -> torch.Tensor:
     """Dense += sparse (``DenseParMat::operator+=(SpParMat)``): every
     block's entries added at their places in the padded dense matrix."""

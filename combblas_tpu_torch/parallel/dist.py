@@ -7,6 +7,16 @@ package does; block (i, j) is what JAX's ``shard_map`` handed device (i, j).
 Every block shares one capacity, a power of two (at least 8), and block
 (i, j) pads past its nnz with (mb, nb, 0).  All blocks lie on the grid's
 device.  ``nnz`` is int64, as the port's SpCOO keeps it.
+
+On a grid spread over several processes (a pod) the stacks hold only this
+process's blocks: (lr, lc, cap), the blocks [r0, r0+lr) x [c0, c0+lc) of
+:meth:`ProcGrid.local_shape` / :meth:`ProcGrid.origin` (in one process
+(pr, pc, cap), as before).  ``nnz`` stays the whole (pr, pc) table in every
+process, as JAX's replicated ``nnz`` is read on every host: each
+constructor and each product refreshes it with one host all-gather, so
+capacities, retries and loop stops read the same numbers everywhere.
+Every process has the same capacity.  A FullyDist vector is this
+process's slice of the padded vector (:meth:`ProcGrid.vec_range`).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from combblas_tpu_torch.ops.coo import (
     _round_capacity,
     _sort_pairs,
 )
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.parallel.multihost import global_put
 
@@ -73,12 +84,20 @@ def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     ``from_coo_arrays`` lays them out: sorted by (block, local row, local
     col), duplicates summed in that order, capacity rounded up to a power
     of two (at least 8), pads (mb, nb, 0).  A block past ``capacity``
-    raises ``ValueError``."""
+    raises ``ValueError``.  On a pod only this process's blocks are built
+    (the counts are the whole table, all-gathered)."""
     dev = row.device
     row, col = row.long(), col.long()
     pr, pc = grid.pr, grid.pc
     mb, nb = block_dims(gshape, grid)
     bi, bj = row // mb, col // nb
+    if grid.is_pod:     # keep this process's triples; local block ids
+        (r0, c0), (pr, pc) = grid.origin(), grid.local_shape()
+        own = torch.nonzero((bi >= r0) & (bi < r0 + pr) & (bj >= c0)
+                            & (bj < c0 + pc)).squeeze(1)
+        row, col, val = row[own], col[own], val[own]
+        bi, bj = bi[own] - r0, bj[own] - c0
+        row, col = row - r0 * mb, col - c0 * nb
     lr, lc = row - bi * mb, col - bj * nb
     blk = bi * pc + bj
     key, order = torch.sort((blk * mb + lr) * nb + lc, stable=True)
@@ -90,7 +109,8 @@ def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
             val = _fold_runs(val, new)
             blk, lr, lc = blk[new], lr[new], lc[new]
     counts = torch.bincount(blk, minlength=pr * pc)
-    most = int(counts.max())
+    table = exchange.gather_table(counts.reshape(pr, pc), grid)
+    most = int(table.max())
     cap = most if capacity is None else capacity
     cap = max(8, 1 << int(np.ceil(np.log2(max(cap, 1)))))
     if most > cap:
@@ -105,7 +125,7 @@ def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     C[blk, pos] = lc.to(torch.int32)
     V[blk, pos] = val
     return (R.reshape(pr, pc, cap), C.reshape(pr, pc, cap),
-            V.reshape(pr, pc, cap), counts.reshape(pr, pc))
+            V.reshape(pr, pc, cap), table)
 
 
 def _gather_blocks(row, col, val, nnz, row_off, col_off,
@@ -139,7 +159,8 @@ class DistSpMat:
     """2D block-distributed sparse matrix.
 
     row/col/val: (pr, pc, cap) with block-local coordinates, padded per
-    block with (mb, nb, 0) past its nnz; nnz: (pr, pc) int64; gshape is the
+    block with (mb, nb, 0) past its nnz ((lr, lc, cap), this process's
+    blocks, on a pod); nnz: (pr, pc) int64, every block's; gshape is the
     true (unpadded) global shape."""
 
     row: torch.Tensor
@@ -159,6 +180,15 @@ class DistSpMat:
 
     def block_shape(self) -> Tuple[int, int]:
         return block_dims(self.gshape, self.grid)
+
+    @property
+    def local_nnz(self) -> torch.Tensor:
+        """The nnz of this process's blocks, (lr, lc): ``nnz`` itself in
+        one process."""
+        if not self.grid.is_pod:
+            return self.nnz
+        (r0, c0), (lr, lc) = self.grid.origin(), self.grid.local_shape()
+        return self.nnz[r0:r0 + lr, c0:c0 + lc]
 
     def total_nnz(self) -> torch.Tensor:
         return self.nnz.sum()
@@ -189,15 +219,17 @@ class DistSpMat:
     def from_numpy_blocks(row, col, val, nnz, gshape: Tuple[int, int],
                           grid: ProcGrid) -> "DistSpMat":
         """Block stacks as numpy (``np.asarray`` of a JAX DistSpMat's
-        fields) to a port DistSpMat on the grid's device, bit for bit."""
+        fields) to a port DistSpMat on the grid's device, bit for bit (on
+        a pod, this process's blocks of them)."""
         row, col = np.asarray(row, np.int32), np.asarray(col, np.int32)
         if row.shape[:2] != (grid.pr, grid.pc) or row.shape != col.shape \
                 or row.shape != np.shape(val):
             raise ValueError(f"block stacks of shapes {row.shape}, "
                              f"{col.shape}, {np.shape(val)} on a "
                              f"{grid.pr}x{grid.pc} grid")
-        return DistSpMat(row=global_put(row, grid), col=global_put(col, grid),
-                         val=global_put(val, grid),
+        return DistSpMat(row=global_put(row, grid, "blocks"),
+                         col=global_put(col, grid, "blocks"),
+                         val=global_put(val, grid, "blocks"),
                          nnz=global_put(np.asarray(nnz, np.int64), grid),
                          gshape=(int(gshape[0]), int(gshape[1])), grid=grid)
 
@@ -219,19 +251,25 @@ class DistSpMat:
     def to_local(self) -> SpCOO:
         """All blocks as one SpCOO on the grid's device: the live entries
         in global coordinates, (row, col) sorted, capacity the power of two
-        (at least 8) at or above nnz, as the JAX ``to_local`` builds it."""
-        pr, pc = self.grid.pr, self.grid.pc
+        (at least 8) at or above nnz, as the JAX ``to_local`` builds it.
+        On a pod every process gets the whole matrix (an all-gather of the
+        blocks' live entries), which JAX cannot do across controllers."""
+        pr, pc = self.grid.local_shape()
+        (r0, c0) = self.grid.origin()
         mb, nb = self.block_shape()
         dev = self.row.device
-        ii = torch.arange(pr, device=dev).repeat_interleave(pc)
-        jj = torch.arange(pc, device=dev).repeat(pr)
+        ii = torch.arange(pr, device=dev).repeat_interleave(pc) + r0
+        jj = torch.arange(pc, device=dev).repeat(pr) + c0
         flat = _gather_blocks(
             self.row.reshape(pr * pc, -1), self.col.reshape(pr * pc, -1),
-            self.val.reshape(pr * pc, -1), self.nnz.reshape(-1), ii * mb,
-            jj * nb, self.gshape)
+            self.val.reshape(pr * pc, -1), self.local_nnz.reshape(-1),
+            ii * mb, jj * nb, self.gshape)
         total = int(flat.nnz)
-        row, col, val = _sort_pairs(flat.row[:total], flat.col[:total],
-                                    flat.val[:total])
+        row, col, val = flat.row[:total], flat.col[:total], flat.val[:total]
+        if self.grid.is_pod:
+            row, col, val = exchange.allgather_var([row, col, val])
+            total = int(row.shape[0])
+        row, col, val = _sort_pairs(row, col, val)
         del flat
         out = SpCOO(row=row, col=col, val=val, nnz=torch.tensor(
             total, dtype=torch.int64, device=dev), shape=self.gshape)
@@ -243,16 +281,19 @@ class DistSpMat:
 
 def local_block(mat: DistSpMat, i: int, j: int) -> SpCOO:
     """Block (i, j) as an SpCOO of the block shape (what device (i, j) saw
-    under the JAX package's ``shard_map``); views, no copy."""
-    return SpCOO(row=mat.row[i, j], col=mat.col[i, j], val=mat.val[i, j],
-                 nnz=mat.nnz[i, j], shape=mat.block_shape())
+    under the JAX package's ``shard_map``); views, no copy.  On a pod the
+    block must be this process's."""
+    r0, c0 = mat.grid.origin()
+    return SpCOO(row=mat.row[i - r0, j - c0], col=mat.col[i - r0, j - c0],
+                 val=mat.val[i - r0, j - c0], nnz=mat.nnz[i, j],
+                 shape=mat.block_shape())
 
 
 def live_counts(mat: DistSpMat) -> list:
-    """Each block's live entries, ``min(nnz, capacity)``, block after block
-    in (i, j) order, read on the host once.  A block's live entries are the
-    first slots of its stack."""
-    return torch.clamp(mat.nnz, max=mat.capacity).reshape(-1).tolist()
+    """Each of this process's blocks' live entries, ``min(nnz,
+    capacity)``, block after block in (i, j) order, read on the host once.
+    A block's live entries are the first slots of its stack."""
+    return torch.clamp(mat.local_nnz, max=mat.capacity).reshape(-1).tolist()
 
 
 def _live_entries(mat: DistSpMat, counts: list | None = None):
@@ -260,8 +301,9 @@ def _live_entries(mat: DistSpMat, counts: list | None = None):
     block index ``i*pc + j`` (int64), the local rows and columns (int32)
     and the values.  The batched pass over the stack that replaces a loop
     of per-block bodies reads these, with block offsets added to its
-    segment ids; the pads past each block's nnz are never touched."""
-    pc = mat.grid.pc
+    segment ids; the pads past each block's nnz are never touched.  On a
+    pod, this process's blocks, indexed ``i*lc + j`` within its share."""
+    pc = mat.grid.local_shape()[1]
     k = live_counts(mat) if counts is None else counts
     dev = mat.row.device
     blocks = [(b, kb) for b, kb in enumerate(k) if kb]
@@ -281,7 +323,8 @@ def _live_entries(mat: DistSpMat, counts: list | None = None):
 @dataclasses.dataclass(frozen=True)
 class DistVec:
     """The FullyDist dense-vector layout: a flat tensor of the padded
-    global length (a multiple of pr*pc) on the grid's device."""
+    global length (a multiple of pr*pc) on the grid's device; on a pod,
+    this process's slice of it."""
 
     grid: ProcGrid
     length: int
@@ -295,7 +338,7 @@ class DistVec:
         x = np.asarray(x)
         xp = np.zeros(self.padded, x.dtype)
         xp[: self.length] = x
-        return global_put(xp, self.grid)
+        return global_put(xp, self.grid, "vector")
 
 
 def dist_vec(x, grid: ProcGrid) -> torch.Tensor:

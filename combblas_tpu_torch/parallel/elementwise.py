@@ -36,6 +36,7 @@ from combblas_tpu_torch.parallel.dist import (
     live_counts,
     local_block,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import (
     _col_space,
     _fold,
@@ -134,11 +135,13 @@ def _check_aligned(a: DistSpMat, b: DistSpMat) -> None:
                          f"{b.gshape} on {b.grid}")
 
 
+@single_process
 def dist_apply(a: DistSpMat, fn: Callable) -> DistSpMat:
     """fn on every stored value (``SpParMat::Apply``)."""
     return _new_values(a, lambda i, j, k: fn(a.val[i, j, :k]))
 
 
+@single_process
 def dist_prune(a: DistSpMat, pred: Callable) -> DistSpMat:
     """Drop the entries where pred(value) holds (``SpParMat::Prune``)."""
     return _compact_blocks(a, lambda i, j, k: ~pred(a.val[i, j, :k]))
@@ -152,6 +155,7 @@ def _binary(a: DistSpMat, b: DistSpMat, op: Callable) -> DistSpMat:
         blk, _live_block(b, i, j, bk[i, j])))
 
 
+@single_process
 def dist_ewise_mult(a: DistSpMat, b: DistSpMat, exclude: bool = False,
                     out_capacity: int | None = None) -> DistSpMat:
     """``EWiseMult`` on every block pair: the Hadamard product, or with
@@ -162,6 +166,7 @@ def dist_ewise_mult(a: DistSpMat, b: DistSpMat, exclude: bool = False,
         x, y, exclude=exclude, out_capacity=cap))
 
 
+@single_process
 def dist_add(a: DistSpMat, b: DistSpMat,
              out_capacity: int | None = None) -> DistSpMat:
     """A + B over the structural union, block by block; blocks of
@@ -190,6 +195,7 @@ def _slice_at(a: DistSpMat, x: torch.Tensor, dim: str, i: int, j: int,
     return x[j * nb + a.col[i, j, :k].clamp(max=nb - 1).long()]
 
 
+@single_process
 def dist_dim_apply(a: DistSpMat, x: torch.Tensor, dim: str,
                    fn: Callable = torch.mul) -> DistSpMat:
     """A_ij = fn(A_ij, x_i or x_j); x in the matching FullyDist layout (row
@@ -200,6 +206,7 @@ def dist_dim_apply(a: DistSpMat, x: torch.Tensor, dim: str,
         a.val[i, j, :k], _slice_at(a, xp, dim, i, j, k)))
 
 
+@single_process
 def dist_prune_column(a: DistSpMat, x: torch.Tensor,
                       pred: Callable) -> DistSpMat:
     """Drop entry (i, j) when pred(A_ij, x_j); x in the column-space
@@ -223,6 +230,7 @@ def _dim_fold(a: DistSpMat, vals: torch.Tensor, dim: str, sr: Semiring,
     return _col_space(_fold(vals, bid * nb + c, (pr, pc), nb, "r", sr))
 
 
+@single_process
 def dist_reduce(a: DistSpMat, dim: str, sr: Semiring = PLUS_TIMES,
                 premap: Callable | None = None) -> torch.Tensor:
     """Row ('row') or column ('col') reduction with the semiring add, after
@@ -234,6 +242,7 @@ def dist_reduce(a: DistSpMat, dim: str, sr: Semiring = PLUS_TIMES,
     return _dim_fold(a, vals, dim, sr, live)
 
 
+@single_process
 def dist_nnz_per_col(a: DistSpMat) -> torch.Tensor:
     """Stored entries per column, column-space layout (int32)."""
     live = _live_entries(a)
@@ -241,6 +250,7 @@ def dist_nnz_per_col(a: DistSpMat) -> torch.Tensor:
     return _dim_fold(a, ones, "col", PLUS_TIMES, live)
 
 
+@single_process
 def dist_kselect_col(a: DistSpMat, k, k_cap: int | None = None,
                      full_gather: bool = False) -> torch.Tensor:
     """Per-column k-th largest value (1-indexed), -inf where a column has
@@ -323,6 +333,7 @@ def _ordered_u32(v: torch.Tensor) -> torch.Tensor:
     return torch.where(b >= (1 << 31), _U32 - b, b | (1 << 31))
 
 
+@single_process
 def dist_kselect2_col(a: DistSpMat, k) -> torch.Tensor:
     """Per-column k-th largest by 32 rounds of bisection on the
     order-preserving 32-bit image of the values (``Kselect2``): each round
@@ -360,6 +371,7 @@ def dist_kselect2_col(a: DistSpMat, k) -> torch.Tensor:
                        torch.tensor(float("-inf"), device=v.device))
 
 
+@single_process
 def dist_kselect_col_checked(a: DistSpMat, k,
                              k_cap: int | None = None) -> torch.Tensor:
     """Kselect1 (candidate gather) and Kselect2 (bisection), held equal
@@ -375,6 +387,7 @@ def dist_kselect_col_checked(a: DistSpMat, k,
     return v1
 
 
+@single_process
 def dist_transpose(a: DistSpMat) -> DistSpMat:
     """A^T on a square grid: every block transposed (local coordinates
     swapped, re-sorted), then block (i, j) moved to (j, i)."""

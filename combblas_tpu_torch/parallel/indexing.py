@@ -29,6 +29,7 @@ from combblas_tpu_torch.parallel.dist import (
     block_dims,
 )
 from combblas_tpu_torch.parallel.elementwise import _compact_blocks, dist_add
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.summa import summa_spgemm_auto
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
@@ -41,6 +42,7 @@ __all__ = [
 ]
 
 
+@single_process
 def dist_selector(indices, n: int, grid, transpose: bool = False,
                   capacity: int | None = None) -> DistSpMat:
     """The distributed boolean extraction matrix: (k, n) with S[i,
@@ -57,6 +59,7 @@ def dist_selector(indices, n: int, grid, transpose: bool = False,
                                      capacity=capacity)
 
 
+@single_process
 def dist_spref(a: DistSpMat, ri, ci, sr: Semiring = PLUS_TIMES) -> DistSpMat:
     """A(ri, ci) = P·A·Q on the grid (``SpParMat.cpp:2028`` SubsRef_SR).
     Index vectors may repeat (matlab SpRef semantics)."""
@@ -79,6 +82,7 @@ def _space_masks(a: DistSpMat, ri, ci):
     return torch.from_numpy(rm).to(dev), torch.from_numpy(cm).to(dev)
 
 
+@single_process
 def dist_prune_block(a: DistSpMat, ri, ci) -> DistSpMat:
     """Remove every entry in rows ri × cols ci (``SpParMat::Prune(ri,
     ci)``): a membership mask per block, its kept entries compacted to the
@@ -94,6 +98,7 @@ def dist_prune_block(a: DistSpMat, ri, ci) -> DistSpMat:
     return _compact_blocks(a, keep)
 
 
+@single_process
 def dist_spasgn(a: DistSpMat, ri, ci, b: DistSpMat,
                 sr: Semiring = PLUS_TIMES) -> DistSpMat:
     """A(ri, ci) = B (``SpParMat::SpAsgn``, ``SpParMat.cpp:2427``): prune
@@ -140,6 +145,7 @@ def _fold_dups(v: torch.Tensor, first: torch.Tensor,
                                else "amax")
 
 
+@single_process
 def dist_permute(a: DistSpMat, row_map, col_map=None,
                  sr: Semiring = PLUS_TIMES,
                  out_capacity: int | None = None) -> DistSpMat:

@@ -34,6 +34,7 @@ from combblas_tpu_torch.parallel.dist import (
     _live_entries,
     block_dims,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import (
     _active,
     _axis_reduce,
@@ -105,6 +106,7 @@ def _propose_accept_round(b: _Blocks, grid, mate_row, mate_col):
     return new_mate_row, new_mate_col, bool(won_c.any())
 
 
+@single_process
 def dist_bp_maximal(a: DistSpMat) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy maximal matching on the grid (``BPMaximalMatching.h:24``).
     Returns (mate_row [row space], mate_col [column space]), -1 =
@@ -162,6 +164,7 @@ def _dist_alt_bfs(b: _Blocks, grid, m_true: int, mate_row, mate_col):
     return parent_col, visited & (mate_col < 0)
 
 
+@single_process
 def dist_bp_maximum(a: DistSpMat, init=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Maximum-cardinality matching on the grid
@@ -201,6 +204,7 @@ def _dist_dominant(b: _Blocks, mate_row, mate_col):
     return _row_space(ch_c), _col_space(ch_r)
 
 
+@single_process
 def dist_awpm(a: DistSpMat, complete: bool = True):
     """Approximate-weight (perfect) matching on the grid
     (``ApproxWeightPerfectMatching.h:792,1144``): locally dominant rounds

@@ -33,6 +33,7 @@ from combblas_tpu_torch.parallel.dist import (
     local_block,
 )
 from combblas_tpu_torch.parallel.elementwise import _compact_blocks, dist_add
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import est_nnz_spgemm_sampling
 from combblas_tpu_torch.parallel.summa import (
     _check_operands,
@@ -72,6 +73,7 @@ def _staged_block(a: DistSpMat, b: DistSpMat, i: int, j: int, *,
     return acc
 
 
+@single_process
 def summa_spgemm_staged(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES,
                         *, stage_flops_cap: int, out_capacity: int,
                         impl: str = "xla", chunk_cap: int = 0) -> DistSpMat:
@@ -91,6 +93,7 @@ def summa_spgemm_staged(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES,
                      gshape=(a.gshape[0], b.gshape[1]), grid=a.grid)
 
 
+@single_process
 def calculate_phases(a: DistSpMat, b: DistSpMat, per_device_mem_bytes: float,
                      bytes_per_product: int = 24,
                      est_c_nnz: float | None = None) -> int:
@@ -173,6 +176,7 @@ def _slab_cap(counts: np.ndarray, capacity: int) -> int:
     return min(round_capacity_frac(max(int(counts.max()), 8)), capacity)
 
 
+@single_process
 def mem_efficient_spgemm(a: DistSpMat, b: DistSpMat,
                          sr: Semiring = PLUS_TIMES,
                          phases: int | None = None,
@@ -218,6 +222,7 @@ def mem_efficient_spgemm(a: DistSpMat, b: DistSpMat,
     return acc
 
 
+@single_process
 def block_spgemm(a: DistSpMat, b: DistSpMat, br: int, bc: int,
                  sr: Semiring = PLUS_TIMES):
     """C one block at a time (``BlockSpGEMM``): yields ``((i, j), C_ij)``

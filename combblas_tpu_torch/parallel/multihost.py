@@ -2,16 +2,20 @@
 ``combblas_tpu/parallel/multihost.py``).
 
 The JAX package joins one process per host with
-``jax.distributed.initialize``; the port joins them with
-``torch.distributed.init_process_group`` over TCP (``gloo`` for CPU
-tensors, ``nccl`` where there is a card).  A single process is the case the
-port runs: :func:`initialize_multihost` is a no-op, :func:`is_coordinator`
-is true and :func:`pod_grid` is ``default_grid``.  A grid over the cards of
-several processes needs blocks that live on other processes' cards, which
-the port does not have yet (ROADMAP item 1.8): :func:`pod_grid` refuses it.
+``jax.distributed.initialize``; the port joins its processes with
+``torch.distributed.init_process_group("gloo")`` over TCP.  The ``gloo``
+group carries only host data: counts, capacities, IPC handles, barriers,
+and the CPU tensors of the CPU route.  Card tensors move between processes
+through CUDA IPC (:mod:`parallel.exchange`), never NCCL: NCCL refuses two
+ranks on one card, and a pod of processes that share one card is the case
+the port runs.
 
-``global_put`` is the JAX package's single-process ``device_put``: a host
-numpy array becomes a tensor on the grid's device.
+A single process is the degenerate case: :func:`initialize_multihost` is a
+no-op, :func:`is_coordinator` is true and :func:`pod_grid` is
+``ProcGrid.make``.  Across processes :func:`pod_grid` spreads the blocks
+over every process, process-major as ``jax.devices()`` is, and
+:func:`global_put` places only this process's share of a host array, as
+JAX's ``make_array_from_callback`` does.
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ def initialize_multihost(coordinator_address: str | None = None,
     A no-op returning 1 when nothing is configured: no argument and no
     ``MASTER_ADDR`` in the environment (torchrun's counterpart of
     ``JAX_COORDINATOR_ADDRESS``).  When a group exists already, its size.
-    Otherwise ``init_process_group`` at ``tcp://coordinator_address``
-    (``host:port``; default ``MASTER_ADDR:MASTER_PORT``) with
-    ``num_processes`` and ``process_id`` (default ``WORLD_SIZE`` and
-    ``RANK``), so library code can call it unconditionally."""
+    Otherwise ``init_process_group("gloo")`` at
+    ``tcp://coordinator_address`` (``host:port``; default
+    ``MASTER_ADDR:MASTER_PORT``) with ``num_processes`` and ``process_id``
+    (default ``WORLD_SIZE`` and ``RANK``), so library code can call it
+    unconditionally.  A process with a card binds it first
+    (``LOCAL_RANK`` modulo the cards, else card 0), so that every process
+    of one card, or of one host, agrees on its device."""
     if _joined():
         return dist.get_world_size()
     if coordinator_address is None and num_processes is None \
@@ -56,9 +63,11 @@ def initialize_multihost(coordinator_address: str | None = None,
         num_processes = int(os.environ["WORLD_SIZE"])
     if process_id is None:
         process_id = int(os.environ["RANK"])
+    if torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(
-        "nccl" if torch.cuda.is_available() else "gloo",
-        init_method=f"tcp://{coordinator_address}",
+        "gloo", init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id)
     return dist.get_world_size()
 
@@ -71,18 +80,36 @@ def is_coordinator() -> bool:
 
 def pod_grid(layers: int = 1, pr: int | None = None, pc: int | None = None,
              device=None) -> ProcGrid:
-    """The grid over every process's devices.  In one process this is
+    """The grid over every process's blocks.  In one process this is
     ``ProcGrid.make(pr, pc, layers, device)``: the grid of ``default_grid``
-    when ``pr`` and ``pc`` are not given."""
-    if _joined() and dist.get_world_size() > 1:
+    when ``pr`` and ``pc`` are not given.  Across P processes process p
+    holds the raster blocks [p·B/P, (p+1)·B/P) (B = pr·pc, a multiple of
+    P, as JAX's uniform-job assertion asks), whole block rows or a run of
+    one; a layered grid does not spread over processes yet."""
+    n, rank = ((dist.get_world_size(), dist.get_rank()) if _joined()
+               else (1, 0))
+    if n > 1 and layers != 1:
         raise NotImplementedError(
-            f"pod_grid across {dist.get_world_size()} processes: a block "
-            "grid over other processes' cards is not ported yet (ROADMAP "
-            "item 1.8)")
-    return ProcGrid.make(pr, pc, layers, device)
+            f"a {layers}-layer grid across {n} processes is not ported yet "
+            "(ROADMAP item 1.8)")
+    return ProcGrid.make(pr, pc, layers, device, nproc=n, rank=rank)
 
 
-def global_put(x, grid: ProcGrid) -> torch.Tensor:
-    """A copy of the host array ``x`` on the grid's device, bit for bit (the
-    source may be a read-only buffer view)."""
+def global_put(x, grid: ProcGrid, spec: str | None = None) -> torch.Tensor:
+    """This process's share of the host array ``x`` (every process passes
+    the same) on the grid's device, bit for bit (the source may be a
+    read-only buffer view).  ``spec``: None replicates the whole array;
+    ``"blocks"`` takes a (pr, pc, ...) block stack's (lr, lc, ...) blocks;
+    ``"vector"`` a FullyDist vector's slice.  In one process every spec is
+    the whole array."""
+    x = np.asarray(x)
+    if grid.is_pod and spec == "blocks":
+        (r0, c0), (lr, lc) = grid.origin(), grid.local_shape()
+        x = x[r0:r0 + lr, c0:c0 + lc]
+    elif grid.is_pod and spec == "vector":
+        lo, hi = grid.vec_range(x.shape[0])
+        x = x[lo:hi]
+    elif spec not in (None, "blocks", "vector"):
+        raise ValueError(f"spec must be None, 'blocks' or 'vector', got "
+                         f"{spec!r}")
     return torch.from_numpy(np.array(x, copy=True)).to(grid.device)

@@ -14,6 +14,17 @@ collective does.  Read in ``P(('r','c'))`` order (row space) or
 natural index order: block (i, j)'s slice of a row-space vector starts at
 ``i*mb + j*mb/pc``.  Padded lengths are JAX's: ``pc*nb`` in and ``pr*mb``
 out for ``A x``, the reverse for ``A^T x``.
+
+On a grid spread over several processes every vector, row or column space,
+is this process's contiguous slice of the natural order
+(:meth:`ProcGrid.vec_range`, JAX's ``P(('r','c'))`` layout of the
+process's blocks; JAX's strided ``P(('c','r'))`` layout is not kept).  A
+process gathers the part of x its blocks read
+(:func:`parallel.exchange.gather_range`; nothing moves where its own slice
+is that part), folds its blocks' products into the part of y they cover,
+and the fan-in (:func:`parallel.exchange.reduce_to_owners`) reduces every
+slot over the processes that cover it, with the semiring add, onto the
+process that holds it.
 """
 
 from __future__ import annotations
@@ -21,11 +32,13 @@ from __future__ import annotations
 import torch
 
 from combblas_tpu_torch.ops.spmv import _segment_reduce
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _live_entries,
     block_dims,
 )
+from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.semiring import (
     MAX_FIRST,
     MIN_SECOND,
@@ -94,6 +107,22 @@ def _sum_ascends(sr: Semiring, seg: torch.Tensor) -> bool:
         seg.shape[0] < 2 or bool((seg[1:] >= seg[:-1]).all()))
 
 
+def _segments(vals: torch.Tensor, seg: torch.Tensor, num: int,
+              sr: Semiring, ascending: bool) -> torch.Tensor:
+    """The fold of ``vals`` into ``num`` segments in a fixed order (see
+    :func:`_fold`)."""
+    if ascending and sr.add_kind == "sum" and vals.is_floating_point():
+        return torch.segment_reduce(
+            vals, "sum", lengths=torch.bincount(seg, minlength=num),
+            unsafe=True)
+    if sr.add_kind == "sum" and vals.is_floating_point() and vals.is_cuda:
+        part = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype,
+                           device=vals.device)
+        part.index_put_((seg,), vals, accumulate=True)
+        return part
+    return _segment_reduce(vals, seg, num, sr)
+
+
 def _fold(vals: torch.Tensor, seg: torch.Tensor, dims, length: int,
           axis: str, sr: Semiring, ascending: bool = False) -> torch.Tensor:
     """Every block's fold of ``vals`` into its vector of ``length`` (``seg``
@@ -111,17 +140,111 @@ def _fold(vals: torch.Tensor, seg: torch.Tensor, dims, length: int,
     trailing dimensions (a dense SpMM's rows), flattened into the
     partials.  Returns (pr, pc, length * trailing / axis size)."""
     num = dims[0] * dims[1] * length
-    if ascending and sr.add_kind == "sum" and vals.is_floating_point():
-        part = torch.segment_reduce(
-            vals, "sum", lengths=torch.bincount(seg, minlength=num),
-            unsafe=True)
-    elif sr.add_kind == "sum" and vals.is_floating_point() and vals.is_cuda:
-        part = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype,
-                           device=vals.device)
-        part.index_put_((seg,), vals, accumulate=True)
-    else:
-        part = _segment_reduce(vals, seg, num, sr)
+    part = _segments(vals, seg, num, sr, ascending)
     return _axis_reduce_scatter(part.reshape(dims[0], dims[1], -1), axis, sr)
+
+
+# ------------------------------------------------ across processes (pods) --
+
+def _pod_plan(a: DistSpMat, transpose: bool):
+    """The vector lengths on a pod, in and out, and the span of the output
+    that every process's blocks cover (its block columns for ``A^T x``,
+    its block rows for ``A x``)."""
+    g = a.grid
+    mb, nb = block_dims(a.gshape, g)
+    lr, lc = g.local_shape()
+    if transpose:
+        return g.pr * mb, g.pc * nb, [
+            (g.origin(q)[1] * nb, (g.origin(q)[1] + lc) * nb)
+            for q in range(g.nproc)]
+    return g.pc * nb, g.pr * mb, [
+        (g.origin(q)[0] * mb, (g.origin(q)[0] + lr) * mb)
+        for q in range(g.nproc)]
+
+
+def _pod_input(a: DistSpMat, vecs, in_len: int, transpose: bool,
+               dtypes) -> list:
+    """The part of each vector of ``vecs`` (this process's slices of
+    ``in_len``-long FullyDist vectors, as ``dtypes``) that this process's
+    blocks read: its own slice where every process's blocks read exactly
+    their own, else gathered from the processes that hold it."""
+    g = a.grid
+    mb, nb = block_dims(a.gshape, g)
+    lr, lc = g.local_shape()
+    chunk = in_len // g.nproc
+    vecs = [_padded(v, chunk, dt) for v, dt in zip(vecs, dtypes)]
+    if transpose:
+        starts = [g.origin(q)[0] * mb for q in range(g.nproc)]
+        width = lr * mb
+    else:
+        starts = [g.origin(q)[1] * nb for q in range(g.nproc)]
+        width = lc * nb
+    if width == chunk and all(s == q * chunk for q, s in enumerate(starts)):
+        return vecs
+    lo = starts[g.rank]
+    return exchange.gather_range(vecs, g, lo, lo + width)
+
+
+def _pod_entries(a: DistSpMat, live, transpose: bool):
+    """This process's live entries as (src index into its input part, dst
+    index into its output span, values, block index within the share)."""
+    mb, nb = block_dims(a.gshape, a.grid)
+    lc = a.grid.local_shape()[1]
+    bid, r, c, v = _live_entries(a) if live is None else live
+    li, lj = bid // lc, bid % lc
+    if transpose:
+        return li * mb + r.clamp(max=mb - 1), lj * nb + c, v, bid
+    return lj * nb + c.clamp(max=nb - 1), li * mb + r, v, bid
+
+
+def _pod_spmv(a, x, sr, live):
+    in_len, out_len, spans = _pod_plan(a, False)
+    xp, = _pod_input(a, [x], in_len, False, [x.dtype])
+    src, dst, v, _b = _pod_entries(a, live, False)
+    prod = sr.mul(v, xp[src])
+    width = spans[a.grid.rank][1] - spans[a.grid.rank][0]
+    part = _segments(prod, dst, width, sr, _sum_ascends(sr, dst))
+    y, = exchange.reduce_to_owners([part], spans, out_len, a.grid,
+                                   [sr.add_kind])
+    return y
+
+
+def _pod_spmsv(a, x_val, x_mask, sr, transpose, edge_pred, live):
+    in_len, out_len, spans = _pod_plan(a, transpose)
+    xv, xm = _pod_input(a, [x_val, x_mask], in_len, transpose,
+                        [x_val.dtype, torch.bool])
+    src, dst, v, _b = _pod_entries(a, live, transpose)
+    active = xm[src]
+    if edge_pred is not None:
+        active = active & edge_pred(v)
+    v, src, dst = _active(active, v, src, dst)
+    prod = sr.mul(v, xv[src])
+    width = spans[a.grid.rank][1] - spans[a.grid.rank][0]
+    part = _segments(prod, dst, width, sr,
+                     not transpose and _sum_ascends(sr, dst))
+    hit = torch.zeros(width, dtype=torch.int32, device=dst.device)
+    hit[dst] = 1
+    y, h = exchange.reduce_to_owners([part, hit], spans, out_len, a.grid,
+                                     [sr.add_kind, "max"])
+    zero = sr.zero(y.dtype).to(y.device)
+    return torch.where(h > 0, y, zero), h > 0
+
+
+def _pod_bfs_pull(a, front_mask, unvisited, live):
+    g = a.grid
+    mb = block_dims(a.gshape, g)[0]
+    in_len, out_len, spans = _pod_plan(a, True)
+    fm, = _pod_input(a, [front_mask], in_len, True, [torch.bool])
+    uv, = _pod_input(a, [unvisited], out_len, False, [torch.bool])
+    src, dst, _v, _b = _pod_entries(a, live, True)
+    gsrc = g.origin()[0] * mb + src       # the global vertex id
+    active = fm[src] & uv[dst]
+    gsrc, dst = _active(active, gsrc, dst)
+    width = spans[g.rank][1] - spans[g.rank][0]
+    part = _segment_reduce((gsrc + 1).to(torch.int32), dst, width,
+                           MAX_FIRST)
+    y, = exchange.reduce_to_owners([part], spans, out_len, g, ["max"])
+    return y, y > 0
 
 
 def dist_spmv(a: DistSpMat, x: torch.Tensor, sr: Semiring = PLUS_TIMES,
@@ -132,7 +255,10 @@ def dist_spmv(a: DistSpMat, x: torch.Tensor, sr: Semiring = PLUS_TIMES,
     a reduce-scatter over 'c'.  Returns y in the row-space FullyDist
     layout, padded length ``pr*mb``; rows without a product hold the add's
     identity.  ``live``: ``a``'s ``_live_entries``, for a loop that
-    multiplies one matrix many times."""
+    multiplies one matrix many times.  On a pod, x and y are this
+    process's slices."""
+    if a.grid.is_pod:
+        return _pod_spmv(a, x, sr, live)
     pr, pc = a.grid.pr, a.grid.pc
     mb, nb = block_dims(a.gshape, a.grid)
     xp = _padded(x, pc * nb)
@@ -172,6 +298,8 @@ def dist_spmsv_masked(a: DistSpMat, x_val: torch.Tensor,
     drops the edges where it is False (late filtering).  Outputs without
     an active product hold the add's identity and a False mask.  ``live``
     as for :func:`dist_spmv`."""
+    if a.grid.is_pod:
+        return _pod_spmsv(a, x_val, x_mask, sr, transpose, edge_pred, live)
     pr, pc = a.grid.pr, a.grid.pc
     mb, nb = block_dims(a.gshape, a.grid)
     if transpose:
@@ -209,6 +337,8 @@ def dist_bfs_pull_masked(a: DistSpMat, front_mask: torch.Tensor,
     (``pc*nb``).  Returns (candidates, hit mask) in the column-space
     layout; candidates without a hit hold the int32 minimum.  ``live`` as
     for :func:`dist_spmv`."""
+    if a.grid.is_pod:
+        return _pod_bfs_pull(a, front_mask, unvisited, live)
     pr, pc = a.grid.pr, a.grid.pc
     mb, nb = block_dims(a.gshape, a.grid)
     fm = _padded(front_mask, pr * mb, torch.bool)
@@ -243,6 +373,7 @@ def _sampling_estimate(a: DistSpMat, b: DistSpMat, draws) -> float:
     return float(per_row.sum())
 
 
+@single_process
 def est_nnz_spgemm_sampling(a: DistSpMat, b: DistSpMat,
                             generator: torch.Generator,
                             rounds: int = 16) -> float:

@@ -32,6 +32,7 @@ from combblas_tpu_torch.ops.spgemm import (
     spgemm_wide,
     stream_capacity,
 )
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _gather_blocks,
@@ -132,22 +133,42 @@ def _check_operands(a: DistSpMat, b: DistSpMat) -> None:
         raise ValueError("SpGEMM needs a square grid (reference: √p×√p)")
 
 
-def _panels(a: DistSpMat, b: DistSpMat, i: int, j: int):
-    """The A row panel and B column panel of block (i, j)."""
+def _panel_stacks(a: DistSpMat, b: DistSpMat):
+    """The block stacks this process's panels read: A's (row, col, val,
+    nnz) of its block rows, every column, and B's of every row, its block
+    columns, indexed from its first block.  In one process the operands'
+    own stacks; on a pod the blocks come from their owners."""
+    g = a.grid
+    if not g.is_pod:
+        return (a.row, a.col, a.val, a.nnz), (b.row, b.col, b.val, b.nnz)
+    (r0, c0), (lr, lc) = g.origin(), g.local_shape()
+    rows = [(i, s) for i in range(r0, r0 + lr) for s in range(g.pc)]
+    cols = [(s, j) for s in range(g.pr) for j in range(c0, c0 + lc)]
+    ast = exchange.gather_blocks([a.row, a.col, a.val], g, rows)
+    bst = exchange.gather_blocks([b.row, b.col, b.val], g, cols)
+    ast = [x.reshape(lr, g.pc, -1) for x in ast]
+    bst = [x.reshape(g.pr, lc, -1) for x in bst]
+    return ((*ast, a.nnz[r0:r0 + lr]), (*bst, b.nnz[:, c0:c0 + lc]))
+
+
+def _panels(a: DistSpMat, b: DistSpMat, i: int, j: int, stacks):
+    """The A row panel and B column panel of this process's block (i, j),
+    (i, j) counted from its first block; ``stacks``: the
+    :func:`_panel_stacks` of the call."""
     mb, kb_a = a.block_shape()
     kb_b, nb = b.block_shape()
-    pa = _panel_a(a.row[i], a.col[i], a.val[i], a.nnz[i], kb_a, mb)
-    pb = _panel_b(b.row[:, j], b.col[:, j], b.val[:, j], b.nnz[:, j], kb_b,
-                  nb)
+    (ar, ac, av, an), (br, bc, bv, bn) = stacks
+    pa = _panel_a(ar[i], ac[i], av[i], an[i], kb_a, mb)
+    pb = _panel_b(br[:, j], bc[:, j], bv[:, j], bn[:, j], kb_b, nb)
     return pa, pb
 
 
 def _summa_block(a: DistSpMat, b: DistSpMat, i: int, j: int, *,
                  sr: Semiring, flops_cap: int, out_capacity: int, impl: str,
-                 chunk_cap: int) -> SpCOO:
+                 chunk_cap: int, stacks) -> SpCOO:
     """Block (i, j) of C: gather the panels, one local multiply (the JAX
     ``_summa_local`` of device (i, j))."""
-    pa, pb = _panels(a, b, i, j)
+    pa, pb = _panels(a, b, i, j, stacks)
     return _local_multiply(pa, pb, sr, impl=impl, flops_cap=flops_cap,
                            out_capacity=out_capacity, chunk_cap=chunk_cap)
 
@@ -162,12 +183,14 @@ def summa_spgemm(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES, *,
     ``max(ceil128(out_capacity), 2048)`` on the kernel routes; a block's
     nnz saturates at ``out_capacity``."""
     _check_operands(a, b)
+    stacks = _panel_stacks(a, b)
     row, col, val, nnz = _run_blocks(
-        (a.grid.pr, a.grid.pc),
+        a.grid.local_shape(),
         lambda i, j: _summa_block(a, b, i, j, sr=sr, flops_cap=flops_cap,
                                   out_capacity=out_capacity, impl=impl,
-                                  chunk_cap=chunk_cap))
-    return DistSpMat(row=row, col=col, val=val, nnz=nnz,
+                                  chunk_cap=chunk_cap, stacks=stacks))
+    return DistSpMat(row=row, col=col, val=val,
+                     nnz=exchange.gather_table(nnz, a.grid),
                      gshape=(a.gshape[0], b.gshape[1]), grid=a.grid)
 
 
@@ -195,14 +218,16 @@ def summa_chunk_bound(a: DistSpMat, b: DistSpMat, flops_cap: int) -> int:
 
 def summa_flops(a: DistSpMat, b: DistSpMat) -> torch.Tensor:
     """(pr, pc) int64 per-block panel product counts — the distributed
-    symbolic pass (reference ``EstimateFLOP``)."""
+    symbolic pass (reference ``EstimateFLOP``); every process gets the
+    whole table."""
     _check_operands(a, b)
-    out = torch.empty((a.grid.pr, a.grid.pc), dtype=torch.int64,
-                      device=a.row.device)
-    for i, j in itertools.product(range(a.grid.pr), range(a.grid.pc)):
-        pa, pb = _panels(a, b, i, j)
+    lr, lc = a.grid.local_shape()
+    out = torch.empty((lr, lc), dtype=torch.int64, device=a.row.device)
+    stacks = _panel_stacks(a, b)
+    for i, j in itertools.product(range(lr), range(lc)):
+        pa, pb = _panels(a, b, i, j, stacks)
         out[i, j] = _entry_counts(pa, pb.row_ptr()).sum()
-    return out
+    return exchange.gather_table(out, a.grid)
 
 
 def summa_bounds(a: DistSpMat, b: DistSpMat) -> Tuple[int, int]:

@@ -38,7 +38,7 @@ from combblas_tpu_torch.parallel.dist import (
     _gather_blocks,
     block_dims,
 )
-from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.parallel.grid import ProcGrid, single_process
 from combblas_tpu_torch.parallel.summa import (
     _local_multiply,
     _panel_a,
@@ -219,6 +219,7 @@ def _fiber_reduce(recv, rlen, t: int, over, sr: Semiring, *, out_capacity,
         c, nnz=torch.where(over, out_capacity, c.nnz).to(torch.int64))
 
 
+@single_process
 def summa3d_spgemm(a: Dist3DSpMat, b: Dist3DSpMat, sr: Semiring = PLUS_TIMES,
                    *, flops_cap: int, out_capacity: int) -> Dist3DSpMat:
     """C = A ·_sr B with A col-split and B row-split across layers; C is
@@ -309,6 +310,7 @@ def _concat3d(a: Dist3DSpMat, b: Dist3DSpMat) -> Dist3DSpMat:
                                nnz=a.nnz + b.nnz)
 
 
+@single_process
 def mem_efficient_spgemm3d(a: Dist3DSpMat, b: Dist3DSpMat,
                            sr: Semiring = PLUS_TIMES, phases: int = 1,
                            flops_cap: int | None = None,
@@ -337,6 +339,7 @@ def mem_efficient_spgemm3d(a: Dist3DSpMat, b: Dist3DSpMat,
     return acc
 
 
+@single_process
 def summa3d_bounds(a: Dist3DSpMat, b: Dist3DSpMat) -> Tuple[int, int]:
     """(flops_cap, out_capacity): the whole product's count rounded up to a
     power of two (at least 64), a safe bound for any block's layer panel."""

@@ -23,13 +23,23 @@ once on the grid's device:
 Keys are :func:`_sortable_u32` values carried in int64: floats order as
 JAX orders them, -0.0 before +0.0 and NaNs by their bits, which a float
 sort would tie or move.  Nothing here reads a value back to the host.
+
+On a grid spread over several processes a vector is this process's slice
+(:meth:`ProcGrid.vec_range`), and :func:`dist_sort` / :func:`dist_sort_auto`
+run the sample sort's exchange across the processes: a local sort on
+(key, global index), splitter samples all-gathered, one all-to-all of the
+buckets, a local sort of what arrived, and the rebalance to even slices.
+The result is the one-process stable sort's, element for element.  The
+other functions refuse a pod (ROADMAP item 1.8).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.parallel import exchange
+from combblas_tpu_torch.parallel.grid import ProcGrid, single_process
 
 __all__ = [
     "dist_sort",
@@ -80,6 +90,47 @@ def _sort_on(key: torch.Tensor, n: int, *tensors: torch.Tensor):
     return tuple(t[order] for t in tensors)
 
 
+#: Splitter samples each process contributes to the pod's sample sort.
+_POD_SAMPLES = 32
+
+
+def _pod_sort(x: torch.Tensor, grid: ProcGrid, payloads, n: int,
+              descending: bool):
+    """The sample sort across the processes of a pod (``par::sampleSort``):
+    ``x`` and ``payloads`` are this process's slices.  Elements order by
+    (key, global index), packed into one int64 (the key's 32 bits over the
+    index's 31), so every comparison of the exchange is one of unique
+    integers."""
+    P, chunk = grid.nproc, x.shape[0]
+    lo = grid.vec_range(chunk * P)[0]
+    dev = x.device
+    key = _sortable_u32(x)
+    if descending:
+        key = _PAD_KEY - key
+    gidx = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev)
+    key = torch.where(gidx < n, key, _PAD_KEY)
+    comb, order = torch.sort((key << 31) | gidx)
+    carried = [t[order] for t in (x, *payloads)]
+    # splitters: evenly spaced samples of every process, all-gathered
+    s = min(_POD_SAMPLES, chunk)
+    samples = comb[(torch.arange(s, device=dev) * chunk) // s]
+    every = np.sort(exchange.allgather_host(samples.cpu().numpy()),
+                    axis=None)
+    spl = torch.from_numpy(every[(np.arange(1, P) * (P * s)) // P]).to(dev)
+    dest = torch.searchsorted(spl, comb, right=True)
+    got = exchange.alltoallv([comb, *carried],
+                             torch.bincount(dest, minlength=P).tolist())
+    order = torch.argsort(got[0])
+    merged = [t[order] for t in got]
+    # rebalance: this process's run is global [pref, pref + mine)
+    mine = merged[0].shape[0]
+    runs = exchange.allgather_host(np.asarray([mine], np.int64))[:, 0]
+    pref = int(runs[:grid.rank].sum())
+    bounds = np.clip(np.arange(P + 1) * chunk - pref, 0, mine)
+    out = exchange.alltoallv(merged[1:], np.diff(bounds).tolist())
+    return tuple(out)
+
+
 def dist_sort(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
               length: int | None = None, descending: bool = False):
     """The vector ``x`` (padded FullyDist layout, true prefix ``length``,
@@ -87,7 +138,13 @@ def dist_sort(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
     layout, with ``payloads`` carried: JAX's sample sort
     (``par::sampleSort``), whose result one stable sort of the whole vector
     gives element for element.  Padding sorts to the tail.  Returns
-    ``sorted_x`` alone, or ``(sorted_x, *sorted_payloads)``."""
+    ``sorted_x`` alone, or ``(sorted_x, *sorted_payloads)``.  On a pod
+    ``x`` and the payloads are this process's slices, and so is the
+    result."""
+    if grid.is_pod:
+        n = x.shape[0] * grid.nproc if length is None else int(length)
+        out = _pod_sort(x, grid, payloads, n, descending)
+        return out if len(out) > 1 else out[0]
     _check_layout(x.shape[0], grid)
     n = x.shape[0] if length is None else int(length)
     key = _sortable_u32(x)
@@ -103,12 +160,14 @@ def dist_sort_auto(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
     """JAX's scale-safe sample sort, which sizes its exchange buffers from
     a planning pass: its result is :func:`dist_sort`'s, and so is the
     port's (``oversample``, JAX's splitter samples per device, has nothing
-    to choose here)."""
+    to choose here: the pod's exchange is sized by the buckets' real
+    counts)."""
     del oversample
     return dist_sort(x, grid, *payloads, length=length,
                      descending=descending)
 
 
+@single_process
 def perm_from_keys(keys: torch.Tensor, n: int,
                    grid: ProcGrid) -> torch.Tensor:
     """The permutation of [0, n) that sorting the random uint32 ``keys``
@@ -123,6 +182,7 @@ def perm_from_keys(keys: torch.Tensor, n: int,
     return perm
 
 
+@single_process
 def dist_rand_perm(generator: torch.Generator, n: int,
                    grid: ProcGrid) -> torch.Tensor:
     """A random permutation of [0, n) in the FullyDist layout (padded
@@ -150,6 +210,7 @@ def _targets(idx: torch.Tensor, mask: torch.Tensor,
     return torch.where(ok, pos, spare)
 
 
+@single_process
 def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                init: torch.Tensor, grid: ProcGrid, *, combine: str = "set"):
     """Deliver the (idx, val) pairs where ``mask`` holds to the owner of
@@ -189,6 +250,7 @@ def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     return buf[:n_pad], hit
 
 
+@single_process
 def dist_gather(x: torch.Tensor, idx: torch.Tensor,
                 grid: ProcGrid) -> torch.Tensor:
     """out[i] = x[idx[i]] (``FullyDistVec::operator()``); an index outside
@@ -203,6 +265,7 @@ def dist_gather(x: torch.Tensor, idx: torch.Tensor,
                                             device=x.device))
 
 
+@single_process
 def dist_apply_perm(x: torch.Tensor, perm: torch.Tensor,
                     grid: ProcGrid) -> torch.Tensor:
     """y[perm[i]] = x[i]; padding slots (perm == len) are dropped."""
@@ -215,6 +278,7 @@ def _gidx(n_pad: int, device) -> torch.Tensor:
     return torch.arange(n_pad, dtype=torch.int32, device=device)
 
 
+@single_process
 def dist_invert(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
     """Sparse-vector Invert (``FullyDistSpVec.h:89``): out[val[i]] = i for
     the live entries, a duplicate value keeping the largest index.
@@ -226,6 +290,7 @@ def dist_invert(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
                       init, grid, combine="max")
 
 
+@single_process
 def dist_uniq(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
     """Uniq (``FullyDistSpVec.cpp:1029``): of the live entries with one
     value (one ``_sortable_u32`` key: -0.0 and +0.0 differ) only the one of

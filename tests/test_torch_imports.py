@@ -35,11 +35,19 @@ DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
               "parallel.dense", "models.ordering", "models.bc",
               "models.matching", "parallel.matching", "models.multigrid",
               "models.filtered", "models.semantic", "io.mtx", "io.binary",
-              "io.labels", "io.parallel", "utils.timers", "cli")
+              "io.labels", "io.parallel", "utils.timers", "cli",
+              "parallel.exchange")
 
 #: Names each slice added to a module that existed before it: the classed
-#: seg pipeline and the single-process join.
+#: seg pipeline and the single-process join; the pod's exchange, its
+#: refusal of unported functions and K9's plain hop across processes.
 SLICE_NAMES = {
+    "parallel.exchange": ("pull", "gather_blocks", "gather_range",
+                          "reduce_to_owners", "alltoallv", "allgather_var",
+                          "allgather_host", "gather_table", "barrier"),
+    "parallel.grid": ("ProcGrid", "default_grid", "single_process"),
+    "ops.kernels.ring": ("ring_shift", "ring_shift_plain",
+                         "ring_shift_pod_plain"),
     "ops.spgemm_seg": ("seg_plan", "seg_prepare", "seg_step",
                        "spgemm_streamed_seg", "seg2_plan", "seg2_prepare",
                        "seg2_step", "spgemm_streamed_seg2", "seg_zero_state"),

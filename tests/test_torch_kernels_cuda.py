@@ -907,3 +907,135 @@ def test_semantic_io_cli_phase_on_card(cuda, monkeypatch, tmp_path):
     out = chip_smoke.semantic_io_cli_full(s, bfs_roots(s, 3)[:4], 3)
     assert 0.15 < out["passing_share"] < 0.35
     assert set(out["cli"]["lines"]) >= {"gen", "spgemm", "mcl", "galerkin"}
+
+
+_POD_WORKER = r"""
+import sys
+import torch
+from combblas_tpu_torch.ops.kernels import LAUNCHES
+from combblas_tpu_torch.ops.kernels.ring import ring_shift
+from combblas_tpu_torch.parallel import exchange
+from combblas_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                   pod_grid)
+
+addr, rank, what = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+initialize_multihost(addr, 2, rank)
+dev = torch.device("cuda", 0)
+g = pod_grid(pr=2, pc=2, device=dev)          # one block row a process
+if what == "ring":
+    gen = torch.Generator().manual_seed(5 + rank)
+    for payload in [(13,), (4096,), ()]:
+        shape = (1, 2) + payload
+        srcs = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                              dtype=torch.int32).to(dev),
+                torch.randn(shape, generator=gen).to(dev),
+                torch.randint(-2**62, 2**62, shape, generator=gen,
+                              dtype=torch.int64).to(dev)]
+        for axes in (["r"] * 3, ["c"] * 3, ["r", "c", "r"]):
+            before = dict(LAUNCHES)
+            got = ring_shift(srcs, axes, grid=g)
+            assert LAUNCHES["ring_shift"] == before["ring_shift"] + 1
+            assert LAUNCHES["ring_shift_pod"] == before["ring_shift_pod"] + (
+                "r" in axes)
+            want = ring_shift(srcs, axes, grid=g, plain=True)
+            # fresh tensors: the next hops' pushes into both ring slots
+            # leave them as they were
+            ring_shift(srcs[::-1], axes[::-1], grid=g)
+            ring_shift(srcs[::-1], axes[::-1], grid=g)
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+else:
+    from combblas_tpu_torch.gen.rmat import rmat_matrix
+    from combblas_tpu_torch.models.bfs import bfs_dist
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+    from combblas_tpu_torch.parallel.rma import summa_spgemm_rma
+    from combblas_tpu_torch.parallel.summa import (summa_bounds,
+                                                   summa_spgemm_auto)
+    from combblas_tpu_torch.parallel.vector import (_sortable_u32,
+                                                    dist_sort_auto)
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(17), 10, 16)
+    one = DistSpMat.from_local(a, ProcGrid.make(2, 2, device=dev))
+    pod = DistSpMat.from_local(a, g)
+    fc, oc = summa_bounds(pod, pod)
+    assert (fc, oc) == summa_bounds(one, one)
+    for got, want in ((summa_spgemm_auto(pod, pod),
+                       summa_spgemm_auto(one, one)),
+                      (summa_spgemm_rma(pod, pod, stage_flops_cap=fc,
+                                        out_capacity=oc),
+                       summa_spgemm_rma(one, one, stage_flops_cap=fc,
+                                        out_capacity=oc))):
+        assert torch.equal(got.nnz, want.nnz)
+        for f in ("row", "col", "val"):
+            assert torch.equal(getattr(got, f),
+                               getattr(want, f)[rank:rank + 1])
+    s = rmat_matrix(torch.Generator(device=dev).manual_seed(3), 10, 16,
+                    symmetrize=True, remove_self_loops=True)
+    ps = DistSpMat.from_local(s, g)
+    p1, l1 = bfs_dist(DistSpMat.from_local(
+        s, ProcGrid.make(2, 2, device=dev)), 3)
+    p2, l2 = exchange.allgather_var(list(bfs_dist(ps, 3)))
+    assert torch.equal(p1, p2) and torch.equal(l1, l2)
+    x = torch.randn(1 << 16, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    lo, hi = g.vec_range(x.shape[0])
+    sx, sp = dist_sort_auto(x[lo:hi], g, torch.arange(lo, hi, device=dev))
+    order = torch.sort(_sortable_u32(x), stable=True)[1][lo:hi]
+    assert torch.equal(sp, order) and torch.equal(sx, x[order])
+exchange.close()
+torch.distributed.destroy_process_group()
+print("POD_OK", rank, flush=True)
+"""
+
+
+def _run_pod_on_card(what: str) -> None:
+    """Two processes on the one card, joined by ``gloo``, run
+    ``_POD_WORKER``'s ``what``; the kernels are built here first, so that
+    the workers only load them."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from combblas_tpu_torch.ops.kernels import _build
+
+    _build.library()
+    repo = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(repo)] + [p for p in [env.get("PYTHONPATH")] if p])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _POD_WORKER, f"127.0.0.1:{port}", str(r),
+         what], cwd=repo, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "POD_OK" in out, out[-3000:]
+
+
+def test_ring_shift_pod_matches_plain(cuda):
+    """K9's cross-process form, 2 processes on the card (a 2x2 grid, one
+    block row each: 'r' crosses, 'c' stays local), int32 / float32 /
+    int64 stacks in one launch: bit for bit its ``gloo`` plain version,
+    counted under ``ring_shift`` and, when it crossed, ``ring_shift_pod``."""
+    _run_pod_on_card("ring")
+
+
+def test_pod_slice_on_card(cuda):
+    """The pod slice on the card over 2 processes (CUDA IPC exchanges):
+    ``summa_spgemm_auto`` and the ring SUMMA equal one process's blocks,
+    ``bfs_dist`` one process's vectors, ``dist_sort_auto`` ``torch.sort``'s
+    stable order, payload included."""
+    _run_pod_on_card("slice")

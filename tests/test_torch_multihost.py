@@ -1,7 +1,8 @@
 """The port's ``parallel/multihost.py``: the single-process case of
 ``tests/test_multihost.py`` (no-op join, the pod grid equal to the default
 grid, ``global_put`` round trips), and a two-process ``gloo`` join on the
-loopback address, where ``pod_grid`` must refuse a grid across processes."""
+loopback address, where ``pod_grid`` builds the grid across both processes
+(``tests/test_torch_pod.py`` runs the slice on such grids)."""
 
 import os
 import socket
@@ -69,23 +70,22 @@ from combblas_tpu_torch.parallel.multihost import (
 addr, rank = sys.argv[1], int(sys.argv[2])
 size = initialize_multihost(addr, 2, rank)
 assert initialize_multihost() == size  # joined: the group's size
-try:
-    pod_grid(device="cpu")
-    refused = False
-except NotImplementedError:
-    refused = True
+g = pod_grid(pr=2, pc=2, device="cpu")
+built = (g.nproc, g.rank, *g.local_shape(), *g.origin()) == (
+    2, dist.get_rank(), 1, 2, dist.get_rank(), 0)
 ranks = [None, None]
 dist.all_gather_object(ranks, dist.get_rank())
-print("JOIN", size, dist.get_rank(), int(is_coordinator()), int(refused),
+print("JOIN", size, dist.get_rank(), int(is_coordinator()), int(built),
       *ranks, flush=True)
 dist.destroy_process_group()
 """
 
 
 def test_two_process_gloo_join():
-    """Two CPU processes joined over TCP on 127.0.0.1: world size 2, ranks
-    {0, 1}, one coordinator, and ``pod_grid`` refused in both.  Each process
-    is bounded by its own timeout; on expiry both are killed."""
+    """Two CPU processes joined over TCP on 127.0.0.1 (``gloo``): world size
+    2, ranks {0, 1}, one coordinator, and ``pod_grid`` building the 2x2
+    grid across both, each process holding its block row.  Each process is
+    bounded by its own timeout; on expiry both are killed."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -111,10 +111,10 @@ def test_two_process_gloo_join():
         assert rc == 0, f"worker failed:\n{err[-3000:]}"
     lines = [next(ln.split() for ln in out.splitlines()
                   if ln.startswith("JOIN")) for _rc, out, _err in outs]
-    size, rank, coord, refused, *gathered = zip(
+    size, rank, coord, built, *gathered = zip(
         *[[int(x) for x in ln[1:]] for ln in lines])
     assert size == (2, 2)
     assert sorted(rank) == [0, 1]
     assert sum(coord) == 1 and coord[rank.index(0)] == 1
-    assert refused == (1, 1)
+    assert built == (1, 1)
     assert gathered == [(0, 0), (1, 1)]  # every rank saw ranks 0 and 1

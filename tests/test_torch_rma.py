@@ -27,6 +27,7 @@ from combblas_tpu_torch import semiring as tsr  # noqa: E402
 from combblas_tpu_torch.ops.kernels.ring import ring_shift  # noqa: E402
 from combblas_tpu_torch.parallel import rma as trma  # noqa: E402
 from combblas_tpu_torch.parallel import summa as tsu  # noqa: E402
+from combblas_tpu_torch.parallel.grid import ProcGrid  # noqa: E402
 from tests.test_coo import rand_sparse  # noqa: E402
 from tests.test_torch_dist import (  # noqa: E402
     assert_same_blocks,
@@ -115,11 +116,17 @@ def test_ring_shift_rejects_bad_input():
 
 @pytest.mark.parametrize("p", [2, 4])
 def test_skew_matches_jax(p):
-    """Cannon's initial skew: the same gather on the block stack (JAX's
-    ``_skew`` reads only the grid's side)."""
+    """Cannon's initial skew: the same gather on every block stack and the
+    nnz table (JAX's ``_skew`` reads only the grid's side)."""
     x = np.arange(p * p * 3, dtype=np.int32).reshape(p, p, 3)
+    nnz = np.arange(p * p, dtype=np.int64).reshape(p, p)
+    m = trma.DistSpMat(row=torch.from_numpy(x), col=torch.from_numpy(x + 1),
+                       val=torch.from_numpy(x).float(),
+                       nnz=torch.from_numpy(nnz), gshape=(4 * p, 4 * p),
+                       grid=ProcGrid.make(p, p, device="cpu"))
     for axis in ("c", "r"):
-        want = np.asarray(jrma._skew(jnp.asarray(x), SimpleNamespace(pr=p),
-                                     axis))
-        got = trma._skew(torch.from_numpy(x), axis).numpy()
-        np.testing.assert_array_equal(got, want)
+        got = trma._skew(m, axis)
+        for stack, t in zip((x, x + 1, x.astype(np.float32), nnz), got):
+            want = np.asarray(jrma._skew(jnp.asarray(stack),
+                                         SimpleNamespace(pr=p), axis))
+            np.testing.assert_array_equal(t.numpy(), want)
