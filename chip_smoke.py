@@ -182,7 +182,13 @@ Phases, each raising on failure:
      blocks (one a process),
      ``bfs_dist`` of phase 8's graph from 4 of its roots (phase 8's
      levels, Graph500-valid) and ``dist_sort_auto`` of 2^26 float32 with
-     a payload equal to ``torch.sort``'s stable order.
+     a payload equal to ``torch.sort``'s stable order.  Four processes of
+     their own: HipMCL's pod path, ``mcl_dist`` of phase 18's matrix on
+     the 4x4 grid, ``phases=1`` (K1/K2 at least once each an iteration,
+     summed over the processes): phase 18's iteration count and labels bit
+     for bit, every iterate's blocks equal to phase 18's by digest, and a
+     ``phases=2`` run's third iterate equal to one process's; its seconds
+     per iteration, total and peak memory per worker beside phase 18's.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -2551,6 +2557,7 @@ def mcl_dist_phases(dm, p, local3) -> dict:
     if len(steps) != MCL_PHASES_ITERS:
         raise AssertionError(f"phases=2: {len(steps)} iterations, not "
                              f"{MCL_PHASES_ITERS}")
+    digests3 = block_digests(last[0])
     k2, x2, _ = _entries(last)
     del last
     k1 = local3.row[:int(local3.nnz)].long() * n + local3.col[
@@ -2567,7 +2574,7 @@ def mcl_dist_phases(dm, p, local3) -> dict:
         raise AssertionError(
             f"phases=2 vs phases=1 after {MCL_PHASES_ITERS} iterations: "
             f"{cols.numel()} columns differ, more than {cap}")
-    out = dict(iters=MCL_PHASES_ITERS, steps=steps,
+    out = dict(iters=MCL_PHASES_ITERS, steps=steps, digests3=digests3,
                iterate_nnz=[int(k1.shape[0]), int(k2.shape[0])],
                keys_only_in_1=int((~c1).sum()), keys_only_in_2=int(
                    (~c2).sum()),
@@ -2598,12 +2605,14 @@ class MCLDistWatch:
     iteration 1's expansion is held against scipy's A @ A and its prune
     against the host rule; ``keep`` keeps each iteration's input and
     output iterates on the host; ``keep_local`` the compacted output of
-    the iteration of that number."""
+    the iteration of that number; ``digests`` the :func:`block_digests` of
+    every output iterate (outside its timing)."""
 
     def __init__(self, p, light: bool = False, checks: bool = False,
-                 keep: bool = False, keep_local: int | None = None):
+                 keep: bool = False, keep_local: int | None = None,
+                 digests: bool = False):
         self.p, self.light, self.checks, self.keep = p, light, checks, keep
-        self.keep_local = keep_local
+        self.keep_local, self.digests = keep_local, digests
         self.rows, self.cur = [], self._row()
         self.last = self.prune = self.local = None
 
@@ -2642,6 +2651,8 @@ class MCLDistWatch:
                 self.cur["output"] = _dist_host_copy(out)
             if it == self.keep_local:
                 self.local = out.to_local()
+            if self.digests:
+                self.cur["digests"] = block_digests(out)
             self.cur.pop("input_ref")
             self.cur["iter_secs"] = secs - self.cur["check_secs"]
             self.rows.append(self.cur)
@@ -2830,7 +2841,8 @@ def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
     return out
 
 
-def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
+def mcl_dist_full(a, seed: int, local_line: dict,
+                  refs: dict | None = None) -> dict:
     """Phase 18: ``mcl_dist`` on phase 15's graph with self loops, on a 4x4
     grid of the card, ``phases=1`` (the packed route, K1 and K2).  A timed
     run as a user calls it (:class:`MCLDistWatch` ``light``: per-iteration
@@ -2843,7 +2855,11 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
     the checked run's third (:func:`mcl_dist_phases`); then the scale-12
     card-against-CPU
     run and its 3D route (:func:`mcl_dist_card_vs_cpu`).  ``local_line``
-    is phase 15's, reported beside."""
+    is phase 15's, reported beside.  ``refs`` gets ``"mcl"``, what phase
+    26's pod MCL is held against: the matrix (host arrays), the timed
+    run's labels, iterations and times, the checked run's nnz and block
+    digests of every iterate, and the digests of the ``phases=2`` run's
+    third iterate."""
     from combblas_tpu_torch.models.mcl import MCLParams
 
     dev = a.device
@@ -2852,6 +2868,8 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
     n, nnz = a.shape[0], int(a.nnz)
     grid = ProcGrid.make(DIST_SIDE, DIST_SIDE, device=dev)
     dm = DistSpMat.from_local(a, grid)
+    host = dict(row=a.row[:nnz].cpu().numpy(), col=a.col[:nnz].cpu().numpy(),
+                val=a.val[:nnz].cpu().numpy(), shape=np.asarray(a.shape))
     del a
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2862,11 +2880,13 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
     clusters = check_labels(labels[:n], lw.last.to_local())
     label_check_secs = time.perf_counter() - t
     timed = lw.rows
+    host_labels = labels.cpu().numpy()
     del labels, lw
     torch.cuda.empty_cache()
     pc = dataclasses.replace(p, max_iters=int(iters))
     labels_c, iters_c, w, wall_c, launches_c = run_mcl_dist(
-        dm, pc, checks=True, keep_local=MCL_PHASES_ITERS)
+        dm, pc, checks=True, keep_local=MCL_PHASES_ITERS,
+        digests=refs is not None)
     _k1k2_each_iteration(launches_c, iters_c, "mcl_dist (checked run)")
     clusters_c = check_labels(labels_c[:n], w.last.to_local())
     rows, first_prune, local3 = w.rows, w.prune, w.local
@@ -2876,6 +2896,7 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
     phases2 = mcl_dist_phases(dm, p, local3)
     del local3
     phases2["secs"] = time.perf_counter() - t
+    digests3 = phases2.pop("digests3")
     del dm
     torch.cuda.empty_cache()
     secs = [r["secs"] for r in timed]
@@ -2915,6 +2936,15 @@ def mcl_dist_full(a, seed: int, local_line: dict) -> dict:
             expansion1_scipy_secs=rows[0]["scipy_secs"],
             launches=launches_c),
         phases2=phases2)
+    out["rest_secs"] = wall - sum(secs)
+    if refs is not None:
+        refs["mcl"] = dict(
+            graph=host, labels=host_labels, iters=int(iters),
+            nnz=[r["nnz"] for r in rows],
+            digests=[r.pop("digests") for r in rows], digests3=digests3,
+            one={k: out[k] for k in ("first_iter_secs",
+                                     "steady_secs_per_iter", "total_secs",
+                                     "rest_secs", "peak_mem_gb")})
     split = sum(expand) / sum(synced)
     log(f"  timed run, {DIST_SIDE}x{DIST_SIDE}, phases=1: {iters} iterations, converged "
         f"{out['converged']}, {clusters} clusters (equal scipy's; "
@@ -4517,9 +4547,10 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
 
 # ---------------------------------------------------------------- phase 26 --
 
-#: The processes of phase 26's two pods on the one card, and each pod's
-#: timeout (on expiry every worker is killed).
-POD_SCENARIOS = {"two": 2, "four": 4}
+#: The processes of phase 26's pods on the one card, and each pod's
+#: timeout (on expiry every worker is killed).  ``"mcl"`` is a launch of
+#: its own, so that its workers' peak memory is its own.
+POD_SCENARIOS = {"two": 2, "four": 4, "mcl": 4}
 POD_TIMEOUT_SECS = 420
 #: Phase 26's sample sort: phase 19's length.
 POD_SORT_LOG2 = 26
@@ -4763,6 +4794,52 @@ def _pod_io(dev, d: str, seed: int) -> dict:
     return out
 
 
+def _pod_mcl(dev, d: str) -> dict:
+    """``mcl_dist`` of phase 18's matrix (the parent saved it to
+    ``d/mcl_graph.npz``), select 64, recover_num 80, on a 4x4 grid over
+    the processes, ``phases=1`` (K1/K2): a timed run as a user calls it
+    (each iteration's host seconds: an iteration ends in the chaos's max
+    over the processes, a rendezvous; the launches read around the run;
+    ``rest_secs`` what is not an iteration: the first normalisation, the
+    transpose, the sum and FastSV; the peak memory), its label slice
+    saved to ``d/mcl_labels_rank<r>.npy``; a run of as many iterations
+    that digests every iterate's blocks (:func:`block_digests`); and a
+    ``phases=2`` run of ``MCL_PHASES_ITERS`` iterations, its last iterate
+    digested.  Each run is watched by :class:`MCLDistWatch` ``light``, as
+    phase 18's timed run is."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    z = np.load(os.path.join(d, "mcl_graph.npz"))
+    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
+    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"],
+                                   tuple(int(x) for x in z["shape"]), g)
+    del z
+    p = mcl_mod.MCLParams(**MCL_PARAMS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with MCLDistWatch(p, light=True) as w:
+        (labels, iters), line = _pod_call(
+            "mcl", lambda: mcl_mod.mcl_dist(dm, p), dev)
+    secs = [r["iter_secs"] for r in w.rows]
+    line.update(iters=int(iters), iter_secs=secs,
+                rest_secs=line["secs"] - sum(secs),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    np.save(os.path.join(d, f"mcl_labels_rank{exchange.rank()}.npy"),
+            labels.cpu().numpy())
+    del labels, w
+    torch.cuda.empty_cache()
+    with MCLDistWatch(p, light=True, digests=True) as w:
+        mcl_mod.mcl_dist(dm, dataclasses.replace(p, max_iters=int(iters)))
+    line["digests"] = [r["digests"] for r in w.rows]
+    del w
+    with MCLDistWatch(p, light=True) as w:
+        mcl_mod.mcl_dist(dm, dataclasses.replace(
+            p, max_iters=MCL_PHASES_ITERS), phases=2)
+    line["digests3"] = block_digests(w.last)
+    return line
+
+
 def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
                seed: int) -> int:
     """One process of a phase-26 pod on the card (``--pod-worker``): joins
@@ -4781,6 +4858,8 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         del a
         torch.cuda.empty_cache()
         res["io"] = _pod_io(dev, d, seed)
+    elif scenario == "mcl":
+        res["mcl"] = _pod_mcl(dev, d)
     else:
         a = a2_matrix(seed, dev, AUTO_SCALE)
         dm = DistSpMat.from_local(a, pod_grid(pr=4, pc=4, device=dev))
@@ -4830,10 +4909,11 @@ def _run_pod(scenario: str, d: str, seed: int) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"pod {scenario} rank {r} exited "
-                                 f"{p.returncode}:\n{out[-4000:]}")
+    failed = [f"rank {r} exited {p.returncode}:\n{out[-3000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:    # every rank's tail: the first to fail may be any of them
+        raise AssertionError(f"pod {scenario}: " + "\n".join(failed))
     res = []
     for r in range(nproc):
         with open(os.path.join(d, f"{scenario}_rank{r}.json")) as fh:
@@ -4863,7 +4943,9 @@ def pod_full(seed: int, refs: dict, dev) -> dict:
     a 4-process pod: ``summa_spgemm_auto`` 4x4 (K1/K2) equal to phase
     13's, the ring SUMMA 4x4 equal to phase 14's (K9 across processes), K9
     across processes alone against its ``gloo`` plain version, ``bfs_dist``
-    from 4 of phase 8's roots and ``dist_sort_auto`` of 2^26 float32."""
+    from 4 of phase 8's roots and ``dist_sort_auto`` of 2^26 float32;
+    then HipMCL's pod path in a 4-process launch of its own
+    (:func:`_pod_mcl`, :func:`check_pod_mcl`)."""
     d = os.path.abspath(os.path.join("chiprun_out", "pod"))
     os.makedirs(d, exist_ok=True)
     try:
@@ -4879,6 +4961,7 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     )
     np.save(os.path.join(d, "roots.npy"), np.asarray(refs["roots"]))
     np.save(os.path.join(d, "levels.npy"), refs["levels"])
+    np.savez(os.path.join(d, "mcl_graph.npz"), **refs["mcl"]["graph"])
     a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed), IO_SCALE,
                     16)
     dm = DistSpMat.from_local(a, ProcGrid.make(2, 2, device=dev))
@@ -4951,6 +5034,77 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bytes']} bytes a process; the slowest process's)")
     log(f"  peak GiB per worker: {peaks}")
+    t = time.perf_counter()
+    mcl = _run_pod("mcl", d, seed)
+    out["mcl_secs"] = time.perf_counter() - t
+    out["mcl"] = check_pod_mcl(mcl, refs["mcl"], d)
+    return out
+
+
+def check_pod_mcl(ranks, ref: dict, d: str) -> dict:
+    """The pod MCL against phase 18 (``ref``, from :func:`mcl_dist_full`):
+    the iteration count equal; every process's label slice, put together,
+    equal to phase 18's labels bit for bit; every iterate's blocks equal to
+    phase 18's by digest (nnz included); the ``phases=2`` run's third
+    iterate equal to one process's; K1 and K2, summed over the processes,
+    launched at least once each an iteration.  Reports the slowest
+    process's seconds (each iteration's, first and steady, the run's total
+    and its rest) and every worker's peak beside one process's."""
+    iters = ref["iters"]
+    got = [r["mcl"]["iters"] for r in ranks]
+    if got != [iters] * len(ranks):
+        raise AssertionError(f"mcl_dist across processes: iterations {got}, "
+                             f"phase 18 took {iters}")
+    labels = np.concatenate([np.load(os.path.join(
+        d, f"mcl_labels_rank{r['rank']}.npy")) for r in ranks])
+    if not np.array_equal(labels, ref["labels"]):
+        raise AssertionError("mcl_dist across processes: labels differ from "
+                             "phase 18's")
+    for it in range(iters):
+        want = sorted(tuple(x) for x in ref["digests"][it])
+        if sorted(tuple(x) for r in ranks
+                  for x in r["mcl"]["digests"][it]) != want:
+            raise AssertionError(f"mcl_dist across processes: iterate "
+                                 f"{it + 1}'s blocks differ from phase 18's")
+    if sorted(tuple(x) for r in ranks for x in r["mcl"]["digests3"]) != \
+            sorted(tuple(x) for x in ref["digests3"]):
+        raise AssertionError(f"mcl_dist(phases=2) across processes: iterate "
+                             f"{MCL_PHASES_ITERS}'s blocks differ from one "
+                             "process's")
+    launches = {}
+    for r in ranks:
+        for k, v in r["mcl"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    _k1k2_each_iteration(launches, iters, "mcl_dist across processes")
+    secs = [max(r["mcl"]["iter_secs"][i] for r in ranks)
+            for i in range(iters)]
+    steady = sorted(secs[2:] or secs)
+    out = dict(
+        grid=[DIST_SIDE, DIST_SIDE], processes=len(ranks), phases=1,
+        iters=iters, clusters=int(np.unique(labels).size),
+        iterate_nnz=[sum(x[2] for x in ref["digests"][i])
+                     for i in range(iters)],
+        first_iter_secs=secs[0], steady_secs_per_iter=steady[len(steady) // 2],
+        total_secs=max(r["mcl"]["secs"] for r in ranks),
+        rest_secs=max(r["mcl"]["rest_secs"] for r in ranks), iter_secs=secs,
+        peak_gib=[r["mcl"]["peak_gib"] for r in ranks], launches=launches,
+        one_process=ref["one"])
+    if out["iterate_nnz"] != ref["nnz"]:
+        raise AssertionError("mcl_dist: phase 18's digests and nnz disagree")
+    one = ref["one"]
+    log(f"  mcl_dist across 4 processes, 4x4, phases=1: {iters} iterations "
+        f"and labels ({out['clusters']} distinct) equal phase 18's, every "
+        f"iterate's blocks equal by digest; phases=2 iterate "
+        f"{MCL_PHASES_ITERS} equals one process's; launches {launches}")
+    log(f"  pod MCL (slowest process): first {secs[0]:.4f} s, steady "
+        f"{out['steady_secs_per_iter']:.4f} s/iter, total "
+        f"{out['total_secs']:.3f} s, rest (normalisation, transpose, "
+        f"FastSV) {out['rest_secs']:.3f} s, peak GiB per worker "
+        f"{[round(x, 2) for x in out['peak_gib']]}; one process (phase 18): "
+        f"first {one['first_iter_secs']:.4f} s, steady "
+        f"{one['steady_secs_per_iter']:.4f} s/iter, total "
+        f"{one['total_secs']:.3f} s, rest {one['rest_secs']:.3f} s, peak "
+        f"{one['peak_mem_gb']:.2f} GiB")
     return out
 
 
@@ -5156,7 +5310,7 @@ def main() -> int:
     t = time.perf_counter()
     log(f"phase 18: mcl_dist, phase 15's graph with self loops, "
         f"{DIST_SIDE}x{DIST_SIDE} grid, phases=1")
-    mcl_dist_line = mcl_dist_full(a_mcl, args.seed, mcl_line)
+    mcl_dist_line = mcl_dist_full(a_mcl, args.seed, mcl_line, pod_refs)
     torch.cuda.empty_cache()
     mcl_dist_line["card_vs_cpu"] = mcl_dist_card_vs_cpu(args.seed, dev)
     log(json.dumps(mcl_dist_line))
@@ -5248,7 +5402,8 @@ def main() -> int:
     log(f"phase 26: the pod on one card: summa_spgemm_auto 2x2 over 2 "
         f"processes and 4x4 over 4, summa_spgemm_rma 4x4 (K9 across "
         f"processes), bfs_dist of phase 8's graph, dist_sort_auto "
-        f"2^{POD_SORT_LOG2}, cooperative I/O at scale {IO_SCALE}")
+        f"2^{POD_SORT_LOG2}, cooperative I/O at scale {IO_SCALE}; mcl_dist "
+        f"of phase 18's matrix, 4x4 over 4 processes")
     torch.cuda.empty_cache()
     pod_line = pod_full(args.seed, pod_refs, dev)
     log(json.dumps(pod_line))

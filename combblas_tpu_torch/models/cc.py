@@ -10,7 +10,11 @@ The parent vector is a dense int32 tensor; one iteration is:
 
 until f stops changing: a Python loop with one host read a round.
 :func:`fastsv_dist` runs the neighbour-min SpMV over the block grid
-(``dist_spmv``) on the FullyDist parent vector.
+(``dist_spmv``) on the FullyDist parent vector.  On a grid over several
+processes each holds its slice of f: the grandparent reads ``f[f]`` and the
+hook's writes ``f[f[u]] <- min(...)`` go to the processes that hold the
+labels they touch (:func:`parallel.exchange.gather_at` /
+``route_to_owners``), and the loop stops when no process changed.
 """
 
 from __future__ import annotations
@@ -20,12 +24,12 @@ import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.spmv import spmv
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _live_entries,
     col_vec_len,
 )
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmv
 from combblas_tpu_torch.semiring import MIN_SECOND
 
@@ -55,20 +59,39 @@ def fastsv_local(a: SpCOO) -> torch.Tensor:
             return f
 
 
-@single_process
+def _fastsv_dist_body(f: torch.Tensor, y: torch.Tensor, gf: torch.Tensor,
+                      grid) -> torch.Tensor:
+    """:func:`_fastsv_body` on this process's slice ``f`` of the parent
+    vector, given ``gf`` = f[f] and the neighbour minima ``y`` of its
+    vertices: the hooks' (target, value) pairs go to the targets' owners,
+    and the shortcut reads the hooked f from the owners (in one process,
+    where both exchanges are plain indexing, :func:`_fastsv_body`)."""
+    y = torch.minimum(y, gf)
+    tgt, val = exchange.route_to_owners(f.long(), [y], grid,
+                                        f.shape[0] * grid.nproc)
+    f = f.scatter_reduce(0, tgt, val, "amin")     # stochastic hooking
+    f = torch.minimum(f, y)                       # aggressive hooking
+    return exchange.gather_at(f, f.long(), grid)  # shortcutting
+
+
 def fastsv_dist(a: DistSpMat) -> torch.Tensor:
     """Distributed FastSV: the neighbour-min SpMV runs over the block grid;
     the parent vector is a FullyDist int32 vector of the padded length
-    ``col_vec_len`` (padding vertices are their own components)."""
+    ``col_vec_len`` (padding vertices are their own components); on a pod
+    this process's slice of it."""
     if a.gshape[0] != a.gshape[1]:
         raise ValueError(f"FastSV needs a square matrix, got {a.gshape}")
-    n_pad = col_vec_len(a.gshape, a.grid)
-    f = torch.arange(n_pad, dtype=torch.int32, device=a.row.device)
+    g = a.grid
+    lo, hi = g.vec_range(col_vec_len(a.gshape, g))
+    f = torch.arange(lo, hi, dtype=torch.int32, device=a.row.device)
     live = _live_entries(a)
     while True:
-        y = dist_spmv(a, f[f.long()], MIN_SECOND, live=live)
-        fn = _fastsv_body(f, y[:n_pad])
-        changed = bool((fn != f).any())
+        gf = exchange.gather_at(f, f.long(), g)
+        y = dist_spmv(a, gf, MIN_SECOND, live=live)
+        if y.shape[0] != f.shape[0]:     # row space longer than columns
+            y, = exchange.gather_range([y], g, lo, hi)
+        fn = _fastsv_dist_body(f, y, gf, g)
+        changed = exchange.any_proc((fn != f).any(), g)
         f = fn
         if not changed:
             return f

@@ -22,6 +22,10 @@ The loops run on the host (capacities change between iterations).
   A^T``.  ``preprocess=True`` first runs HipMCL's ``RemoveIsolated`` and
   ``RandPermute`` (:func:`dist_remove_isolated`, :func:`dist_rand_permute`:
   ``dist_permute`` owner exchanges) and translates the labels back.
+  On a grid over several processes (a pod) ``mcl_dist`` runs with
+  ``layers == 1`` and without the preprocessing: every stage is the pod
+  form of its distributed op, every branch and the loop's stop read values
+  reduced over the processes, and the labels are this process's slice.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from combblas_tpu_torch.ops.ewise import _compact, dim_apply
 from combblas_tpu_torch.ops.kselect import col_desc_order
 from combblas_tpu_torch.ops.reduce import reduce_dim
 from combblas_tpu_torch.ops.spgemm import spgemm_auto
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import DistSpMat
 from combblas_tpu_torch.parallel.elementwise import (
     dist_add,
@@ -232,7 +237,6 @@ def _pow_closure(power: float):
     return f
 
 
-@single_process
 def dist_mcl_prune(c: DistSpMat, p: MCLParams,
                    use_kselect2: bool = False) -> DistSpMat:
     """Distributed ``MCLPruneRecoverySelect``: one threshold a column.
@@ -251,7 +255,9 @@ def dist_mcl_prune(c: DistSpMat, p: MCLParams,
     Kselect is ``dist_kselect_col`` with ``k_cap = max(select,
     recover_num)``, or the bisection ``dist_kselect2_col`` with
     ``use_kselect2``.  Entries equal to a column's threshold all stay,
-    unlike ``mcl_local``'s top-k."""
+    unlike ``mcl_local``'s top-k.  On a pod each branch is taken when a
+    column of any process asks for it, so every process runs the same
+    k-selects."""
     if use_kselect2:
         ksel = dist_kselect2_col
     else:
@@ -267,11 +273,12 @@ def dist_mcl_prune(c: DistSpMat, p: MCLParams,
     thresh = torch.full_like(sums, p.cutoff)
     recover = ((nnz_p < p.recover_num) & (nnz_unpruned > nnz_p)
                & (sums < p.recover_pct))
-    if p.recover_num > 0 and bool(recover.any()):
+    grid = c.grid
+    if p.recover_num > 0 and exchange.any_proc(recover.any(), grid):
         thresh = torch.where(recover, ksel(c, p.recover_num), thresh)
     if p.select > 0:
         sel = ~recover & (nnz_p > p.select)
-        if bool(sel.any()):
+        if exchange.any_proc(sel.any(), grid):
             thresh = torch.where(sel, ksel(c, p.select), thresh)
             if p.recover_num > 0:
                 c_sel = dist_prune_column(c, thresh, _below_thresh)
@@ -279,7 +286,7 @@ def dist_mcl_prune(c: DistSpMat, p: MCLParams,
                 sums1 = dist_reduce(c_sel, "col")
                 del c_sel
                 resel = sel & (nnz1 < p.recover_num) & (sums1 < p.recover_pct)
-                if bool(resel.any()):
+                if exchange.any_proc(resel.any(), grid):
                     thresh = torch.where(resel, ksel(c, p.recover_num),
                                          thresh)
     return dist_prune_column(c, thresh, _below_thresh)
@@ -294,11 +301,11 @@ def _dist_col_stochastic(m: DistSpMat) -> DistSpMat:
 
 def _dist_chaos(m: DistSpMat) -> torch.Tensor:
     """:func:`chaos` over the block grid: max over columns of (column max
-    - column sum of squares)."""
+    - column sum of squares), over every process of a pod."""
     cmax = dist_reduce(m, "col", MAX_FIRST)
     cmax = torch.where(torch.isfinite(cmax), cmax, 0.0)
     css = dist_reduce(m, "col", premap=_square)
-    return torch.max(cmax - css)
+    return exchange.max_proc(torch.max(cmax - css), m.grid)
 
 
 def _expand_2d(m: DistSpMat, hook: Callable, phases: int) -> DistSpMat:
@@ -394,7 +401,6 @@ def _labels_back(labels: torch.Tensor, vmap: np.ndarray,
     return torch.where(kept, labels[idx], own.to(labels.dtype))
 
 
-@single_process
 def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
              phases: int = 1, verbose: bool = False,
              preprocess: bool = False,
@@ -415,8 +421,14 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
     labels back.  Returns (labels, iterations): the labels are the
     column-space FullyDist vector of length ``col_vec_len``, or with
     ``preprocess`` one label per original vertex (length n), an isolated
-    vertex labelled ``n + its index``."""
+    vertex labelled ``n + its index``.  On a grid over several processes
+    the labels are this process's slice; ``layers > 1`` and ``preprocess``
+    are not ported there yet and raise ``NotImplementedError``."""
     p = params or MCLParams()
+    if a.grid.is_pod and layers > 1:
+        raise NotImplementedError(
+            f"mcl_dist(layers={layers}) across {a.grid.nproc} processes is "
+            "not ported yet (ROADMAP item 1.8)")
     vmap = None
     if preprocess:
         a, vmap = _preprocess(a, generator)

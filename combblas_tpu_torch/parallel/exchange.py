@@ -29,8 +29,10 @@ The host side (counts, capacities, handles) travels in small
 of :func:`pull` sit what the distributed modules use: block stacks gathered
 by position (the SUMMA panels, the Cannon skew), ranges of a FullyDist
 vector, the semiring reduce of partial vectors onto their owners (the fan-in
-of an SpMV), all-to-all of variable-length buckets (the sample sort, the
-tuple routing of a parallel read) and all-gather of variable-length arrays.
+of an SpMV or a column fold), all-to-all of variable-length buckets (the
+sample sort, the tuple routing of a parallel read, a column k-select's
+candidates, FastSV's hooks) and the element requests built on it, and
+all-gather of variable-length arrays.
 K9's hop across processes (:mod:`ops.kernels.ring`) writes into a peer's
 arena (:func:`ring_slot`) with its own kernel.
 """
@@ -47,8 +49,9 @@ import torch.distributed as dist
 from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.semiring import _add_identity
 
-__all__ = ["rank", "size", "barrier", "allgather_host", "pull",
-           "gather_blocks", "gather_range", "reduce_to_owners", "alltoallv",
+__all__ = ["rank", "size", "barrier", "allgather_host", "any_proc",
+           "max_proc", "pull", "gather_blocks", "gather_live", "gather_range",
+           "reduce_to_owners", "alltoallv", "route_to_owners", "gather_at",
            "allgather_var", "gather_table", "ring_slot", "close"]
 
 #: Byte alignment of every tensor published in an arena.
@@ -77,6 +80,24 @@ def allgather_host(values) -> np.ndarray:
     out = [torch.empty_like(t) for _ in range(size())]
     dist.all_gather(out, t)
     return np.stack([o.numpy() for o in out])
+
+
+def any_proc(flag, grid: ProcGrid) -> bool:
+    """Whether ``flag`` (a bool, or a 0-d bool tensor) holds in any process
+    of the grid: the loop stops and branches that every process must take
+    alike.  In one process ``bool(flag)``."""
+    if not grid.is_pod:
+        return bool(flag)
+    return bool(allgather_host(np.asarray([bool(flag)])).any())
+
+
+def max_proc(x: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
+    """The largest of every process's 0-d ``x`` (exact: no arithmetic), a
+    0-d tensor on ``x``'s device; in one process ``x`` itself."""
+    if not grid.is_pod:
+        return x
+    got = allgather_host(x.reshape(1).cpu().numpy())
+    return torch.from_numpy(got.max(axis=0)).reshape(()).to(x.device)
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -307,6 +328,43 @@ def gather_blocks(stacks, grid: ProcGrid, positions) -> list:
             for k, s in enumerate(stacks)]
 
 
+def gather_live(stacks, grid: ProcGrid, positions, live,
+                fills, capacity: int) -> list:
+    """The blocks of the (lr, lc, cap) local stacks at the global grid
+    ``positions``, each from its owner, moving only each block's live
+    prefix: ``live`` is the (pr, pc) host table of live counts (``min(nnz,
+    cap)``, the same in every process).  Per stack a (len(positions),
+    ``capacity``) tensor: each block's live prefix, then the stack's pad
+    value ``fills[k]``.  ``capacity`` must hold every requested block's
+    live count; a block whose pads are the canonical ones comes back
+    slot for slot."""
+    lr, lc = grid.local_shape()
+    r0, c0 = grid.origin()
+    live = np.asarray(live, np.int64)
+    mine = [(i, j, int(live[r0 + i, c0 + j])) for i in range(lr)
+            for j in range(lc)]
+    pub = [torch.cat([s[i, j, :k] for i, j, k in mine]) for s in stacks]
+    wants, K = [], len(stacks)
+    for i, j in positions:
+        q = grid.owner(i, j)
+        rq, cq = grid.origin(q)
+        counts = live[rq:rq + lr, cq:cq + lc].reshape(-1)
+        b = (i - rq) * lc + (j - cq)
+        off = int(counts[:b].sum())
+        for k in range(K):
+            wants.append((q, k, off, off + int(counts[b])))
+    got = pull(pub, wants)
+    out = []
+    for k, (s, fill) in enumerate(zip(stacks, fills)):
+        o = torch.full((len(positions), capacity), fill, dtype=s.dtype,
+                       device=s.device)
+        for p in range(len(positions)):
+            x = got[p * K + k]
+            o[p, :x.shape[0]] = x
+        out.append(o)
+    return out
+
+
 def _overlaps(lo: int, hi: int, spans):
     """(q, a, b): the part [a, b) of [lo, hi) within each span q."""
     for q, (s, e) in enumerate(spans):
@@ -317,7 +375,10 @@ def _overlaps(lo: int, hi: int, spans):
 
 def gather_range(vecs, grid: ProcGrid, lo: int, hi: int) -> list:
     """[lo, hi) of each FullyDist vector of ``vecs`` (this process's slices,
-    of one padded length), from the processes that hold it."""
+    of one padded length), from the processes that hold it; in one process
+    the slices ``v[lo:hi]``."""
+    if not grid.is_pod:
+        return [v[lo:hi] for v in vecs]
     length = vecs[0].shape[0] * grid.nproc
     spans = [grid.vec_range(length, q) for q in range(grid.nproc)]
     wants, K = [], len(vecs)
@@ -334,14 +395,21 @@ def reduce_to_owners(parts, spans, length: int, grid: ProcGrid,
     ``spans[q]`` = [lo, hi) of a FullyDist vector of padded ``length``;
     every process gets its slice of each vector reduced over the processes
     whose span meets it, in rank order, with ``kinds[k]`` (the semiring
-    add, 'sum' / 'min' / 'max'; slots no span covers hold its
-    identity)."""
+    add, 'sum' / 'min' / 'max'; slots no span covers hold its identity).
+    A part may be an (R, hi - lo) stack of R partials over the span (every
+    process the same R): all of them then meet in the one reduction, in
+    (rank, row) order, as a one-process fold over a mesh axis adds its
+    blocks in one pass."""
     mylo, myhi = grid.vec_range(length)
-    wants, place, K = [], [], len(parts)
+    parts = [p.reshape(-1, p.shape[-1]) for p in parts]
+    R, K = parts[0].shape[0], len(parts)
+    wants, place = [], []
     for q, a, b in _overlaps(mylo, myhi, spans):
-        for k in range(K):
-            wants.append((q, k, a - spans[q][0], b - spans[q][0]))
-        place.append((a - mylo, b - mylo))
+        w, s = spans[q][1] - spans[q][0], spans[q][0]
+        for r in range(R):
+            for k in range(K):
+                wants.append((q, k, r * w + a - s, r * w + b - s))
+            place.append((a - mylo, b - mylo))
     got = pull(parts, wants)
     out = []
     for k, (p, kind) in enumerate(zip(parts, kinds)):
@@ -358,13 +426,9 @@ def reduce_to_owners(parts, spans, length: int, grid: ProcGrid,
     return out
 
 
-def alltoallv(arrays, counts) -> list:
-    """All-to-all of variable-length buckets: each of the 1-D ``arrays``
-    holds this process's buckets back to back by destination, bucket d of
-    ``counts[d]`` elements (one count vector for all arrays).  Returns per
-    array the buckets sent to this process, in source order."""
+def _alltoallv(arrays, table: np.ndarray) -> list:
+    """:func:`alltoallv` given the whole [src, dst] count table."""
     n, me = size(), rank()
-    table = allgather_host(np.asarray(counts, np.int64))   # [src, dst]
     starts = np.cumsum(table, axis=1) - table
     wants, K = [], len(arrays)
     for q in range(n):
@@ -373,6 +437,58 @@ def alltoallv(arrays, counts) -> list:
             wants.append((q, k, a, a + int(table[q, me])))
     got = pull(arrays, wants)
     return [torch.cat(got[k::K]) for k in range(K)]
+
+
+def alltoallv(arrays, counts) -> list:
+    """All-to-all of variable-length buckets: each of the 1-D ``arrays``
+    holds this process's buckets back to back by destination, bucket d of
+    ``counts[d]`` elements (one count vector for all arrays).  Returns per
+    array the buckets sent to this process, in source order."""
+    return _alltoallv(arrays, allgather_host(np.asarray(counts, np.int64)))
+
+
+def _by_owner(idx: torch.Tensor, grid: ProcGrid, length: int):
+    """The stable order of global indices ``idx`` of a FullyDist vector of
+    padded ``length`` by the process that holds each, and the host count
+    of each process's."""
+    owner = idx // (length // grid.nproc)
+    order = torch.argsort(owner, stable=True)
+    counts = torch.bincount(owner, minlength=grid.nproc).cpu().numpy()
+    return order, counts
+
+
+def route_to_owners(idx: torch.Tensor, vals, grid: ProcGrid,
+                    length: int) -> list:
+    """Each (global index, values) pair to the process whose slice of a
+    FullyDist vector of padded ``length`` holds the index (``idx`` int64,
+    ``vals`` 1-D tensors beside it): the pairs this process received, in
+    source order and, from each source, in its order; the indices made
+    local to this process's slice.  In one process the pairs as given."""
+    if not grid.is_pod:
+        return [idx, *vals]
+    order, counts = _by_owner(idx, grid, length)
+    got = alltoallv([idx[order]] + [v[order] for v in vals], counts)
+    return [got[0] - grid.vec_range(length)[0]] + got[1:]
+
+
+def gather_at(vec: torch.Tensor, idx: torch.Tensor,
+              grid: ProcGrid) -> torch.Tensor:
+    """``x[idx]`` for the FullyDist vector x of which ``vec`` is this
+    process's slice, at any global indices ``idx`` (int64), each element
+    from the process that holds it: the requests go to the owners, the
+    values come back (two all-to-alls, one count table).  In one process
+    ``vec[idx]``."""
+    if not grid.is_pod:
+        return vec[idx]
+    length = vec.shape[0] * grid.nproc
+    order, counts = _by_owner(idx, grid, length)
+    table = allgather_host(np.asarray(counts, np.int64))    # [src, dst]
+    asked, = _alltoallv([idx[order]], table)
+    ans, = _alltoallv([vec[asked - grid.vec_range(length)[0]]],
+                      np.ascontiguousarray(table.T))
+    out = torch.empty(idx.shape[0], dtype=vec.dtype, device=vec.device)
+    out[order] = ans
+    return out
 
 
 def allgather_var(arrays) -> list:
@@ -389,14 +505,15 @@ def allgather_var(arrays) -> list:
 
 
 def gather_table(local: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
-    """The (pr, pc) table of a per-block quantity (nnz, flops) from every
-    process's (lr, lc) part, on ``local``'s device; in one process
-    ``local`` itself."""
+    """The (pr, pc, ...) table of a per-block quantity (nnz, flops, slab
+    counts) from every process's (lr, lc, ...) part, on ``local``'s device;
+    in one process ``local`` itself."""
     if not grid.is_pod:
         return local
     lr, lc = grid.local_shape()
-    parts = allgather_host(local.reshape(lr, lc).cpu().numpy())
-    out = np.empty((grid.pr, grid.pc), parts.dtype)
+    rest = tuple(local.shape[2:])
+    parts = allgather_host(local.reshape((lr, lc) + rest).cpu().numpy())
+    out = np.empty((grid.pr, grid.pc) + rest, parts.dtype)
     for q in range(grid.nproc):
         r, c = grid.origin(q)
         out[r:r + lr, c:c + lc] = parts[q]

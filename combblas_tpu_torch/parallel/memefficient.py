@@ -15,6 +15,13 @@ path (port of ``combblas_tpu/parallel/memefficient.py``).
   and summed with ``dist_add``.
 - :func:`block_spgemm` (``BlockSpGEMM``): C one (row strip, column strip)
   block at a time.
+
+On a pod (a grid over several processes) the staged SUMMA takes the blocks
+A(i, s) and B(s, j) of its block rows and columns from their owners once a
+call (``summa._panel_stacks``, as the all-gather SUMMA does); the slab
+counts, and so every slab's capacity, are the whole table in every
+process; the phase count reads global quantities only (``summa_flops``,
+the sampling estimate summed over the processes).
 """
 
 from __future__ import annotations
@@ -26,18 +33,18 @@ import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO, merge
 from combblas_tpu_torch.ops.spgemm import round_capacity_frac
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     block_dims,
     live_counts,
-    local_block,
 )
 from combblas_tpu_torch.parallel.elementwise import _compact_blocks, dist_add
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import est_nnz_spgemm_sampling
 from combblas_tpu_torch.parallel.summa import (
     _check_operands,
     _local_multiply,
+    _panel_stacks,
     _run_blocks,
     summa_bounds,
     summa_chunk_bound,
@@ -52,28 +59,33 @@ __all__ = ["summa_spgemm_staged", "mem_efficient_spgemm",
            "calculate_phases", "block_spgemm"]
 
 
-def _bcast(m: DistSpMat, axis: str, i: int, j: int, src: int) -> SpCOO:
-    """What block (i, j) receives from the block at index ``src`` along
-    ``axis``: A(i, src) along 'c', B(src, j) along 'r'."""
-    return local_block(m, i, src) if axis == "c" else local_block(m, src, j)
+def _stage_block(stack, i: int, j: int, shape) -> SpCOO:
+    """Block (i, j) of a :func:`summa._panel_stacks` stack as an SpCOO."""
+    r, c, v, n = stack
+    return SpCOO(row=r[i, j], col=c[i, j], val=v[i, j], nnz=n[i, j],
+                 shape=shape)
 
 
-def _staged_block(a: DistSpMat, b: DistSpMat, i: int, j: int, *,
+def _staged_block(a: DistSpMat, b: DistSpMat, i: int, j: int, stacks, *,
                   sr: Semiring, stage_flops_cap: int, out_capacity: int,
                   impl: str, chunk_cap: int) -> SpCOO:
-    """Block (i, j) of C over pc stages (the JAX ``_staged_local``)."""
-    mb, nb = a.block_shape()[0], b.block_shape()[1]
+    """Block (i, j) of C, counted from this process's first block, over pc
+    stages (the JAX ``_staged_local``): stage s receives A(i, s) (the
+    broadcast along 'c') and B(s, j) (along 'r') from ``stacks``."""
+    mb, kb = a.block_shape()
+    nb = b.block_shape()[1]
     acc = SpCOO.empty((mb, nb), capacity=out_capacity, dtype=a.val.dtype,
                       device=a.row.device)
+    sa, sb = stacks
     for s in range(a.grid.pc):
-        cs = _local_multiply(_bcast(a, "c", i, j, s), _bcast(b, "r", i, j, s),
+        cs = _local_multiply(_stage_block(sa, i, s, (mb, kb)),
+                             _stage_block(sb, s, j, (kb, nb)),
                              sr, impl=impl, flops_cap=stage_flops_cap,
                              out_capacity=stage_flops_cap, chunk_cap=chunk_cap)
         acc = merge(acc, cs, sr, out_capacity=out_capacity)
     return acc
 
 
-@single_process
 def summa_spgemm_staged(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES,
                         *, stage_flops_cap: int, out_capacity: int,
                         impl: str = "xla", chunk_cap: int = 0) -> DistSpMat:
@@ -83,17 +95,18 @@ def summa_spgemm_staged(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES,
     route as in :func:`combblas_tpu_torch.parallel.summa.summa_spgemm`.  C's
     blocks have ``out_capacity`` slots."""
     _check_operands(a, b)
+    stacks = _panel_stacks(a, b)
     row, col, val, nnz = _run_blocks(
-        (a.grid.pr, a.grid.pc),
-        lambda i, j: _staged_block(a, b, i, j, sr=sr,
+        a.grid.local_shape(),
+        lambda i, j: _staged_block(a, b, i, j, stacks, sr=sr,
                                    stage_flops_cap=stage_flops_cap,
                                    out_capacity=out_capacity, impl=impl,
                                    chunk_cap=chunk_cap))
-    return DistSpMat(row=row, col=col, val=val, nnz=nnz,
+    return DistSpMat(row=row, col=col, val=val,
+                     nnz=exchange.gather_table(nnz, a.grid),
                      gshape=(a.gshape[0], b.gshape[1]), grid=a.grid)
 
 
-@single_process
 def calculate_phases(a: DistSpMat, b: DistSpMat, per_device_mem_bytes: float,
                      bytes_per_product: int = 24,
                      est_c_nnz: float | None = None) -> int:
@@ -112,20 +125,22 @@ def calculate_phases(a: DistSpMat, b: DistSpMat, per_device_mem_bytes: float,
 
 def _slab_counts(m: DistSpMat, coord: str, bounds) -> np.ndarray:
     """counts[p, i, j]: block (i, j)'s live entries whose local ``coord``
-    ('row' or 'col') lies in [bounds[p], bounds[p+1]), as host int64."""
-    pr, pc = m.grid.pr, m.grid.pc
+    ('row' or 'col') lies in [bounds[p], bounds[p+1]), as host int64: the
+    whole table in every process of a pod."""
+    lr, lc = m.grid.local_shape()
     nph = len(bounds) - 1
     x = m.row if coord == "row" else m.col
     edges = torch.as_tensor(np.asarray(bounds[1:-1]), dtype=torch.int32,
                             device=x.device)
-    out = torch.zeros((pr * pc, nph), dtype=torch.int64, device=x.device)
+    out = torch.zeros((lr * lc, nph), dtype=torch.int64, device=x.device)
     for b, k in enumerate(live_counts(m)):
-        i, j = divmod(b, pc)
+        i, j = divmod(b, lc)
         live = x[i, j, :k]
         inside = (live >= int(bounds[0])) & (live < int(bounds[-1]))
         ph = torch.bucketize(live[inside], edges, right=True)
         out[b] = torch.bincount(ph, minlength=nph)[:nph]
-    return out.T.reshape(nph, pr, pc).cpu().numpy()
+    table = exchange.gather_table(out.reshape(lr, lc, nph), m.grid)
+    return table.permute(2, 0, 1).cpu().numpy()
 
 
 def _col_slab_counts(b: DistSpMat, bounds) -> np.ndarray:
@@ -176,7 +191,6 @@ def _slab_cap(counts: np.ndarray, capacity: int) -> int:
     return min(round_capacity_frac(max(int(counts.max()), 8)), capacity)
 
 
-@single_process
 def mem_efficient_spgemm(a: DistSpMat, b: DistSpMat,
                          sr: Semiring = PLUS_TIMES,
                          phases: int | None = None,
@@ -222,7 +236,6 @@ def mem_efficient_spgemm(a: DistSpMat, b: DistSpMat,
     return acc
 
 
-@single_process
 def block_spgemm(a: DistSpMat, b: DistSpMat, br: int, bc: int,
                  sr: Semiring = PLUS_TIMES):
     """C one block at a time (``BlockSpGEMM``): yields ``((i, j), C_ij)``

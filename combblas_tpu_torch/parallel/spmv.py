@@ -29,6 +29,7 @@ process that holds it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from combblas_tpu_torch.ops.spmv import _segment_reduce
@@ -37,8 +38,8 @@ from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _live_entries,
     block_dims,
+    col_vec_len,
 )
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.semiring import (
     MAX_FIRST,
     MIN_SECOND,
@@ -355,9 +356,11 @@ def dist_bfs_pull_masked(a: DistSpMat, front_mask: torch.Tensor,
 
 def _sampling_estimate(a: DistSpMat, b: DistSpMat, draws) -> float:
     """Cohen's estimate of nnz(A B) from the Exp(1) vectors ``draws`` over
-    B's columns, one a round: min-propagate each through B, then A, with
+    B's columns (column-space FullyDist vectors: on a pod this process's
+    slices), one a round: min-propagate each through B, then A, with
     (min, select2nd) SpMVs; a row's estimate is (R - 1) / the sum of its R
-    minima, and the total the sum over rows."""
+    minima, and the total the sum over rows (on a pod each process's sum
+    of its rows, then those sums in rank order)."""
     rounds = len(draws)
     acc = None
     live_a, live_b = _live_entries(a), _live_entries(b)
@@ -367,13 +370,16 @@ def _sampling_estimate(a: DistSpMat, b: DistSpMat, draws) -> float:
         f = dist_spmv(a, m, MIN_SECOND, live=live_a)
         f = torch.where(torch.isfinite(f), f, float("inf"))
         acc = f if acc is None else acc[: f.shape[0]] + f
-    acc = acc[: a.gshape[0]]
+    lo = a.grid.vec_range(acc.shape[0] * a.grid.nproc)[0]
+    acc = acc[: max(a.gshape[0] - lo, 0)]
     per_row = torch.where(torch.isfinite(acc) & (acc > 0),
                           (rounds - 1) / acc, 0.0)
-    return float(per_row.sum())
+    total = float(per_row.sum())
+    if not a.grid.is_pod:
+        return total
+    return float(sum(exchange.allgather_host(np.asarray([total]))[:, 0]))
 
 
-@single_process
 def est_nnz_spgemm_sampling(a: DistSpMat, b: DistSpMat,
                             generator: torch.Generator,
                             rounds: int = 16) -> float:
@@ -382,9 +388,14 @@ def est_nnz_spgemm_sampling(a: DistSpMat, b: DistSpMat,
     drawn from ``generator`` (on the matrices' device; JAX takes a key),
     then ``m = B ._min x`` and ``f = A ._min m``; nnz of C's row i is about
     (R - 1) / sum_r f_r[i].  Costs 2R distributed SpMVs, whatever the size
-    of the product."""
+    of the product.  On a pod every process draws the same vectors from
+    its generator (seeded alike) and keeps its slices."""
     n = b.gshape[1]
     dev = b.row.device
     draws = [torch.empty(n, dtype=torch.float32, device=dev).exponential_(
         generator=generator) for _ in range(rounds)]
+    if b.grid.is_pod:
+        length = col_vec_len(b.gshape, b.grid)
+        lo, hi = b.grid.vec_range(length)
+        draws = [_padded(x, length)[lo:hi] for x in draws]
     return _sampling_estimate(a, b, draws)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import itertools
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO, sort_compress
@@ -133,21 +134,40 @@ def _check_operands(a: DistSpMat, b: DistSpMat) -> None:
         raise ValueError("SpGEMM needs a square grid (reference: √p×√p)")
 
 
+def _remote_panel(m: DistSpMat, positions, shape):
+    """The blocks of ``m`` at ``positions`` from their owners, only their
+    live entries moved, as stacks of ``shape`` (blocks) and the capacity
+    the most entries of one of them need (the matrix's when a block's nnz
+    passes it): a panel reads each block's live prefix only, so the
+    panel's pads are what shrinks."""
+    nnz = m.nnz.cpu().numpy()
+    need = max(int(nnz[i, j]) for i, j in positions)
+    cap = min(m.capacity, max(need, 1))
+    mb, nb = m.block_shape()
+    got = exchange.gather_live([m.row, m.col, m.val], m.grid, positions,
+                               np.minimum(nnz, m.capacity), (mb, nb, 0), cap)
+    return [x.reshape(*shape, cap) for x in got]
+
+
 def _panel_stacks(a: DistSpMat, b: DistSpMat):
     """The block stacks this process's panels read: A's (row, col, val,
     nnz) of its block rows, every column, and B's of every row, its block
     columns, indexed from its first block.  In one process the operands'
-    own stacks; on a pod the blocks come from their owners."""
+    own stacks; on a pod the blocks come from their owners, each block's
+    live entries only (the stacks then hold as many slots as the fullest
+    of them needs), unless this process holds them all (A's whole block
+    rows): those are its own stacks."""
     g = a.grid
     if not g.is_pod:
         return (a.row, a.col, a.val, a.nnz), (b.row, b.col, b.val, b.nnz)
     (r0, c0), (lr, lc) = g.origin(), g.local_shape()
-    rows = [(i, s) for i in range(r0, r0 + lr) for s in range(g.pc)]
-    cols = [(s, j) for s in range(g.pr) for j in range(c0, c0 + lc)]
-    ast = exchange.gather_blocks([a.row, a.col, a.val], g, rows)
-    bst = exchange.gather_blocks([b.row, b.col, b.val], g, cols)
-    ast = [x.reshape(lr, g.pc, -1) for x in ast]
-    bst = [x.reshape(g.pr, lc, -1) for x in bst]
+    if lc == g.pc:
+        ast = [a.row, a.col, a.val]
+    else:
+        ast = _remote_panel(a, [(i, s) for i in range(r0, r0 + lr)
+                                for s in range(g.pc)], (lr, g.pc))
+    bst = _remote_panel(b, [(s, j) for s in range(g.pr)
+                            for j in range(c0, c0 + lc)], (g.pr, lc))
     return ((*ast, a.nnz[r0:r0 + lr]), (*bst, b.nnz[:, c0:c0 + lc]))
 
 

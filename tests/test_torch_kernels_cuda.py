@@ -944,6 +944,23 @@ if what == "ring":
             ring_shift(srcs[::-1], axes[::-1], grid=g)
             for a, b in zip(got, want):
                 assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+elif what == "mcl":
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.models.mcl import MCLParams, mcl_dist
+    from combblas_tpu_torch.ops.coo import SpCOO, merge
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+    from combblas_tpu_torch.semiring import PLUS_TIMES
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(11), 10, 8,
+                    symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    a = merge(a, SpCOO.eye(a.shape[0], device=dev), PLUS_TIMES)
+    p = MCLParams(select=64, recover_num=80)
+    l1, i1 = mcl_dist(DistSpMat.from_local(
+        a, ProcGrid.make(2, 2, device=dev)), p)
+    l2, i2 = mcl_dist(DistSpMat.from_local(a, g), p)
+    l2, = exchange.allgather_var([l2])
+    assert i1 == i2 and torch.equal(l1, l2), (i1, i2)
 else:
     from combblas_tpu_torch.gen.rmat import rmat_matrix
     from combblas_tpu_torch.models.bfs import bfs_dist
@@ -1031,6 +1048,13 @@ def test_ring_shift_pod_matches_plain(cuda):
     int64 stacks in one launch: bit for bit its ``gloo`` plain version,
     counted under ``ring_shift`` and, when it crossed, ``ring_shift_pod``."""
     _run_pod_on_card("ring")
+
+
+def test_pod_mcl_on_card(cuda):
+    """HipMCL's pod path on the card over 2 processes: ``mcl_dist`` of a
+    scale-10 SSCA R-MAT with self loops gives one process's iterations
+    and labels bit for bit."""
+    _run_pod_on_card("mcl")
 
 
 def test_pod_slice_on_card(cuda):

@@ -5,16 +5,26 @@ Each scenario is one launch of ``tests/_torch_pod_worker.py`` in NPROC
 processes (its own timeout; on expiry every process is killed) that runs
 the whole slice across the process boundary: SUMMA, the ring SUMMA and its
 hop (K9's plain version through ``gloo``), ``dist_spmv``, ``bfs_dist``,
-``dist_sort_auto``, the cooperative writes and read, and the refusals.
-The parent runs JAX on its virtual CPU mesh (2x2 grids; JAX has no 4x4
-mesh on 8 devices) and the port in one process, and compares every
-process's blocks and vectors:
+``dist_sort_auto``, the cooperative writes and read, HipMCL's path (the
+distributed elementwise ops and k-selects, the staged and phased SpGEMM,
+the sampling estimate, ``dist_mcl_prune``, ``mcl_dist``, ``fastsv_dist``)
+and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
+JAX has no 4x4 mesh on 8 devices) and the port in one process, and
+compares every process's blocks and vectors:
 
 - against the port in one process, exactly (values bit for bit: the
-  panels are assembled in the same block order);
-- against JAX: integers, keys and files exactly, min/max values exactly,
-  sums within rtol 1e-5 (the port's local folds run in another order than
-  XLA's, as in ``test_torch_summa.py``).
+  panels are assembled in the same block order, and the column sums meet
+  in the one-process order); the sampling estimate within 1e-6 relative
+  (its row sums meet in another order), the phase counts equal;
+- against JAX: integers, keys, labels, iteration counts, selections and
+  files exactly, min/max values exactly, sums within rtol 1e-5 (the port's
+  local folds run in another order than XLA's, as in
+  ``test_torch_summa.py``).  JAX takes the ``"xla"`` route on the CPU and
+  the port its kernel routes' plain versions, so ``mem_efficient_spgemm``
+  is compared on ``impl="xla"``, and ``block_spgemm`` and ``mcl_dist``'s
+  final iterate compacted (``to_local``), as ``test_torch_mcl_dist.py``
+  does; JAX's sampling draws are threefry, so the estimate is held against
+  one process only.
 """
 
 import functools
@@ -30,26 +40,40 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
 
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.io import parallel as jpar  # noqa: E402
 from combblas_tpu.models import bfs as jbfs  # noqa: E402
+from combblas_tpu.models import cc as jcc  # noqa: E402
+from combblas_tpu.models import mcl as jmcl  # noqa: E402
 from combblas_tpu.parallel import dist as jdist  # noqa: E402
+from combblas_tpu.parallel import elementwise as jel  # noqa: E402
+from combblas_tpu.parallel import memefficient as jme  # noqa: E402
 from combblas_tpu.parallel import rma as jrma  # noqa: E402
 from combblas_tpu.parallel import spmv as jsp  # noqa: E402
 from combblas_tpu.parallel import summa as jsu  # noqa: E402
 from combblas_tpu.parallel import vector as jvec  # noqa: E402
 from combblas_tpu_torch.io import parallel as tpar  # noqa: E402
 from combblas_tpu_torch.models import bfs as tbfs  # noqa: E402
+from combblas_tpu_torch.models import cc as tcc  # noqa: E402
+from combblas_tpu_torch.models import mcl as tmcl  # noqa: E402
+from combblas_tpu_torch.parallel import dist as tdist  # noqa: E402
+from combblas_tpu_torch.parallel import elementwise as tel  # noqa: E402
+from combblas_tpu_torch.parallel import memefficient as tme  # noqa: E402
 from combblas_tpu_torch.ops.kernels.ring import ring_shift  # noqa: E402
 from combblas_tpu_torch.parallel import rma as trma  # noqa: E402
 from combblas_tpu_torch.parallel import spmv as tsp  # noqa: E402
 from combblas_tpu_torch.parallel import summa as tsu  # noqa: E402
 from combblas_tpu_torch.parallel import vector as tvec  # noqa: E402
 from combblas_tpu_torch.parallel.dist import dist_vec  # noqa: E402
-from combblas_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES  # noqa: E402
+from combblas_tpu_torch.semiring import (  # noqa: E402
+    MAX_FIRST,
+    MIN_PLUS,
+    PLUS_TIMES,
+)
 from tests import _torch_pod_worker as W  # noqa: E402
-from tests.test_torch_dist import dist_pair, tgrid  # noqa: E402
+from tests.test_torch_dist import dist_pair, jgrid, tgrid  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 #: name -> (processes, grid side)
@@ -324,8 +348,279 @@ def test_pod_refuses_unported(pods, name):
     ranks, _ = pods(name)
     for r in ranks:
         refused = json.loads(str(r["refused"]))
-        assert set(refused) == {"dist_transpose", "mcl_dist", "dist_route",
-                                "pod_grid_layers"}
+        assert set(refused) == {"mcl_dist_preprocess", "mcl_dist_layers",
+                                "lacc_dist", "dist_route", "pod_grid_layers"}
         for what, msg in refused.items():
             assert "ROADMAP item 1.8" in msg, (what, msg)
 
+
+
+# ------------------------------------------------------ HipMCL's pod path --
+
+def _vec_of(ranks, tag):
+    """A FullyDist vector from every process's slice, in rank order."""
+    return np.concatenate([r[tag] for r in ranks])
+
+
+def _same_vec(got, want, exact=True):
+    """Vectors equal: bit for bit (floats by their bits), or sums within
+    rtol 1e-5."""
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        got.shape, want.shape, got.dtype, want.dtype)
+    if not exact:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    elif got.dtype == np.float32:
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _assemble(ranks, tag, side, gshape):
+    """The one-process DistSpMat of every process's ``tag`` stacks."""
+    cap = ranks[0][f"{tag}_row"].shape[-1]
+    full = {f: np.empty((side, side, cap), ranks[0][f"{tag}_{f}"].dtype)
+            for f in ("row", "col", "val")}
+    for r in ranks:
+        (r0, c0), (lr, lc) = r["origin"], r["local_shape"]
+        for f, x in full.items():
+            x[r0:r0 + lr, c0:c0 + lc] = r[f"{tag}_{f}"]
+    return tdist.DistSpMat.from_numpy_blocks(
+        full["row"], full["col"], full["val"], ranks[0][f"{tag}_nnz"],
+        gshape, tgrid(side, side))
+
+
+def _same_local(t, j):
+    """Compacted (``to_local``) port and JAX matrices: keys exact, values
+    within rtol 1e-5."""
+    jl, tl = j.to_local(), t.to_local()
+    k = int(jl.nnz)
+    assert int(tl.nnz) == k
+    np.testing.assert_array_equal(tl.row[:k].numpy(), np.asarray(jl.row)[:k])
+    np.testing.assert_array_equal(tl.col[:k].numpy(), np.asarray(jl.col)[:k])
+    np.testing.assert_allclose(tl.val[:k].numpy(), np.asarray(jl.val)[:k],
+                               rtol=1e-5, atol=0)
+
+
+#: The tags of the elementwise stacks, and of the vectors with JAX
+#: compared within rtol (float sums).
+_EW_SUMS = ("reduce_row_plus", "reduce_col_plus", "reduce_premap")
+
+
+def _elementwise(mod, a, a2, vec, ints, add):
+    """The worker's elementwise calls in one process of ``mod`` (the port's
+    or JAX's elementwise module): (stacks by tag, vectors by tag)."""
+    inp = W.inputs()
+    st = dict(apply=mod.dist_apply(a, W.doubled),
+              prune=mod.dist_prune(a, W.small),
+              emult0=mod.dist_ewise_mult(a, a2),
+              emult1=mod.dist_ewise_mult(a, a2, exclude=True),
+              add=mod.dist_add(a, a2),
+              dimapply_row=mod.dist_dim_apply(a, vec(inp["row_x"]), "row"),
+              dimapply_col=mod.dist_dim_apply(a, vec(inp["col_x"]), "col",
+                                              add),
+              prunecol=mod.dist_prune_column(a, vec(inp["thresh"]),
+                                             W.below),
+              transpose=mod.dist_transpose(a))
+    srs = ints["srs"]
+    kv = vec(inp["kvec"])
+    vs = {f"reduce_{dim}_{name}": mod.dist_reduce(a, dim, sr)
+          for dim in ("row", "col") for name, sr in srs.items()}
+    vs.update(reduce_premap=mod.dist_reduce(a, "col", premap=W.squared),
+              nnz_per_col=mod.dist_nnz_per_col(a),
+              ksel_int=mod.dist_kselect_col(a, W.KSELECT_K),
+              ksel_vec=mod.dist_kselect_col(a, kv, k_cap=W.KSELECT_CAP),
+              ksel_full=mod.dist_kselect_col(a, kv, full_gather=True),
+              ksel2_int=mod.dist_kselect2_col(a, W.KSELECT_K),
+              ksel2_vec=mod.dist_kselect2_col(a, kv),
+              ksel_checked=mod.dist_kselect_col_checked(a, kv))
+    return st, {k: np.asarray(v) for k, v in vs.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_elementwise(side: int):
+    inp = W.inputs()
+    return _elementwise(
+        tel, _one(inp["a"], side), _one(inp["a2"], side),
+        lambda x: dist_vec(x, tgrid(side, side)),
+        dict(srs=dict(plus=PLUS_TIMES, min=MIN_PLUS, max=MAX_FIRST)),
+        torch.add)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_elementwise():
+    inp = W.inputs()
+    g = jgrid(2, 2)
+    return _elementwise(
+        jel, dist_pair(inp["a"], 2, 2)[0], dist_pair(inp["a2"], 2, 2)[0],
+        lambda x: jdist.dist_vec(x, g),
+        dict(srs=dict(plus=jsr.PLUS_TIMES, min=jsr.MIN_PLUS,
+                      max=jsr.MAX_FIRST)), jnp.add)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_elementwise(pods, name):
+    """The 12 functions of ``parallel/elementwise.py`` across processes:
+    block-local ops, dimension ops reading vector spans, the column and
+    row folds (sums in the one-process order), Kselect1 with an int k, a
+    per-column k under ``k_cap`` and ``full_gather``, Kselect2, the
+    checked pair and the transpose: every process's blocks and slices
+    equal one process's bit for bit, and JAX's on 2x2."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    stacks, vecs = _one_elementwise(side)
+    for tag, m in stacks.items():
+        _same_share(ranks, tag, m)
+    for tag, v in vecs.items():
+        _same_vec(_vec_of(ranks, tag), v)
+    if side == 2:
+        jstacks, jvecs = _jax_elementwise()
+        for tag, m in jstacks.items():
+            _same_share(ranks, tag, m)
+        for tag, v in jvecs.items():
+            _same_vec(_vec_of(ranks, tag), v, exact=tag not in _EW_SUMS)
+
+
+def _memefficient(me, a, b, **kw):
+    """The worker's ``"xla"``-route phased products and the staged SUMMA
+    in one process of ``me`` (the port's or JAX's module)."""
+    fc, oc = tsu.summa_bounds(a, b) if me is tme else jsu.summa_bounds(a, b)
+    out = dict(staged=me.summa_spgemm_staged(a, b, stage_flops_cap=fc,
+                                             out_capacity=oc))
+    for ph in (1, 2):
+        out[f"phased{ph}"] = me.mem_efficient_spgemm(a, b, phases=ph,
+                                                     impl="xla")
+    out["phased_hook"] = me.mem_efficient_spgemm(
+        a, b, phases=2, phase_hook=kw["hook"], impl="xla")
+    return out
+
+
+def _jax_hook(c):
+    return jel.dist_prune(c, lambda v: v < 0.3)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_memefficient(pods, name):
+    """The staged SUMMA, ``calculate_phases``, ``mem_efficient_spgemm``
+    (phases 1 and 2 on both routes, the count from the sampling estimate,
+    a hook) and every block ``block_spgemm`` yields: every process's
+    blocks equal one process's bit for bit; the sampling estimate within
+    1e-6 relative and the phase counts equal; the ``"xla"`` products
+    JAX's on 2x2 (rtol 1e-5), ``block_spgemm``'s compacted blocks too."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    ta, tb = _one(inp["a"], side), _one(inp["b"], side)
+    est = tsp.est_nnz_spgemm_sampling(ta, tb, torch.Generator().manual_seed(0))
+    for r in ranks:
+        assert abs(float(r["estimate"]) - est) <= 1e-6 * abs(est)
+        np.testing.assert_array_equal(r["phases"], [
+            tme.calculate_phases(ta, tb, W.PHASE_BUDGET),
+            tme.calculate_phases(ta, tb, W.PHASE_BUDGET, est_c_nnz=est)])
+    assert ranks[0]["phases"][1] > 1
+    want = _memefficient(tme, ta, tb, hook=W.hook)
+    for ph in (1, 2):
+        want[f"phased{ph}_k"] = tme.mem_efficient_spgemm(ta, tb, phases=ph)
+    want["phased_auto"] = tme.mem_efficient_spgemm(
+        ta, tb, per_device_mem_bytes=W.PHASE_BUDGET)
+    blocks = dict(tme.block_spgemm(ta, tb, 2, 2))
+    for (i, j), c in blocks.items():
+        want[f"block{i}{j}"] = c
+    for tag, m in want.items():
+        _same_share(ranks, tag, m)
+    if side == 2:
+        ja, jb = dist_pair(inp["a"], 2, 2)[0], dist_pair(inp["b"], 2, 2)[0]
+        for tag, m in _memefficient(jme, ja, jb, hook=_jax_hook).items():
+            _same_share(ranks, tag, m, exact=False)
+        for (i, j), c in jme.block_spgemm(ja, jb, 2, 2):
+            _same_local(_assemble(ranks, f"block{i}{j}", 2, c.gshape), c)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_mcl(side: int):
+    """One process's ``dist_mcl_prune`` (both k-selects) of the worker's
+    expansion and ``mcl_dist`` of its R-MAT: (prunes, labels, iterations,
+    final iterate)."""
+    e = _one(W.inputs()["expansion"], side)
+    prunes = [tmcl.dist_mcl_prune(e, tmcl.MCLParams(**W.PRUNE_PARAMS),
+                                  use_kselect2=k2) for k2 in (False, True)]
+    r, c, w, shape = W.rmat7()
+    m = tdist.DistSpMat.from_coo_arrays(r, c, w, shape, tgrid(side, side))
+    return (prunes, *_mcl_run(tmcl, tel, m))
+
+
+def _mcl_run(mcl_mod, el_mod, m):
+    """``mcl_mod.mcl_dist(m)`` with its final iterate caught where it is
+    transposed."""
+    seen, orig = {}, el_mod.dist_transpose
+
+    def caught(x):
+        seen["a"] = x
+        return orig(x)
+
+    targets = [el_mod] + ([mcl_mod] if hasattr(mcl_mod, "dist_transpose")
+                          else [])
+    for t in targets:
+        t.dist_transpose = caught
+    try:
+        labels, iters = mcl_mod.mcl_dist(
+            m, mcl_mod.MCLParams(**W.MCL_PARAMS))
+    finally:
+        for t in targets:
+            t.dist_transpose = orig
+    return np.asarray(labels), int(iters), seen["a"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mcl():
+    e = dist_pair(W.inputs()["expansion"], 2, 2)[0]
+    prunes = [jmcl.dist_mcl_prune(e, jmcl.MCLParams(**W.PRUNE_PARAMS),
+                                  use_kselect2=k2) for k2 in (False, True)]
+    r, c, w, shape = W.rmat7()
+    m = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(2, 2))
+    return (prunes, *_mcl_run(jmcl, jel, m))
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_mcl(pods, name):
+    """``dist_mcl_prune`` with Kselect1 and Kselect2, then ``mcl_dist`` of
+    a scale-7 SSCA R-MAT (select 8, recover_num 10) across processes:
+    every process's prunes, label slice and final iterate equal one
+    process's bit for bit, the iteration counts equal; on 2x2 the prunes
+    equal JAX's slot for slot, the labels and iterations exactly, the
+    final iterate compacted (keys exact, values rtol 1e-5)."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    prunes, labels, iters, final = _one_mcl(side)
+    for k2, m in enumerate(prunes):
+        _same_share(ranks, f"mclprune{k2}", m)
+    _same_vec(_vec_of(ranks, "mcl_labels"), labels)
+    for r in ranks:
+        assert int(r["mcl_iters"]) == iters
+    _same_share(ranks, "mcl_final", final)
+    if side == 2:
+        jprunes, jlabels, jiters, jfinal = _jax_mcl()
+        for k2, m in enumerate(jprunes):
+            _same_share(ranks, f"mclprune{k2}", m)
+        _same_vec(_vec_of(ranks, "mcl_labels"), jlabels)
+        assert int(ranks[0]["mcl_iters"]) == jiters
+        _same_local(_assemble(ranks, "mcl_final", 2, final.gshape), jfinal)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_fastsv(pods, name):
+    """``fastsv_dist`` across processes on the BFS graph and on a graph of
+    7 components spread over the processes: the label slices equal one
+    process's, and JAX's on 2x2, and count the components."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    for tag, d in (("fastsv_g", inp["g"]), ("fastsv_comps", inp["comps"])):
+        got = _vec_of(ranks, tag)
+        _same_vec(got, tcc.fastsv_dist(_one(d, side)).numpy())
+        if side == 2:
+            _same_vec(got, np.asarray(jcc.fastsv_dist(
+                dist_pair(d, 2, 2)[0])))
+    n = inp["comps"].shape[0]
+    assert tcc.count_components(_vec_of(ranks, "fastsv_comps"), n) == 7
