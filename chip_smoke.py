@@ -181,14 +181,26 @@ Phases, each raising on failure:
      (its skewed 4x4 stacks, one block row a process) and on A's 2x2
      blocks (one a process),
      ``bfs_dist`` of phase 8's graph from 4 of its roots (phase 8's
-     levels, Graph500-valid) and ``dist_sort_auto`` of 2^26 float32 with
-     a payload equal to ``torch.sort``'s stable order.  Four processes of
-     their own: HipMCL's pod path, ``mcl_dist`` of phase 18's matrix on
-     the 4x4 grid, ``phases=1`` (K1/K2 at least once each an iteration,
-     summed over the processes): phase 18's iteration count and labels bit
-     for bit, every iterate's blocks equal to phase 18's by digest, and a
-     ``phases=2`` run's third iterate equal to one process's; its seconds
-     per iteration, total and peak memory per worker beside phase 18's.
+     levels, Graph500-valid), ``lacc_dist`` and ``luby_mis_dist`` of it
+     (phase 17's labels and set), ``dist_rand_perm`` and ``dist_permute``
+     of it (phase 19's permutation and blocks, by digest),
+     ``dist_sort_auto`` of 2^26 float32 with a payload equal to
+     ``torch.sort``'s stable order, phase 19's vector calls
+     (``dist_rand_perm``, ``dist_invert``, ``dist_uniq``, ``dist_gather``,
+     ``dist_apply_perm``, ``dist_route`` with every combine) on phase 19's
+     inputs, every slice equal to phase 19's bit for bit, and
+     ``dist_spref`` / ``dist_prune_block`` / ``dist_spasgn`` of phase 15's
+     graph equal to phase 19's blocks (K1/K2 summed over the processes).
+     Four processes of their own: HipMCL's pod path, ``mcl_dist`` of phase
+     18's matrix on the 4x4 grid, ``phases=1`` (K1/K2 at least once each
+     an iteration, summed over the processes): phase 18's iteration count
+     and labels bit for bit, every iterate's blocks equal to phase 18's by
+     digest, and a ``phases=2`` run's third iterate equal to one
+     process's; then ``mcl_dist(preprocess=True)`` of phase 20's matrix
+     with phase 20's generator seed: phase 20's iterations, isolated count
+     and labels bit for bit, K1/K2 each an iteration; the seconds per
+     iteration, total and peak memory per worker of both beside phases 18
+     and 20.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -2138,7 +2150,8 @@ def _fold_routes_ms(dm, live, x) -> dict:
                 fold_index_put=cuda_ms(by_index_put))
 
 
-def dist_graph_full(s, roots, want_levels, seed: int) -> dict:
+def dist_graph_full(s, roots, want_levels, seed: int,
+                    refs: dict | None = None) -> dict:
     """Phase 17: the distributed SpMV and the algorithms on it, on ``s``
     (phase 8's graph) distributed over a 4x4 block grid of the card.
     ``dist_spmv`` PLUS_TIMES against ``torch.sparse.mm`` (rtol 1e-4) and
@@ -2147,7 +2160,9 @@ def dist_graph_full(s, roots, want_levels, seed: int) -> dict:
     levels equal to ``want_levels`` (phase 8's); ``fastsv_dist`` and
     ``lacc_dist`` labels equal to ``fastsv_local``'s and the component
     count equal to scipy's; ``luby_mis_dist`` independent and maximal,
-    checked on the host against the edge list."""
+    checked on the host against the edge list.  ``refs`` gets ``"lacc"``
+    (the labels of the n vertices) and ``"mis"`` (the padded set), which
+    phase 26's pod must give again."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
 
@@ -2269,6 +2284,10 @@ def dist_graph_full(s, roots, want_levels, seed: int) -> dict:
     if not covered.all():
         raise AssertionError("luby_mis_dist: the set is not maximal")
     out["mis"] = dict(size=int(in_set.sum()), secs=mis_secs)
+    if refs is not None:
+        refs.update(lacc=labels["lacc_dist"].cpu().numpy(),
+                    mis=mis.cpu().numpy(), lacc_secs=secs["lacc_dist"],
+                    mis_secs=mis_secs)
     b = out["bfs"]
     log(f"  4x4 grid: block capacity {dm.capacity}, imbalance "
         f"{out['block_imbalance']:.3f}, distributed in "
@@ -3094,19 +3113,22 @@ def _host_route(idx, val, mask, init, combine: str):
     return out, hit
 
 
-def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
+def check_vectors(grid, gen, n: int = VEC_LEN,
+                  refs: dict | None = None) -> dict:
     """Phase 19's other vector functions at length ``n`` on ``grid``,
     against numpy: ``dist_rand_perm`` a permutation with its padding
     slots ``n`` (two generators of one seed give one permutation);
     ``dist_invert`` of it and of values with duplicates (largest index
     kept); ``dist_uniq`` of floats with repeats, -0.0 and NaNs (smallest
     index kept, by key, a dead slot taking the pad key); ``dist_gather``
-    with indices out of range; and
+    with indices out of range; ``dist_apply_perm`` by the permutation; and
     ``dist_route`` with every combine on quarter-integer values (sums
     exact) with duplicate, masked and out-of-range indices.  Every call
     is made twice, on random floats for the route, and must repeat bit for
-    bit.  Times from CUDA events."""
+    bit.  Times from CUDA events.  ``refs`` gets ``"vectors"``: every
+    input and output on the host, which phase 26's pod must give again."""
     from combblas_tpu_torch.parallel.vector import (
+        dist_apply_perm,
         dist_gather,
         dist_invert,
         dist_rand_perm,
@@ -3115,6 +3137,10 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
     )
 
     dev = grid.device
+    held = {}
+
+    def kept(**arrays):
+        held.update({k: v.cpu().numpy() for k, v in arrays.items()})
     seed = int(torch.randint(0, 1 << 30, (1,), generator=gen, device=dev))
     perm = _twice(lambda: dist_rand_perm(torch.Generator(
         device=dev).manual_seed(seed), n, grid), "dist_rand_perm")
@@ -3126,6 +3152,7 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
                              "padding sentinels")
     ms = dict(dist_rand_perm=cuda_ms(lambda: dist_rand_perm(
         torch.Generator(device=dev).manual_seed(seed), n, grid), reps=3))
+    kept(perm=perm)
     # invert: of the permutation, and of values with duplicates
     live = torch.rand(n_pad, generator=gen, device=dev) < 0.8
     dup = torch.randint(0, n_pad // 4, (n_pad,), generator=gen, device=dev,
@@ -3139,7 +3166,9 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
         if not (np.array_equal(got.cpu().numpy(), want)
                 and np.array_equal(hit.cpu().numpy(), want >= 0)):
             raise AssertionError(f"dist_invert ({label}) differs from numpy")
+        kept(**{f"invert_{label}": got, f"invert_{label}_hit": hit})
     ms["dist_invert"] = cuda_ms(lambda: dist_invert(dup, live, grid), reps=3)
+    kept(dup=dup, live=live)
     # uniq: floats with repeats and specials
     fv = sort_values(gen, n_pad, dev)
     fv[torch.randint(0, n_pad, (n_pad // 2,), generator=gen, device=dev)] = \
@@ -3158,6 +3187,7 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
                            want.view(np.uint32))
             and np.array_equal(hit.cpu().numpy(), whit)):
         raise AssertionError("dist_uniq differs from numpy")
+    kept(fv=fv, uniq=got, uniq_hit=hit)
     ms["dist_uniq"] = cuda_ms(lambda: dist_uniq(fv, live, grid), reps=3)
     # gather
     x = torch.randn(n_pad, generator=gen, device=dev)
@@ -3168,7 +3198,19 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
     if not np.array_equal(got.cpu().numpy(),
                           np.where(ok, xh[np.clip(gih, 0, n_pad - 1)], 0)):
         raise AssertionError("dist_gather differs from numpy")
+    kept(x=x, gi=gi, gather=got)
     ms["dist_gather"] = cuda_ms(lambda: dist_gather(x, gi, grid), reps=3)
+    # apply_perm: y[perm[i]] = x[i]; the padding slots all name slot n,
+    # where the last of them lands (JAX's rule: perm < n_pad routes)
+    got = _twice(lambda: dist_apply_perm(x, perm, grid), "dist_apply_perm")
+    want = np.zeros(n_pad, np.float32)
+    want[ph[:n]] = xh[:n]
+    want[n] = xh[n_pad - 1]
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("dist_apply_perm differs from numpy")
+    kept(apply_perm=got)
+    ms["dist_apply_perm"] = cuda_ms(lambda: dist_apply_perm(x, perm, grid),
+                                    reps=3)
     # route: duplicates (every slot about twice), masked, out of range
     ri = torch.randint(0, n_pad // 2, (n_pad,), generator=gen, device=dev)
     ri[torch.randint(0, n_pad, (64,), generator=gen, device=dev)] = n_pad + 1
@@ -3176,6 +3218,7 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
     rq = torch.randint(-64, 64, (n_pad,), generator=gen, device=dev) / 4.0
     init = torch.randint(-64, 64, (n_pad,), generator=gen, device=dev) / 4.0
     rf = torch.randn(n_pad, generator=gen, device=dev)
+    kept(ri=ri, rq=rq, init=init, rf=rf)
     for combine in ("set", "sum", "min", "max"):
         got, hit = _twice(lambda: dist_route(ri, rq, live, init, grid,
                                              combine=combine),
@@ -3185,14 +3228,21 @@ def check_vectors(grid, gen, n: int = VEC_LEN) -> dict:
         if not (np.array_equal(got.cpu().numpy(), want)
                 and np.array_equal(hit.cpu().numpy(), whit)):
             raise AssertionError(f"dist_route({combine}) differs from numpy")
-        _twice(lambda: dist_route(ri, rf, live, init, grid, combine=combine),
-               f"dist_route({combine}) on random floats")
+        gotf, hitf = _twice(lambda: dist_route(ri, rf, live, init, grid,
+                                               combine=combine),
+                            f"dist_route({combine}) on random floats")
+        kept(**{f"route_{combine}": got, f"route_{combine}_hit": hit,
+                f"route_{combine}_rf": gotf, f"route_{combine}_rf_hit": hitf})
         ms[f"dist_route_{combine}"] = cuda_ms(lambda: dist_route(
             ri, rf, live, init, grid, combine=combine), reps=3)
     out = dict(n=n, n_pad=n_pad, grid=[grid.pr, grid.pc], ms=ms)
+    if refs is not None:
+        refs["vectors"] = dict(held, seed=np.asarray(seed), n=np.asarray(n),
+                               ms=ms)
     log(f"  vectors of {n} ({n_pad} padded): rand_perm, invert, uniq, "
-        f"gather and route (set/sum/min/max) equal numpy and repeat bit for "
-        f"bit; ms {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+        f"gather, apply_perm and route (set/sum/min/max) equal numpy and "
+        f"repeat bit for bit; ms "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
     return out
 
 
@@ -3211,12 +3261,15 @@ def _same_live(a, b) -> bool:
         _same_bits(x, y) for x, y in zip(_live_entries(a), _live_entries(b)))
 
 
-def permute_full(s, seed: int, side: int = DIST_SIDE) -> dict:
+def permute_full(s, seed: int, side: int = DIST_SIDE,
+                 refs: dict | None = None) -> dict:
     """``dist_permute`` of phase 17's matrix ``s`` on a side x side grid by
     a ``dist_rand_perm`` permutation: equal to the host relabelling of the
     entries (keys and values exact), repeated bit for bit, and the inverse
     permutation (``dist_invert``) gives the matrix back, every block's
-    live entries exact.  Host seconds and retries (capacity doublings)."""
+    live entries exact.  Host seconds and retries (capacity doublings).
+    ``refs`` gets ``"permute"``: the padded permutation and the output's
+    :func:`block_digests`, which phase 26's pod must give again."""
     from combblas_tpu_torch.parallel.indexing import dist_permute
     from combblas_tpu_torch.parallel.vector import dist_invert, dist_rand_perm
 
@@ -3238,6 +3291,9 @@ def permute_full(s, seed: int, side: int = DIST_SIDE) -> dict:
             (out.nnz, again.nnz))):
         raise AssertionError("dist_permute: two calls differ")
     del again
+    if refs is not None:
+        refs["permute"] = dict(perm=full.cpu().numpy(),
+                               digests=block_digests(out), secs=secs)
     t = time.perf_counter()
     r, c, v = _host_permuted(s, perm.cpu().numpy())
     loc = out.to_local()
@@ -3290,7 +3346,8 @@ def _entries_equal(got, r, c, v, label: str, rtol: float = 0.0) -> float:
     return rel
 
 
-def dist_indexing_full(a, seed: int, side: int = DIST_SIDE) -> dict:
+def dist_indexing_full(a, seed: int, side: int = DIST_SIDE,
+                       refs: dict | None = None) -> dict:
     """``dist_spref``, ``dist_prune_block`` and ``dist_spasgn`` of phase 15's
     graph on a side x side grid, on phase 16's vertices: ``dist_spref``
     against phase 16's local ``spref`` (keys exact, values within 1e-6
@@ -3298,7 +3355,9 @@ def dist_indexing_full(a, seed: int, side: int = DIST_SIDE) -> dict:
     ``dist_spasgn`` of twice the submatrix back into A against the host
     assignment (A with its v x v entries doubled), keys and values exact.
     The K1/K2 (or K3/K4) launches of ``dist_spref`` and ``dist_spasgn``
-    are read around the calls."""
+    are read around the calls.  ``refs`` gets ``"indexing"``: the graph's
+    arrays and the :func:`block_digests` of the three outputs, which phase
+    26's pod must give again."""
     from combblas_tpu_torch.ops.indexing import spref
     from combblas_tpu_torch.parallel.elementwise import dist_apply
     from combblas_tpu_torch.parallel.indexing import (
@@ -3339,6 +3398,7 @@ def dist_indexing_full(a, seed: int, side: int = DIST_SIDE) -> dict:
     out["prune_block_secs"] = time.perf_counter() - t
     _entries_equal(pruned.to_local(), row[~blk], col[~blk], val[~blk],
                    "dist_prune_block")
+    digests = dict(spref=block_digests(sub), prune_block=block_digests(pruned))
     del pruned
     b2 = dist_apply(sub, lambda x: 2.0 * x)
     _sync(dev)
@@ -3351,6 +3411,14 @@ def dist_indexing_full(a, seed: int, side: int = DIST_SIDE) -> dict:
     _expand_compress_launches(out["spasgn_launches"], "dist_spasgn")
     _entries_equal(asg.to_local(), row, col, np.where(blk, 2 * val, val),
                    "dist_spasgn")
+    if refs is not None:
+        g_row, g_col, g_val, g_nnz, g_shape = a.to_numpy()
+        refs["indexing"] = dict(
+            digests=dict(digests, spasgn=block_digests(asg)),
+            graph=dict(row=g_row[:g_nnz], col=g_col[:g_nnz],
+                       val=g_val[:g_nnz], shape=np.asarray(g_shape)),
+            secs={k: out[f"{k}_secs"] for k in ("spref", "prune_block",
+                                                 "spasgn")})
     out["launches"] = {k: out["spref_launches"].get(k, 0)
                        + out["spasgn_launches"].get(k, 0)
                        for k in set(out["spref_launches"])
@@ -3416,14 +3484,18 @@ def check_cluster_labels(lab: np.ndarray, a, live: np.ndarray) -> int:
     return clusters
 
 
-def mcl_preprocess_full(a, seed: int, side: int = DIST_SIDE) -> dict:
+def mcl_preprocess_full(a, seed: int, side: int = DIST_SIDE,
+                        refs: dict | None = None) -> dict:
     """Phase 20: ``mcl_dist(preprocess=True)`` on phase 15's graph plus
     self loops on its vertices of degree >= 1, a side x side grid, one
     phase, a seeded generator: a timed run as a user calls it (per
     iteration host seconds, K1/K2 at least once an iteration); its labels
     checked (:func:`check_cluster_labels`); equal to the hand-composed
     preprocessing (:func:`_hand_preprocessed`) with a generator of the
-    same seed; a second run with the same seed bit-identical."""
+    same seed; a second run with the same seed bit-identical.  ``refs``
+    gets ``"mcl_preprocess"``: the graph's arrays, the seed, the labels,
+    the iterations and the isolated count, which phase 26's pod must give
+    again, and the timed run's seconds and peak."""
     from combblas_tpu_torch.models.mcl import MCLParams
 
     dev = a.device
@@ -3467,6 +3539,16 @@ def mcl_preprocess_full(a, seed: int, side: int = DIST_SIDE) -> dict:
                launches=launches,
                launches_per_iter={k: c / iters for k, c in launches.items()},
                peak_mem_gb=peak / 2**30, hand_composed_secs=hand_secs)
+    if refs is not None:
+        g_row, g_col, g_val, g_nnz, g_shape = a.to_numpy()
+        refs["mcl_preprocess"] = dict(
+            graph=dict(row=g_row[:g_nnz], col=g_col[:g_nnz],
+                       val=g_val[:g_nnz], shape=np.asarray(g_shape),
+                       seed=np.asarray(seed)),
+            labels=lab, iters=int(iters), isolated=out["isolated"],
+            one={k: out[k] for k in ("first_iter_secs",
+                                     "steady_secs_per_iter", "total_secs",
+                                     "peak_mem_gb")})
     log(f"  {out['isolated']} isolated vertices of {n}; {iters} iterations, "
         f"converged {out['converged']}, {clusters} clusters; first "
         f"{secs[0]:.4f} s, steady {out['steady_secs_per_iter']:.4f} s/iter, "
@@ -4707,16 +4789,13 @@ def _pod_k9(dm, a, dev) -> dict:
     return out
 
 
-def _pod_bfs(dev, d: str, seed: int) -> dict:
-    """``bfs_dist`` of phase 8's graph on a 4x4 grid over the processes
-    from phase 8's first roots: levels equal phase 8's, Graph500-valid."""
+def _pod_bfs(s, dm, dev, d: str) -> dict:
+    """``bfs_dist`` of phase 8's graph ``s`` (``dm`` on a 4x4 grid over the
+    processes) from phase 8's first roots: levels equal phase 8's,
+    Graph500-valid."""
     from combblas_tpu_torch.models.bfs import bfs_dist
     from combblas_tpu_torch.parallel import exchange
-    from combblas_tpu_torch.parallel.multihost import pod_grid
-    s = spmm_bfs_graphs(seed, dev, GRAPH_SCALE)["s"]
     n = s.shape[0]
-    dm = DistSpMat.from_local(s, pod_grid(pr=DIST_SIDE, pc=DIST_SIDE,
-                                          device=dev))
     roots = np.load(os.path.join(d, "roots.npy"))
     want = np.load(os.path.join(d, "levels.npy"))
     runs = []
@@ -4733,6 +4812,137 @@ def _pod_bfs(dev, d: str, seed: int) -> dict:
                                  "not validate")
         runs.append(dict(line, root=int(r), levels=int(lv.max()) + 1))
     return dict(runs=runs, nnz=int(s.nnz))
+
+
+def _whole_equal(got, want: np.ndarray, label: str) -> None:
+    """This process's slice ``got`` of a vector, all-gathered, equals
+    ``want`` (a host array, cut to the same length) byte for byte."""
+    from combblas_tpu_torch.parallel import exchange
+    whole = exchange.allgather_var([got])[0].cpu().numpy()
+    k = min(whole.shape[0], want.shape[0])
+    if whole.shape[0] < want.shape[0] or not np.array_equal(
+            whole[:k].view(np.uint8), np.ascontiguousarray(want[:k])
+            .view(np.uint8)):
+        raise AssertionError(f"{label} across processes differs from one "
+                             "process's")
+
+
+def _pod_lacc_mis(dm, dev, d: str, seed: int) -> dict:
+    """``lacc_dist`` and ``luby_mis_dist`` (phase 17's seed) of phase 8's
+    graph on the 4x4 grid over the processes: the labels and the set equal
+    phase 17's."""
+    from combblas_tpu_torch.models.lacc import lacc_dist
+    from combblas_tpu_torch.models.mis import luby_mis_dist
+    labels, lacc = _pod_call("lacc", lambda: lacc_dist(dm), dev)
+    _whole_equal(labels, np.load(os.path.join(d, "lacc.npy")), "lacc_dist")
+    in_set, mis = _pod_call("mis", lambda: luby_mis_dist(
+        dm, torch.Generator(device=dev).manual_seed(seed)), dev)
+    _whole_equal(in_set, np.load(os.path.join(d, "mis.npy")),
+                 "luby_mis_dist")
+    return dict(lacc=lacc, mis=mis)
+
+
+def _pod_permute(s, dm, dev, d: str, seed: int) -> dict:
+    """Phase 19's permutation of phase 8's graph across the processes:
+    ``dist_rand_perm`` of phase 19's seed (this process's slice equal to
+    phase 19's), then ``dist_permute`` of ``dm`` by it, its blocks
+    digested for the parent."""
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+    from combblas_tpu_torch.parallel.vector import dist_rand_perm
+    n, g = s.shape[0], dm.grid
+    perm, line = _pod_call("dist_rand_perm", lambda: dist_rand_perm(
+        torch.Generator(device=dev).manual_seed(seed), n, g), dev)
+    _whole_equal(perm, np.load(os.path.join(d, "perm.npy")),
+                 "dist_rand_perm")
+    whole = exchange.gather_whole(perm, g)[:n]
+    out, permute = _pod_call("dist_permute", lambda: dist_permute(dm, whole),
+                             dev)
+    permute.update(digests=block_digests(out), capacity=out.capacity,
+                   rand_perm_secs=line["secs"])
+    return permute
+
+
+#: Phase 19's vector calls that phase 26 repeats across processes: name ->
+#: (function name, the inputs' keys in phase 19's ``refs``, keyword
+#: arguments, the outputs' keys).
+POD_VECTOR_CALLS = {
+    "dist_invert_perm": ("dist_invert", ("perm", "perm_live"), {},
+                         ("invert_perm", "invert_perm_hit")),
+    "dist_invert_dup": ("dist_invert", ("dup", "live"), {},
+                        ("invert_dup", "invert_dup_hit")),
+    "dist_uniq": ("dist_uniq", ("fv", "live"), {}, ("uniq", "uniq_hit")),
+    "dist_gather": ("dist_gather", ("x", "gi"), {}, ("gather",)),
+    "dist_apply_perm": ("dist_apply_perm", ("x", "perm"), {},
+                        ("apply_perm",)),
+    **{f"dist_route_{c}{t}": ("dist_route",
+                              ("ri", v, "live", "init"), dict(combine=c),
+                              (f"route_{c}{t}", f"route_{c}{t}_hit"))
+       for c in ("set", "sum", "min", "max")
+       for t, v in (("", "rq"), ("_rf", "rf"))},
+}
+
+
+def _pod_vectors(dev, d: str) -> dict:
+    """Phase 19's vector functions at its length on a 4x4 grid over the
+    processes, on phase 19's inputs (``d/vectors.npz``): ``dist_rand_perm``
+    of phase 19's seed, then every call of :data:`POD_VECTOR_CALLS` on
+    this process's slices; every output equal to phase 19's bit for bit.
+    Host seconds a call between two rendezvous."""
+    from combblas_tpu_torch.parallel import vector
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    z = np.load(os.path.join(d, "vectors.npz"))
+    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
+    n, n_pad = int(z["n"]), z["perm"].shape[0]
+    lo, hi = g.vec_range(n_pad)
+    ins = {k: torch.from_numpy(z[k][lo:hi]).to(dev) for k in (
+        "perm", "dup", "live", "fv", "x", "gi", "ri", "rq", "init", "rf")}
+    ins["perm_live"] = ins["perm"] < n
+    perm, line = _pod_call("dist_rand_perm", lambda: vector.dist_rand_perm(
+        torch.Generator(device=dev).manual_seed(int(z["seed"])), n, g), dev)
+    _whole_equal(perm, z["perm"], "dist_rand_perm")
+    secs = dict(dist_rand_perm=line["secs"])
+    for name, (fn, args, kw, outs) in POD_VECTOR_CALLS.items():
+        got, line = _pod_call(name, lambda fn=fn, args=args, kw=kw: getattr(
+            vector, fn)(*(ins[k] for k in args), g, **kw), dev)
+        got = got if isinstance(got, tuple) else (got,)
+        for x, key in zip(got, outs):
+            _whole_equal(x, z[key], f"{name} ({key})")
+        secs[name] = line["secs"]
+    return dict(n=n, n_pad=n_pad, secs=secs)
+
+
+def _pod_indexing(dev, d: str, seed: int) -> dict:
+    """Phase 19's ``dist_spref``, ``dist_prune_block`` and ``dist_spasgn``
+    of phase 15's graph (``d/indexing_graph.npz``) on phase 16's vertices,
+    on a 4x4 grid over the processes: each output's blocks digested for
+    the parent, the launches read around each call."""
+    from combblas_tpu_torch.parallel.elementwise import dist_apply
+    from combblas_tpu_torch.parallel.indexing import (
+        dist_prune_block,
+        dist_spasgn,
+        dist_spref,
+    )
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    z = np.load(os.path.join(d, "indexing_graph.npz"))
+    shape = tuple(int(x) for x in z["shape"])
+    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"], shape,
+                                   pod_grid(pr=DIST_SIDE, pc=DIST_SIDE,
+                                            device=dev))
+    del z
+    v = half_vertices(shape[0], seed)
+    sub, spref = _pod_call("dist_spref", lambda: dist_spref(dm, v, v), dev)
+    pruned, prune = _pod_call("dist_prune_block",
+                              lambda: dist_prune_block(dm, v, v), dev)
+    prune["digests"] = block_digests(pruned)
+    del pruned
+    b2 = dist_apply(sub, lambda x: 2.0 * x)
+    spref["digests"] = block_digests(sub)
+    del sub
+    asg, spasgn = _pod_call("dist_spasgn", lambda: dist_spasgn(dm, v, v, b2),
+                            dev)
+    spasgn["digests"] = block_digests(asg)
+    return dict(spref=spref, prune_block=prune, spasgn=spasgn)
 
 
 def _pod_sort(dev, seed: int) -> dict:
@@ -4801,36 +5011,19 @@ def _pod_mcl(dev, d: str) -> dict:
     (each iteration's host seconds: an iteration ends in the chaos's max
     over the processes, a rendezvous; the launches read around the run;
     ``rest_secs`` what is not an iteration: the first normalisation, the
-    transpose, the sum and FastSV; the peak memory), its label slice
-    saved to ``d/mcl_labels_rank<r>.npy``; a run of as many iterations
-    that digests every iterate's blocks (:func:`block_digests`); and a
-    ``phases=2`` run of ``MCL_PHASES_ITERS`` iterations, its last iterate
-    digested.  Each run is watched by :class:`MCLDistWatch` ``light``, as
-    phase 18's timed run is."""
+    transpose, the sum and FastSV; the peak memory; its label slice saved
+    to ``d/mcl_labels_rank<r>.npy``: :func:`_pod_mcl_timed`); a run of as
+    many iterations that digests every iterate's blocks
+    (:func:`block_digests`); and a ``phases=2`` run of
+    ``MCL_PHASES_ITERS`` iterations, its last iterate digested.  Each run
+    is watched by :class:`MCLDistWatch` ``light``, as phase 18's timed
+    run is."""
     from combblas_tpu_torch.models import mcl as mcl_mod
-    from combblas_tpu_torch.parallel import exchange
-    from combblas_tpu_torch.parallel.multihost import pod_grid
-    z = np.load(os.path.join(d, "mcl_graph.npz"))
-    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
-    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"],
-                                   tuple(int(x) for x in z["shape"]), g)
-    del z
-    p = mcl_mod.MCLParams(**MCL_PARAMS)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with MCLDistWatch(p, light=True) as w:
-        (labels, iters), line = _pod_call(
-            "mcl", lambda: mcl_mod.mcl_dist(dm, p), dev)
-    secs = [r["iter_secs"] for r in w.rows]
-    line.update(iters=int(iters), iter_secs=secs,
-                rest_secs=line["secs"] - sum(secs),
-                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    np.save(os.path.join(d, f"mcl_labels_rank{exchange.rank()}.npy"),
-            labels.cpu().numpy())
-    del labels, w
+    dm, p, line = _pod_mcl_timed(np.load(os.path.join(d, "mcl_graph.npz")),
+                                 dev, d, "mcl")
     torch.cuda.empty_cache()
     with MCLDistWatch(p, light=True, digests=True) as w:
-        mcl_mod.mcl_dist(dm, dataclasses.replace(p, max_iters=int(iters)))
+        mcl_mod.mcl_dist(dm, dataclasses.replace(p, max_iters=line["iters"]))
     line["digests"] = [r["digests"] for r in w.rows]
     del w
     with MCLDistWatch(p, light=True) as w:
@@ -4838,6 +5031,46 @@ def _pod_mcl(dev, d: str) -> dict:
             p, max_iters=MCL_PHASES_ITERS), phases=2)
     line["digests3"] = block_digests(w.last)
     return line
+
+
+def _pod_mcl_timed(z, dev, d: str, tag: str, **kw):
+    """The matrix of ``z`` (host arrays) on a 4x4 grid over the processes,
+    and ``mcl_dist(.., **kw)`` of it timed as a user calls it, watched by
+    :class:`MCLDistWatch` ``light``: each iteration's host seconds (an
+    iteration ends in the chaos's max over the processes, a rendezvous),
+    the launches read around the run, ``rest_secs`` what is not an
+    iteration, the peak memory; its label slice saved to
+    ``d/<tag>_labels_rank<r>.npy``.  Returns (matrix, params, line)."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
+    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"],
+                                   tuple(int(x) for x in z["shape"]), g)
+    p = mcl_mod.MCLParams(**MCL_PARAMS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with MCLDistWatch(p, light=True) as w:
+        (labels, iters), line = _pod_call(
+            tag, lambda: mcl_mod.mcl_dist(dm, p, **kw), dev)
+    secs = [r["iter_secs"] for r in w.rows]
+    line.update(iters=int(iters), iter_secs=secs,
+                rest_secs=line["secs"] - sum(secs),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    np.save(os.path.join(d, f"{tag}_labels_rank{exchange.rank()}.npy"),
+            labels.cpu().numpy())
+    return dm, p, line
+
+
+def _pod_mcl_preprocess(dev, d: str) -> dict:
+    """``mcl_dist(preprocess=True)`` of phase 20's matrix
+    (``d/preprocess_graph.npz``, with phase 20's generator seed) on a 4x4
+    grid over the processes, timed as :func:`_pod_mcl` times its run
+    (:func:`_pod_mcl_timed`)."""
+    z = np.load(os.path.join(d, "preprocess_graph.npz"))
+    gen = torch.Generator(device=dev).manual_seed(int(z["seed"]))
+    return _pod_mcl_timed(z, dev, d, "mcl_preprocess", preprocess=True,
+                          generator=gen)[2]
 
 
 def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
@@ -4860,6 +5093,8 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         res["io"] = _pod_io(dev, d, seed)
     elif scenario == "mcl":
         res["mcl"] = _pod_mcl(dev, d)
+        torch.cuda.empty_cache()
+        res["mcl_preprocess"] = _pod_mcl_preprocess(dev, d)
     else:
         a = a2_matrix(seed, dev, AUTO_SCALE)
         dm = DistSpMat.from_local(a, pod_grid(pr=4, pc=4, device=dev))
@@ -4870,9 +5105,19 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         res["k9"] = _pod_k9(dm, a, dev)
         del a, dm
         torch.cuda.empty_cache()
-        res["bfs"] = _pod_bfs(dev, d, seed)
+        s = spmm_bfs_graphs(seed, dev, GRAPH_SCALE)["s"]
+        dm = DistSpMat.from_local(s, pod_grid(pr=DIST_SIDE, pc=DIST_SIDE,
+                                              device=dev))
+        res["bfs"] = _pod_bfs(s, dm, dev, d)
+        res["lacc_mis"] = _pod_lacc_mis(dm, dev, d, seed)
+        res["permute"] = _pod_permute(s, dm, dev, d, seed)
+        del s, dm
         torch.cuda.empty_cache()
         res["sort"] = _pod_sort(dev, seed)
+        torch.cuda.empty_cache()
+        res["vectors"] = _pod_vectors(dev, d)
+        torch.cuda.empty_cache()
+        res["indexing"] = _pod_indexing(dev, d, seed)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     with open(os.path.join(d, f"{scenario}_rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
@@ -4943,9 +5188,12 @@ def pod_full(seed: int, refs: dict, dev) -> dict:
     a 4-process pod: ``summa_spgemm_auto`` 4x4 (K1/K2) equal to phase
     13's, the ring SUMMA 4x4 equal to phase 14's (K9 across processes), K9
     across processes alone against its ``gloo`` plain version, ``bfs_dist``
-    from 4 of phase 8's roots and ``dist_sort_auto`` of 2^26 float32;
-    then HipMCL's pod path in a 4-process launch of its own
-    (:func:`_pod_mcl`, :func:`check_pod_mcl`)."""
+    from 4 of phase 8's roots, ``lacc_dist`` and ``luby_mis_dist`` (phase
+    17's), phase 19's permutation of that graph, ``dist_sort_auto`` of
+    2^26 float32, phase 19's vector calls and its SpRef / block prune /
+    SpAsgn; then HipMCL's pod path in a 4-process launch of its own
+    (:func:`_pod_mcl`, :func:`check_pod_mcl`), with its preprocessing
+    (:func:`_pod_mcl_preprocess`, :func:`check_pod_mcl_preprocess`)."""
     d = os.path.abspath(os.path.join("chiprun_out", "pod"))
     os.makedirs(d, exist_ok=True)
     try:
@@ -4962,6 +5210,15 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     np.save(os.path.join(d, "roots.npy"), np.asarray(refs["roots"]))
     np.save(os.path.join(d, "levels.npy"), refs["levels"])
     np.savez(os.path.join(d, "mcl_graph.npz"), **refs["mcl"]["graph"])
+    for name in ("lacc", "mis"):
+        np.save(os.path.join(d, f"{name}.npy"), refs[name])
+    np.save(os.path.join(d, "perm.npy"), refs["permute"]["perm"])
+    np.savez(os.path.join(d, "vectors.npz"), **{
+        k: v for k, v in refs["vectors"].items() if isinstance(v, np.ndarray)})
+    np.savez(os.path.join(d, "indexing_graph.npz"),
+             **refs["indexing"]["graph"])
+    np.savez(os.path.join(d, "preprocess_graph.npz"),
+             **refs["mcl_preprocess"]["graph"])
     a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed), IO_SCALE,
                     16)
     dm = DistSpMat.from_local(a, ProcGrid.make(2, 2, device=dev))
@@ -4989,12 +5246,22 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
                   "summa_spgemm_auto 4x4 across 4 processes")
     _same_digests(four, "rma_4x4", refs["summa_spgemm_rma 4x4"],
                   "summa_spgemm_rma 4x4 across 4 processes")
+    _same_digests(four, "permute", refs["permute"]["digests"],
+                  "dist_permute of phase 8's graph across 4 processes")
+    index = [r["indexing"] for r in four]
+    for key in ("spref", "prune_block", "spasgn"):
+        _same_digests(index, key, refs["indexing"]["digests"][key],
+                      f"dist_{key} of phase 15's graph across 4 processes")
     launches = {"summa_2x2": _sum_launches(two, "summa_2x2"),
                 "summa_4x4": _sum_launches(four, "summa_4x4"),
-                "rma_4x4": _sum_launches(four, "rma_4x4")}
+                "rma_4x4": _sum_launches(four, "rma_4x4"),
+                "spref": _sum_launches(index, "spref"),
+                "spasgn": _sum_launches(index, "spasgn")}
     want = {"summa_2x2": ("expand_i64", "compress_i64"),
             "summa_4x4": ("expand_i32", "compress_i32"),
-            "rma_4x4": ("ring_shift", "ring_shift_pod")}
+            "rma_4x4": ("ring_shift", "ring_shift_pod"),
+            "spref": ("expand_i32", "compress_i32"),
+            "spasgn": ("expand_i32", "compress_i32")}
     for key, names in want.items():
         if any(launches[key].get(k, 0) < 1 for k in names):
             raise AssertionError(f"pod {key} launched {launches[key]}, "
@@ -5015,7 +5282,21 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
                  for k in two[0]["io"]},
         bfs=[dict(root=run["root"], levels=run["levels"], secs=max(
             r["bfs"]["runs"][i]["secs"] for r in four))
-            for i, run in enumerate(four[0]["bfs"]["runs"])])
+            for i, run in enumerate(four[0]["bfs"]["runs"])],
+        vectors=dict(secs={k: max(r["vectors"]["secs"][k] for r in four)
+                           for k in four[0]["vectors"]["secs"]},
+                     one_process_ms=refs["vectors"]["ms"]),
+        permute=dict(secs=max(r["permute"]["secs"] for r in four),
+                     rand_perm_secs=max(r["permute"]["rand_perm_secs"]
+                                        for r in four),
+                     capacity=four[0]["permute"]["capacity"],
+                     one_process_secs=refs["permute"]["secs"]),
+        lacc_mis={k: dict(secs=max(r["lacc_mis"][k]["secs"] for r in four),
+                          one_process_secs=refs[f"{k}_secs"])
+                  for k in ("lacc", "mis")},
+        indexing={k: dict(secs=max(r["indexing"][k]["secs"] for r in four),
+                          one_process_secs=refs["indexing"]["secs"][k])
+                  for k in ("spref", "prune_block", "spasgn")})
     log(f"  2 processes: summa_spgemm_auto 2x2 equals phase 13's blocks "
         f"({out['secs']['summa_2x2']:.3f} s, launches "
         f"{launches['summa_2x2']}); I/O files byte-equal, read equal "
@@ -5027,6 +5308,15 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
         f"bfs_dist levels equal phase 8's and validate ({out['bfs']}); "
         f"dist_sort_auto 2^{POD_SORT_LOG2} equals torch.sort "
         f"({out['secs']['sort']:.3f} s)")
+    log(f"  4 processes: phase 19's vector calls at {VEC_LEN} equal phase "
+        f"19's bit for bit (secs {out['vectors']['secs']}); dist_permute of "
+        f"phase 8's graph equals phase 19's blocks "
+        f"({out['permute']['secs']:.3f} s, one process "
+        f"{out['permute']['one_process_secs']:.3f}); lacc_dist and "
+        f"luby_mis_dist equal phase 17's ({out['lacc_mis']}); dist_spref / "
+        f"dist_prune_block / dist_spasgn equal phase 19's "
+        f"({out['indexing']}; launches {launches['spref']}, "
+        f"{launches['spasgn']})")
     for case, r in k9.items():
         log(f"  K9 across 4 processes ({case}): bit for bit its gloo plain "
             f"version; one push alone {r['ms']:.4f} ms (CUDA events, L2 "
@@ -5038,7 +5328,74 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     mcl = _run_pod("mcl", d, seed)
     out["mcl_secs"] = time.perf_counter() - t
     out["mcl"] = check_pod_mcl(mcl, refs["mcl"], d)
+    out["mcl_preprocess"] = check_pod_mcl_preprocess(
+        mcl, refs["mcl_preprocess"], d)
+    out["launches"].update(mcl=out["mcl"]["launches"],
+                           mcl_preprocess=out["mcl_preprocess"]["launches"])
     return out
+
+
+def check_pod_mcl_preprocess(ranks, ref: dict, d: str) -> dict:
+    """The preprocessed pod MCL against phase 20 (``ref``, from
+    :func:`mcl_preprocess_full`): the iteration count equal; every
+    process's label slice, put together and cut to n, equal to phase 20's
+    labels bit for bit, phase 20's isolated count among them; K1 and K2,
+    summed over the processes, launched at least once each an iteration.
+    Reports the slowest process's seconds and every worker's peak beside
+    phase 20's."""
+    iters = ref["iters"]
+    got = [r["mcl_preprocess"]["iters"] for r in ranks]
+    if got != [iters] * len(ranks):
+        raise AssertionError(f"mcl_dist(preprocess=True) across processes: "
+                             f"iterations {got}, phase 20 took {iters}")
+    want = ref["labels"]
+    n = want.shape[0]
+    labels = np.concatenate([np.load(os.path.join(
+        d, f"mcl_preprocess_labels_rank{r['rank']}.npy")) for r in ranks])[:n]
+    if not np.array_equal(labels, want):
+        raise AssertionError("mcl_dist(preprocess=True) across processes: "
+                             "labels differ from phase 20's")
+    isolated = int((labels >= n).sum())
+    if isolated != ref["isolated"]:
+        raise AssertionError(f"mcl_dist(preprocess=True) across processes: "
+                             f"{isolated} isolated vertices, phase 20 had "
+                             f"{ref['isolated']}")
+    launches = _sum_launches(ranks, "mcl_preprocess")
+    _k1k2_each_iteration(launches, iters,
+                         "mcl_dist(preprocess=True) across processes")
+    out = dict(
+        grid=[DIST_SIDE, DIST_SIDE], processes=len(ranks), iters=iters,
+        isolated=isolated, clusters=int(np.unique(labels).size),
+        **_pod_mcl_secs(ranks, "mcl_preprocess", iters), launches=launches,
+        one_process=ref["one"])
+    secs = out["iter_secs"]
+    one = ref["one"]
+    log(f"  mcl_dist(preprocess=True) across 4 processes, 4x4: {iters} "
+        f"iterations, {isolated} isolated vertices and labels "
+        f"({out['clusters']} distinct) equal phase 20's; launches "
+        f"{launches}; first {secs[0]:.4f} s, steady "
+        f"{out['steady_secs_per_iter']:.4f} s/iter, total "
+        f"{out['total_secs']:.3f} s, rest (preprocessing, normalisation, "
+        f"transpose, FastSV, labels back) {out['rest_secs']:.3f} s, peak GiB "
+        f"per worker {[round(x, 2) for x in out['peak_gib']]}; one process "
+        f"(phase 20): first {one['first_iter_secs']:.4f} s, steady "
+        f"{one['steady_secs_per_iter']:.4f} s/iter, total "
+        f"{one['total_secs']:.3f} s, peak {one['peak_mem_gb']:.2f} GiB")
+    return out
+
+
+def _pod_mcl_secs(ranks, key: str, iters: int) -> dict:
+    """The slowest process's seconds of the timed pod MCL run ``key``:
+    each iteration's, the first, the steady (the median from the third
+    on), the total and the rest; and every worker's peak."""
+    secs = [max(r[key]["iter_secs"][i] for r in ranks)
+            for i in range(iters)]
+    steady = sorted(secs[2:] or secs)
+    return dict(first_iter_secs=secs[0],
+                steady_secs_per_iter=steady[len(steady) // 2],
+                total_secs=max(r[key]["secs"] for r in ranks),
+                rest_secs=max(r[key]["rest_secs"] for r in ranks),
+                iter_secs=secs, peak_gib=[r[key]["peak_gib"] for r in ranks])
 
 
 def check_pod_mcl(ranks, ref: dict, d: str) -> dict:
@@ -5076,19 +5433,14 @@ def check_pod_mcl(ranks, ref: dict, d: str) -> dict:
         for k, v in r["mcl"]["launches"].items():
             launches[k] = launches.get(k, 0) + v
     _k1k2_each_iteration(launches, iters, "mcl_dist across processes")
-    secs = [max(r["mcl"]["iter_secs"][i] for r in ranks)
-            for i in range(iters)]
-    steady = sorted(secs[2:] or secs)
     out = dict(
         grid=[DIST_SIDE, DIST_SIDE], processes=len(ranks), phases=1,
         iters=iters, clusters=int(np.unique(labels).size),
         iterate_nnz=[sum(x[2] for x in ref["digests"][i])
                      for i in range(iters)],
-        first_iter_secs=secs[0], steady_secs_per_iter=steady[len(steady) // 2],
-        total_secs=max(r["mcl"]["secs"] for r in ranks),
-        rest_secs=max(r["mcl"]["rest_secs"] for r in ranks), iter_secs=secs,
-        peak_gib=[r["mcl"]["peak_gib"] for r in ranks], launches=launches,
+        **_pod_mcl_secs(ranks, "mcl", iters), launches=launches,
         one_process=ref["one"])
+    secs = out["iter_secs"]
     if out["iterate_nnz"] != ref["nnz"]:
         raise AssertionError("mcl_dist: phase 18's digests and nnz disagree")
     one = ref["one"]
@@ -5216,13 +5568,14 @@ def main() -> int:
     log(f"phase 17: dist_spmv, bfs_dist, bfs_dir_opt_dist, fastsv_dist, "
         f"lacc_dist, luby_mis_dist, scale-{GRAPH_SCALE} symmetrized R-MAT "
         f"on a {DIST_SIDE}x{DIST_SIDE} block grid")
-    dist_line = dist_graph_full(graphs["s"], *graphs["bfs_check"], args.seed)
-    log(json.dumps(dict(dist_line, scale=GRAPH_SCALE)))
-    phase_secs["17"] = time.perf_counter() - t
     s21 = graphs["s"]        # phase 8's graph, for phases 19, 21 and 24
     roots21 = graphs["bfs_check"][0]
     pod_refs = dict(roots=np.asarray(roots21),
                     levels=graphs["bfs_check"][1].cpu().numpy())
+    dist_line = dist_graph_full(s21, *graphs["bfs_check"], args.seed,
+                                refs=pod_refs)
+    log(json.dumps(dict(dist_line, scale=GRAPH_SCALE)))
+    phase_secs["17"] = time.perf_counter() - t
     del graphs
     torch.cuda.empty_cache()
 
@@ -5325,11 +5678,12 @@ def main() -> int:
         f"graph, dist_spref / dist_prune_block / dist_spasgn of phase 15's, "
         f"{DIST_SIDE}x{DIST_SIDE}")
     vector_line = dict(sorts=check_sorts(grid44, gen),
-                       vectors=check_vectors(grid44, gen))
+                       vectors=check_vectors(grid44, gen, refs=pod_refs))
     torch.cuda.empty_cache()
-    vector_line["permute"] = permute_full(s21, args.seed)
+    vector_line["permute"] = permute_full(s21, args.seed, refs=pod_refs)
     torch.cuda.empty_cache()
-    vector_line["indexing"] = dist_indexing_full(a_mcl, args.seed)
+    vector_line["indexing"] = dist_indexing_full(a_mcl, args.seed,
+                                                 refs=pod_refs)
     log(json.dumps(vector_line))
     torch.cuda.empty_cache()
     phase_secs["19"] = time.perf_counter() - t
@@ -5338,7 +5692,7 @@ def main() -> int:
     t = time.perf_counter()
     log(f"phase 20: mcl_dist(preprocess=True), phase 15's graph with self "
         f"loops on its vertices of degree >= 1, {DIST_SIDE}x{DIST_SIDE}")
-    preprocess_line = mcl_preprocess_full(a_mcl, args.seed)
+    preprocess_line = mcl_preprocess_full(a_mcl, args.seed, refs=pod_refs)
     del a_mcl
     torch.cuda.empty_cache()
     preprocess_line["card_vs_cpu"] = mcl_preprocess_card_vs_cpu(args.seed,
@@ -5401,9 +5755,11 @@ def main() -> int:
     t = time.perf_counter()
     log(f"phase 26: the pod on one card: summa_spgemm_auto 2x2 over 2 "
         f"processes and 4x4 over 4, summa_spgemm_rma 4x4 (K9 across "
-        f"processes), bfs_dist of phase 8's graph, dist_sort_auto "
-        f"2^{POD_SORT_LOG2}, cooperative I/O at scale {IO_SCALE}; mcl_dist "
-        f"of phase 18's matrix, 4x4 over 4 processes")
+        f"processes), bfs_dist / lacc_dist / luby_mis_dist / dist_permute "
+        f"of phase 8's graph, dist_sort_auto 2^{POD_SORT_LOG2}, phase 19's "
+        f"vector calls and SpRef / SpAsgn, cooperative I/O at scale "
+        f"{IO_SCALE}; mcl_dist of phase 18's matrix and "
+        f"mcl_dist(preprocess=True) of phase 20's, 4x4 over 4 processes")
     torch.cuda.empty_cache()
     pod_line = pod_full(args.seed, pod_refs, dev)
     log(json.dumps(pod_line))
@@ -5444,6 +5800,13 @@ def main() -> int:
                          "launches"].get(k["name"], 0),
                      launches_galerkin=mg_line["launches"].get(k["name"],
                                                                0),
+                     launches_pod_mcl=pod_line["launches"]["mcl"].get(
+                         k["name"], 0),
+                     launches_pod_dist_indexing=sum(
+                         pod_line["launches"][c].get(k["name"], 0)
+                         for c in ("spref", "spasgn")),
+                     launches_pod_mcl_preprocess=pod_line["launches"][
+                         "mcl_preprocess"].get(k["name"], 0),
                      launches_seg=seg_line["launches"].get(k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:

@@ -23,9 +23,11 @@ The loops run on the host (capacities change between iterations).
   ``RandPermute`` (:func:`dist_remove_isolated`, :func:`dist_rand_permute`:
   ``dist_permute`` owner exchanges) and translates the labels back.
   On a grid over several processes (a pod) ``mcl_dist`` runs with
-  ``layers == 1`` and without the preprocessing: every stage is the pod
-  form of its distributed op, every branch and the loop's stop read values
-  reduced over the processes, and the labels are this process's slice.
+  ``layers == 1``, with or without the preprocessing: every stage is the
+  pod form of its distributed op, every branch and the loop's stop read
+  values reduced over the processes, and the labels are this process's
+  slice.  The preprocessing's host maps (length n) are built whole in
+  every process, from one all-gather of their slices.
 """
 
 from __future__ import annotations
@@ -57,7 +59,6 @@ from combblas_tpu_torch.parallel.elementwise import (
     dist_reduce,
     dist_transpose,
 )
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.indexing import dist_permute
 from combblas_tpu_torch.parallel.memefficient import mem_efficient_spgemm
 from combblas_tpu_torch.parallel.vector import dist_rand_perm
@@ -355,26 +356,28 @@ def _mcl_dist_iteration(a: DistSpMat, p: MCLParams, expand: Callable):
     return a2, float(_dist_chaos(a2))
 
 
-@single_process
 def dist_remove_isolated(a: DistSpMat):
     """``RemoveIsolated`` (``MCL.cpp:477``): the vertices with an empty
     column dropped by compacting the kept ones to the front of the index
     space (``gshape`` stays), one ``dist_permute``.  Returns (compacted
-    matrix, host int32 map with -1 for a dropped vertex, kept count)."""
+    matrix, host int32 map with -1 for a dropped vertex, kept count); on
+    a pod every process holds the whole map."""
     n = a.gshape[1]
-    keep = dist_nnz_per_col(a)[:n].cpu().numpy() > 0
+    counts = exchange.gather_whole(dist_nnz_per_col(a), a.grid)
+    keep = counts[:n].cpu().numpy() > 0
     n_keep = int(keep.sum())
     vmap = np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
     return dist_permute(a, vmap, vmap), vmap, n_keep
 
 
-@single_process
 def dist_rand_permute(a: DistSpMat, generator: torch.Generator):
     """``RandPermute`` (``MCL.cpp:497``): the symmetric random relabelling
     A(p, p), a ``dist_rand_perm`` drawn from ``generator`` and one
-    ``dist_permute``.  Returns (matrix, host permutation of length n)."""
+    ``dist_permute``.  Returns (matrix, host permutation of length n); on
+    a pod every process holds the whole permutation."""
     n = a.gshape[1]
-    perm = dist_rand_perm(generator, n, a.grid)[:n].cpu().numpy()
+    perm = exchange.gather_whole(dist_rand_perm(generator, n, a.grid),
+                                 a.grid)[:n].cpu().numpy()
     return dist_permute(a, perm), perm
 
 
@@ -389,16 +392,24 @@ def _preprocess(a: DistSpMat, generator):
     return a, np.where(vmap >= 0, perm[np.maximum(vmap, 0)], -1)
 
 
-def _labels_back(labels: torch.Tensor, vmap: np.ndarray,
-                 n_cols: int) -> torch.Tensor:
+def _labels_back(labels: torch.Tensor, vmap: np.ndarray, n_cols: int,
+                 grid) -> torch.Tensor:
     """The labels of the original vertices: a kept vertex takes its
     permuted index's label, an isolated vertex ``n_cols + its index`` (a
-    singleton, apart from every kept label)."""
-    kept = torch.from_numpy(vmap >= 0).to(labels.device)
-    idx = torch.from_numpy(np.maximum(vmap, 0).astype(np.int64)).to(
-        labels.device)
-    own = n_cols + torch.arange(vmap.shape[0], device=labels.device)
-    return torch.where(kept, labels[idx], own.to(labels.dtype))
+    singleton, apart from every kept label).  On a pod, this process's
+    slice of the n labels padded to a multiple of the processes (a pad
+    slot labelled as an isolated vertex), each kept label read from the
+    process that holds it."""
+    n = vmap.shape[0]
+    lo, hi = grid.vec_range(-(-n // grid.nproc) * grid.nproc)
+    part = np.full(hi - lo, -1, np.int32)
+    part[:max(min(hi, n) - lo, 0)] = vmap[lo:hi]
+    dev = labels.device
+    kept = torch.from_numpy(part >= 0).to(dev)
+    idx = torch.from_numpy(np.maximum(part, 0).astype(np.int64)).to(dev)
+    own = n_cols + torch.arange(lo, hi, device=dev)
+    return torch.where(kept, exchange.gather_at(labels, idx, grid),
+                       own.to(labels.dtype))
 
 
 def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
@@ -422,8 +433,12 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
     column-space FullyDist vector of length ``col_vec_len``, or with
     ``preprocess`` one label per original vertex (length n), an isolated
     vertex labelled ``n + its index``.  On a grid over several processes
-    the labels are this process's slice; ``layers > 1`` and ``preprocess``
-    are not ported there yet and raise ``NotImplementedError``."""
+    the labels are this process's slice: of the column-space vector, or
+    with ``preprocess`` its ``vec_range`` slice of the n labels padded to
+    a multiple of the processes (a pad slot i labelled ``n + i``), so that
+    the slices put together and cut to n are one process's labels.
+    ``layers > 1`` is not ported there yet and raises
+    ``NotImplementedError``."""
     p = params or MCLParams()
     if a.grid.is_pod and layers > 1:
         raise NotImplementedError(
@@ -459,5 +474,5 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
     sym = dist_add(a, dist_transpose(a))
     labels = fastsv_dist(sym)
     if vmap is not None:
-        return _labels_back(labels, vmap, a.gshape[1]), it
+        return _labels_back(labels, vmap, a.gshape[1], a.grid), it
     return labels, it

@@ -52,7 +52,8 @@ from combblas_tpu_torch.semiring import _add_identity
 __all__ = ["rank", "size", "barrier", "allgather_host", "any_proc",
            "max_proc", "pull", "gather_blocks", "gather_live", "gather_range",
            "reduce_to_owners", "alltoallv", "route_to_owners", "gather_at",
-           "allgather_var", "gather_table", "ring_slot", "close"]
+           "allgather_var", "gather_whole", "gather_table", "ring_slot",
+           "close"]
 
 #: Byte alignment of every tensor published in an arena.
 _ALIGN = 256
@@ -386,7 +387,8 @@ def gather_range(vecs, grid: ProcGrid, lo: int, hi: int) -> list:
         for k in range(K):
             wants.append((q, k, a - spans[q][0], b - spans[q][0]))
     got = pull(vecs, wants)
-    return [torch.cat(got[k::K]) for k in range(K)]
+    return [torch.cat(got[k::K]) if got else v[:0]
+            for k, v in enumerate(vecs)]
 
 
 def reduce_to_owners(parts, spans, length: int, grid: ProcGrid,
@@ -502,6 +504,16 @@ def allgather_var(arrays) -> list:
             wants.append((q, k, 0, int(lens[q, k])))
     got = pull(arrays, wants)
     return [torch.cat(got[k::K]) for k in range(K)]
+
+
+def gather_whole(vec: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
+    """The whole FullyDist vector of which ``vec`` is this process's slice,
+    in every process (the slices all-gathered in rank order); in one
+    process ``vec`` itself.  For the maps a caller holds whole by
+    contract, never to run a one-process body on a whole vector."""
+    if not grid.is_pod:
+        return vec
+    return allgather_var([vec])[0]
 
 
 def gather_table(local: torch.Tensor, grid: ProcGrid) -> torch.Tensor:

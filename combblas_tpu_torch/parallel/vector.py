@@ -25,12 +25,26 @@ JAX orders them, -0.0 before +0.0 and NaNs by their bits, which a float
 sort would tie or move.  Nothing here reads a value back to the host.
 
 On a grid spread over several processes a vector is this process's slice
-(:meth:`ProcGrid.vec_range`), and :func:`dist_sort` / :func:`dist_sort_auto`
-run the sample sort's exchange across the processes: a local sort on
-(key, global index), splitter samples all-gathered, one all-to-all of the
-buckets, a local sort of what arrived, and the rebalance to even slices.
-The result is the one-process stable sort's, element for element.  The
-other functions refuse a pod (ROADMAP item 1.8).
+(:meth:`ProcGrid.vec_range`) of the padded vector, whose whole length is
+the slice's times the processes, and every function gives each process
+its slice of the one-process result, element for element:
+
+- the sorts (:func:`dist_sort`, :func:`perm_from_keys`, :func:`dist_uniq`)
+  run the sample sort's exchange across the processes: a local sort on
+  (key, global index), splitter samples all-gathered, one all-to-all of
+  the buckets, a local sort of what arrived, and the rebalance to even
+  slices;
+- a route sends its pairs to the owners of their indices
+  (``exchange.route_to_owners``), which deliver them in (source process,
+  source order): the slices are contiguous, so that is the flat order,
+  and ``set`` and ``sum`` see the pairs of each slot in one process's
+  order; a dropped pair is not sent;
+- a gather asks the owners (``exchange.gather_at``);
+- :func:`dist_rand_perm` draws the whole vector's keys in every process
+  and keeps its slice, so the permutation is one process's.
+
+The exchanges read their counts on the host; in one process nothing here
+reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -39,7 +53,7 @@ import numpy as np
 import torch
 
 from combblas_tpu_torch.parallel import exchange
-from combblas_tpu_torch.parallel.grid import ProcGrid, single_process
+from combblas_tpu_torch.parallel.grid import ProcGrid
 
 __all__ = [
     "dist_sort",
@@ -73,10 +87,15 @@ def _sortable_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).to(torch.int64) + _SIGN
 
 
-def _check_layout(n_pad: int, grid: ProcGrid) -> None:
+def _whole(x: torch.Tensor, grid: ProcGrid) -> int:
+    """The padded length of the FullyDist vector of which ``x`` is this
+    process's slice (in one process ``x``'s own length), checked to be a
+    multiple of the grid's devices."""
+    n_pad = x.shape[0] * grid.nproc
     if n_pad % grid.nprocs:
         raise ValueError(f"padded length {n_pad} is not a multiple of the "
                          f"grid's {grid.nprocs} devices")
+    return n_pad
 
 
 def _sort_on(key: torch.Tensor, n: int, *tensors: torch.Tensor):
@@ -94,23 +113,20 @@ def _sort_on(key: torch.Tensor, n: int, *tensors: torch.Tensor):
 _POD_SAMPLES = 32
 
 
-def _pod_sort(x: torch.Tensor, grid: ProcGrid, payloads, n: int,
-              descending: bool):
+def _pod_sort(key: torch.Tensor, grid: ProcGrid, tensors, n: int):
     """The sample sort across the processes of a pod (``par::sampleSort``):
-    ``x`` and ``payloads`` are this process's slices.  Elements order by
+    ``key`` (uint32 values in int64, the pad key from global index ``n``
+    on) and ``tensors`` are this process's slices.  Elements order by
     (key, global index), packed into one int64 (the key's 32 bits over the
     index's 31), so every comparison of the exchange is one of unique
     integers."""
-    P, chunk = grid.nproc, x.shape[0]
+    P, chunk = grid.nproc, key.shape[0]
     lo = grid.vec_range(chunk * P)[0]
-    dev = x.device
-    key = _sortable_u32(x)
-    if descending:
-        key = _PAD_KEY - key
+    dev = key.device
     gidx = torch.arange(lo, lo + chunk, dtype=torch.int64, device=dev)
     key = torch.where(gidx < n, key, _PAD_KEY)
     comb, order = torch.sort((key << 31) | gidx)
-    carried = [t[order] for t in (x, *payloads)]
+    carried = [t[order] for t in tensors]
     # splitters: evenly spaced samples of every process, all-gathered
     s = min(_POD_SAMPLES, chunk)
     samples = comb[(torch.arange(s, device=dev) * chunk) // s]
@@ -131,6 +147,15 @@ def _pod_sort(x: torch.Tensor, grid: ProcGrid, payloads, n: int,
     return tuple(out)
 
 
+def _sort_by_key(key: torch.Tensor, n: int, grid: ProcGrid, *tensors):
+    """``tensors`` (this process's slices) in the order of (``key``,
+    global index), the pad key from index ``n`` on: one stable sort in one
+    process, the sample sort across a pod's processes."""
+    if grid.is_pod:
+        return _pod_sort(key, grid, tensors, n)
+    return _sort_on(key, n, *tensors)
+
+
 def dist_sort(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
               length: int | None = None, descending: bool = False):
     """The vector ``x`` (padded FullyDist layout, true prefix ``length``,
@@ -141,16 +166,12 @@ def dist_sort(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
     ``sorted_x`` alone, or ``(sorted_x, *sorted_payloads)``.  On a pod
     ``x`` and the payloads are this process's slices, and so is the
     result."""
-    if grid.is_pod:
-        n = x.shape[0] * grid.nproc if length is None else int(length)
-        out = _pod_sort(x, grid, payloads, n, descending)
-        return out if len(out) > 1 else out[0]
-    _check_layout(x.shape[0], grid)
-    n = x.shape[0] if length is None else int(length)
+    n_pad = _whole(x, grid)
+    n = n_pad if length is None else int(length)
     key = _sortable_u32(x)
     if descending:
         key = _PAD_KEY - key
-    out = _sort_on(key, n, x, *payloads)
+    out = _sort_by_key(key, n, grid, x, *payloads)
     return out if len(out) > 1 else out[0]
 
 
@@ -167,22 +188,26 @@ def dist_sort_auto(x: torch.Tensor, grid: ProcGrid, *payloads: torch.Tensor,
                      descending=descending)
 
 
-@single_process
+def _gidx(x: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
+    """The global indices (int32) of the slots of ``x``, this process's
+    slice of a FullyDist vector."""
+    lo = grid.vec_range(_whole(x, grid))[0]
+    return torch.arange(lo, lo + x.shape[0], dtype=torch.int32,
+                        device=x.device)
+
+
 def perm_from_keys(keys: torch.Tensor, n: int,
                    grid: ProcGrid) -> torch.Tensor:
     """The permutation of [0, n) that sorting the random uint32 ``keys``
     (padded length; values in [0, 2^32), int64) carries the identity
     into, the padding slots holding ``n``: ``FullyDistVec::RandPerm``
-    given its keys (int32)."""
-    _check_layout(keys.shape[0], grid)
-    iota = torch.arange(keys.shape[0], dtype=torch.int32,
-                        device=keys.device)
-    perm, = _sort_on(keys.to(torch.int64), n, iota)
-    perm[n:] = n
-    return perm
+    given its keys (int32).  On a pod ``keys`` and the result are this
+    process's slices."""
+    iota = _gidx(keys, grid)
+    perm, = _sort_by_key(keys.to(torch.int64), n, grid, iota)
+    return torch.where(iota < n, perm, n)
 
 
-@single_process
 def dist_rand_perm(generator: torch.Generator, n: int,
                    grid: ProcGrid) -> torch.Tensor:
     """A random permutation of [0, n) in the FullyDist layout (padded
@@ -190,12 +215,16 @@ def dist_rand_perm(generator: torch.Generator, n: int,
     grid's device: uint32 keys drawn from ``generator`` (on its own
     device, so that one CPU generator gives the card and the CPU the same
     permutation; JAX draws threefry keys, which cannot be carried
-    across), then :func:`perm_from_keys`."""
+    across), then :func:`perm_from_keys`.  On a pod every process draws
+    the whole vector's keys and keeps its slice, so that a generator of
+    one seed gives every process its slice of one process's
+    permutation."""
     p = grid.nprocs
     n_pad = -(-n // p) * p
     keys = torch.randint(0, 1 << 32, (n_pad,), generator=generator,
                          dtype=torch.int64, device=generator.device)
-    return perm_from_keys(keys.to(grid.device), n, grid)
+    lo, hi = grid.vec_range(n_pad)
+    return perm_from_keys(keys[lo:hi].to(grid.device), n, grid)
 
 
 def _targets(idx: torch.Tensor, mask: torch.Tensor,
@@ -210,7 +239,6 @@ def _targets(idx: torch.Tensor, mask: torch.Tensor,
     return torch.where(ok, pos, spare)
 
 
-@single_process
 def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
                init: torch.Tensor, grid: ProcGrid, *, combine: str = "set"):
     """Deliver the (idx, val) pairs where ``mask`` holds to the owner of
@@ -218,25 +246,36 @@ def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     is the index space) updated at every slot a pair hits.  ``combine``:
     ``set`` (the last pair in (device, slot) order, i.e. in flat order,
     wins), ``sum``, ``min`` or ``max``.  Returns ``(out, out_mask)``,
-    the mask marking the slots hit."""
+    the mask marking the slots hit.  On a pod the arguments and results
+    are this process's slices; a pair goes to the process that holds its
+    slot, and a dropped pair (masked out, or its index outside the whole
+    vector) is not sent."""
     if combine not in _COMBINES:
         raise ValueError(f"combine must be one of {_COMBINES}, got "
                          f"{combine!r}")
     n_pad = init.shape[0]
-    _check_layout(n_pad, grid)
-    _check_layout(idx.shape[0], grid)
+    whole = _whole(init, grid)
+    _whole(idx, grid)
+    val = val.to(init.dtype)
+    if grid.is_pod:
+        pos = idx.to(torch.int32).to(torch.int64)
+        keep = torch.nonzero(mask.to(torch.bool) & (pos >= 0)
+                             & (pos < whole)).squeeze(1)
+        idx, val = exchange.route_to_owners(pos[keep], [val[keep]], grid,
+                                            whole)
+        mask = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
     tgt = _targets(idx, mask, n_pad)
     k = tgt.shape[0]
     dev = init.device
     hit = torch.zeros(n_pad + k, dtype=torch.bool, device=dev)
     hit[tgt] = True
     hit = hit[:n_pad]
-    val = val.to(init.dtype)
     if combine == "set":
         win = torch.full((n_pad + k,), -1, dtype=torch.int64, device=dev)
         win.scatter_reduce_(0, tgt, torch.arange(k, device=dev), "amax")
         win = win[:n_pad]
-        out = torch.where(hit, val[win.clamp(min=0)], init)
+        pick = torch.cat([val, init[:1]])     # a pod slice may get no pair
+        out = torch.where(hit, pick[win.clamp(min=0)], init)
         return out, hit
     buf = torch.cat([init, torch.zeros(k, dtype=init.dtype, device=dev)])
     if combine == "sum":
@@ -250,60 +289,61 @@ def dist_route(idx: torch.Tensor, val: torch.Tensor, mask: torch.Tensor,
     return buf[:n_pad], hit
 
 
-@single_process
 def dist_gather(x: torch.Tensor, idx: torch.Tensor,
                 grid: ProcGrid) -> torch.Tensor:
     """out[i] = x[idx[i]] (``FullyDistVec::operator()``); an index outside
     [0, len(x)) gives 0.  The JAX package's two owner exchanges (requests
-    out, answers back) deliver exactly this."""
-    _check_layout(x.shape[0], grid)
-    _check_layout(idx.shape[0], grid)
+    out, answers back) deliver exactly this; on a pod ``x``, ``idx`` and
+    the result are this process's slices, ``len(x)`` the whole length,
+    and each element comes from its owner."""
+    whole = _whole(x, grid)
+    _whole(idx, grid)
     i = idx.to(torch.int64)
-    ok = (i >= 0) & (i < x.shape[0])
-    got = x[i.clamp(0, x.shape[0] - 1)]
+    ok = (i >= 0) & (i < whole)
+    got = exchange.gather_at(x, i.clamp(0, whole - 1), grid)
     return torch.where(ok, got, torch.zeros((), dtype=x.dtype,
                                             device=x.device))
 
 
-@single_process
 def dist_apply_perm(x: torch.Tensor, perm: torch.Tensor,
                     grid: ProcGrid) -> torch.Tensor:
     """y[perm[i]] = x[i]; padding slots (perm == len) are dropped."""
-    out, _ = dist_route(perm, x, perm < x.shape[0], torch.zeros_like(x),
+    out, _ = dist_route(perm, x, perm < _whole(x, grid), torch.zeros_like(x),
                         grid, combine="set")
     return out
 
 
-def _gidx(n_pad: int, device) -> torch.Tensor:
-    return torch.arange(n_pad, dtype=torch.int32, device=device)
-
-
-@single_process
 def dist_invert(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
     """Sparse-vector Invert (``FullyDistSpVec.h:89``): out[val[i]] = i for
     the live entries, a duplicate value keeping the largest index.
     Returns ``(out, out_mask)``, out int32 of ``val``'s padded length, -1
     where no entry landed."""
-    n_pad = val.shape[0]
-    init = torch.full((n_pad,), -1, dtype=torch.int32, device=val.device)
-    return dist_route(val.to(torch.int32), _gidx(n_pad, val.device), mask,
-                      init, grid, combine="max")
+    init = torch.full((val.shape[0],), -1, dtype=torch.int32,
+                      device=val.device)
+    return dist_route(val.to(torch.int32), _gidx(val, grid), mask, init,
+                      grid, combine="max")
 
 
-@single_process
 def dist_uniq(val: torch.Tensor, mask: torch.Tensor, grid: ProcGrid):
     """Uniq (``FullyDistSpVec.cpp:1029``): of the live entries with one
     value (one ``_sortable_u32`` key: -0.0 and +0.0 differ) only the one of
     the smallest index stays, at its index.  A sort by (key, index), run
-    heads kept, the survivors routed home.  Returns ``(out, out_mask)``."""
-    n_pad = val.shape[0]
-    _check_layout(n_pad, grid)
-    dev = val.device
+    heads kept, the survivors routed home.  Returns ``(out, out_mask)``.
+    A dead slot takes the pad key (and index 0x7FFFFFFF), which a live
+    NaN of bits 0x7FFFFFFF shares: that run's head is its first slot, live
+    or dead.  On a pod the sort runs across the processes, and a slice's
+    first element compares with the previous slice's last."""
+    n_pad = _whole(val, grid)
     live = mask.to(torch.bool)
     key = torch.where(live, _sortable_u32(val), _PAD_KEY)
-    gidx = torch.where(live, _gidx(n_pad, dev), 0x7FFFFFFF)
-    ks, is_, vs, ms = _sort_on(key, n_pad, key, gidx, val, live)
-    first = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    gidx = torch.where(live, _gidx(val, grid), 0x7FFFFFFF)
+    ks, is_, vs, ms = _sort_by_key(key, n_pad, grid, key, gidx, val, live)
+    first = torch.ones(ks.shape[0], dtype=torch.bool, device=val.device)
     first[1:] = ks[1:] != ks[:-1]
+    if grid.is_pod:
+        lo = grid.vec_range(n_pad)[0]
+        prev, = exchange.gather_range([ks], grid, max(lo - 1, 0), lo)
+        if prev.numel():
+            first[0] = prev[0] != ks[0]
     return dist_route(is_, vs, first & ms, torch.zeros_like(val), grid,
                       combine="set")

@@ -11,9 +11,14 @@ SUMMA and its hop (K9's plain version through ``gloo``), ``dist_spmv``,
 writes and read, ``to_dense``, HipMCL's path (the distributed elementwise
 ops, reductions, k-selects and transpose, the staged and phased SpGEMM,
 the sampling estimate, ``dist_mcl_prune``, ``mcl_dist`` and
-``fastsv_dist``), and the refusals of functions not ported to a pod.  Each
-process saves what it holds to OUTDIR/rankR.npz; the parent compares.
-Imports no JAX.
+``fastsv_dist``), HipMCL's preprocessing and what lies under it (the
+vector layer's RandPerm, routes, gathers, Invert and Uniq; the selectors,
+SpRef, the block prune, SpAsgn and ``dist_permute``;
+``dist_remove_isolated``, ``dist_rand_permute`` and
+``mcl_dist(preprocess=True)``, also with the permutation the parent
+writes to OUTDIR/jax_perm.npy on 2x2), ``lacc_dist``, ``luby_mis_dist``,
+and the refusals of functions not ported to a pod.  Each process saves
+what it holds to OUTDIR/rankR.npz; the parent compares.  Imports no JAX.
 """
 
 import json
@@ -38,6 +43,18 @@ PHASE_BUDGET = 3000.0
 PRUNE_PARAMS = dict(select=6, recover_num=9, cutoff=0.01, recover_pct=0.9)
 #: ``mcl_dist``'s parameters on the scale-7 R-MAT.
 MCL_PARAMS = dict(max_iters=30, select=8, recover_num=10)
+#: The vector layer's padded length (a multiple of the 4x4 grid's 16
+#: blocks) and the RandPerm's n (padding slots behind it).
+VEC_PAD, PERM_N = 96, 93
+#: Seeds of the port's own draws: the RandPerm, the preprocessing's
+#: permutation and the MIS priorities.
+PERM_SEED, PRE_SEED, MIS_SEED = 7, 8, 9
+#: SpRef's row and column indices (repeats, out of order) into the 30 x 26
+#: matrix ``a``, and SpAsgn's (distinct).
+SPREF_ROWS = (3, 0, 17, 17, 29, 8, 12, 3, 21)
+SPREF_COLS = (25, 1, 1, 9, 14, 0, 22)
+SPASGN_ROWS = (4, 27, 11, 0, 19, 8)
+SPASGN_COLS = (2, 13, 25, 7, 18)
 
 
 def rand_sparse(m, n, density, seed):
@@ -98,6 +115,100 @@ def components(seed, sizes=(9, 7, 12, 1, 5, 1, 6)):
     np.fill_diagonal(d, 0.0)
     perm = rng.permutation(n)
     return d[np.ix_(perm, perm)]
+
+
+def special_floats(rng, n):
+    """Normal floats with -0.0, +0.0, both infinities and NaNs of either
+    sign and several payloads among them."""
+    x = rng.standard_normal(n).astype(np.float32)
+    specials = np.array([0x80000000, 0x00000000, 0x7F800000, 0xFF800000,
+                         0x7FC00000, 0xFFC00000, 0x7FFFFFFF, 0xFFFFFFFF,
+                         0x7F800001], np.uint32).view(np.float32)
+    x[rng.choice(n, 2 * specials.size, replace=False)] = np.tile(specials, 2)
+    return x
+
+
+def vec_inputs(seed: int = SEED + 10) -> dict:
+    """The vector layer's inputs, all of length ``VEC_PAD``: RandPerm keys;
+    route pairs (every slot hit about twice, some masked out, some past the
+    vector, a few negative) with float and int values; gather indices past
+    both ends; Invert values with duplicates; Uniq values: floats with
+    -0.0 and NaNs of which one value fills 60 live slots (its sorted run
+    crosses a slice boundary on every pod), ints, and the pad-key case (a
+    live NaN of bits 0x7FFFFFFF beside a dead slot, which comes first or
+    last)."""
+    rng = np.random.default_rng(seed)
+    n = VEC_PAD
+    ridx = rng.integers(0, n // 2, n).astype(np.int32)
+    ridx[rng.choice(n, 6, replace=False)] = n + 3
+    ridx[rng.choice(n, 4, replace=False)] = -rng.integers(1, 20, 4)
+    uf = special_floats(rng, n)
+    run = rng.choice(n, 60, replace=False)
+    uf[run] = uf[run[0]] if np.isfinite(uf[run[0]]) else 0.5
+    umask = rng.random(n) < 0.75
+    umask[run] = True
+    pad = np.full(n, 0x7FFFFFFF, np.uint32).view(np.float32)
+    pad[::3] = np.arange(0, n, 3, dtype=np.float32)
+    pad_mask = [np.ones(n, bool), np.ones(n, bool)]
+    pad_mask[0][1] = False          # a dead slot before every live NaN
+    pad_mask[1][n - 1] = False      # a dead slot after them
+    return dict(
+        keys=rng.integers(0, 1 << 32, n, dtype=np.int64),
+        ridx=ridx, rmask=rng.random(n) < 0.8,
+        rval_f=rng.standard_normal(n).astype(np.float32),
+        rinit_f=rng.standard_normal(n).astype(np.float32),
+        rval_i=rng.integers(-50, 50, n).astype(np.int32),
+        rinit_i=rng.integers(-50, 50, n).astype(np.int32),
+        gx=rng.standard_normal(n).astype(np.float32),
+        gidx=rng.integers(-5, n + 5, n).astype(np.int32),
+        inv=rng.integers(0, n // 3, n).astype(np.int32),
+        inv_mask=rng.random(n) < 0.7,
+        uniq_f=uf, uniq_f_mask=umask,
+        uniq_i=rng.integers(0, 30, n).astype(np.int32),
+        uniq_i_mask=rng.random(n) < 0.75,
+        uniq_pad0=pad, uniq_pad0_mask=pad_mask[0],
+        uniq_pad1=pad, uniq_pad1_mask=pad_mask[1])
+
+
+def index_inputs(seed: int = SEED + 11) -> dict:
+    """SpAsgn's operand, ``dist_permute``'s maps: a permutation of the BFS
+    graph's vertices, and maps of ``a``'s rows and columns that send
+    several entries to one place (and drop a few)."""
+    rng = np.random.default_rng(seed)
+    rmap = rng.integers(0, 30, 30)
+    rmap[rng.choice(30, 3, replace=False)] = -1
+    cmap = rng.integers(0, 26, 26)
+    cmap[rng.choice(26, 2, replace=False)] = 40
+    return dict(asg=rand_sparse(len(SPASGN_ROWS), len(SPASGN_COLS), 0.5,
+                                seed + 1),
+                perm=rng.permutation(BFS_N), rmap=rmap, cmap=cmap)
+
+
+def components_loops(seed=SEED + 4):
+    """:func:`components` with a self loop on every vertex of degree >= 1
+    (its two isolated vertices stay empty columns)."""
+    d = components(seed)
+    live = d.any(axis=0)
+    d[live, live] = 1.0
+    return d
+
+
+def rmat7_isolated(seed=4):
+    """The seeded scale-7 SSCA R-MAT of edgefactor 4, symmetrized, uniform
+    weights, with self loops only on its vertices of degree >= 1
+    (HipMCL's order): its isolated vertices stay empty columns."""
+    import torch
+
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    g = torch.Generator().manual_seed(seed)
+    a = rmat_matrix(g, 7, 4, symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    row, col, _val, nnz, shape = a.to_numpy()
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, nnz).astype(np.float32)
+    live = np.unique(row[:nnz])
+    return (np.concatenate([row[:nnz], live]),
+            np.concatenate([col[:nnz], live]),
+            np.concatenate([w, np.ones(live.size, np.float32)]), shape)
 
 
 def rmat7(seed=1):
@@ -247,6 +358,121 @@ def mcl(g, inp, dist, out) -> None:
     _stacks(seen["a"], "mcl_final", out)
 
 
+#: The vector layer's route cases: (tag, value dtype suffix, combine).
+ROUTES = [(f"route_{k}_{c}", k, c) for k in ("f", "i")
+          for c in ("set", "sum", "min", "max")]
+#: The Uniq cases of :func:`vec_inputs`.
+UNIQS = ("uniq_f", "uniq_i", "uniq_pad0", "uniq_pad1")
+
+
+def vectors(g, full, out) -> None:
+    """``parallel/vector.py`` on this process's slices of
+    :func:`vec_inputs`: every result put together (``full``)."""
+    import torch
+
+    from combblas_tpu_torch.parallel import vector as tv
+    v = vec_inputs()
+    lo, hi = g.vec_range(VEC_PAD)
+
+    def sl(x):
+        return torch.from_numpy(np.ascontiguousarray(x[lo:hi]))
+
+    out["perm_keys"] = full(tv.perm_from_keys(sl(v["keys"]), PERM_N, g))
+    perm = tv.dist_rand_perm(torch.Generator().manual_seed(PERM_SEED),
+                             PERM_N, g)
+    out["rand_perm"] = full(perm)
+    for tag, k, combine in ROUTES:
+        o, m = tv.dist_route(sl(v["ridx"]), sl(v[f"rval_{k}"]),
+                             sl(v["rmask"]), sl(v[f"rinit_{k}"]), g,
+                             combine=combine)
+        out[tag], out[f"{tag}_hit"] = full(o), full(m)
+    out["gather"] = full(tv.dist_gather(sl(v["gx"]), sl(v["gidx"]), g))
+    out["apply_perm"] = full(tv.dist_apply_perm(sl(v["gx"]), perm, g))
+    for tag, (val, mask) in (("invert", (sl(v["inv"]), sl(v["inv_mask"]))),
+                             ("invert_perm", (perm, perm < PERM_N))):
+        o, m = tv.dist_invert(val, mask, g)
+        out[tag], out[f"{tag}_hit"] = full(o), full(m)
+    for tag in UNIQS:
+        o, m = tv.dist_uniq(sl(v[tag]), sl(v[f"{tag}_mask"]), g)
+        out[tag], out[f"{tag}_hit"] = full(o), full(m)
+
+
+def indexing(g, inp, dist, out) -> None:
+    """``parallel/indexing.py``: the two selectors, SpRef, the block prune
+    and SpAsgn of ``a``; ``dist_permute`` of the BFS graph by a
+    permutation, and of ``a`` by maps that fold duplicates (plus-times,
+    min-plus, and from a capacity of 8, so that it retries)."""
+    from combblas_tpu_torch.parallel import indexing as ti
+    from combblas_tpu_torch.semiring import MIN_PLUS
+    a, gr = dist(inp["a"]), dist(inp["g"])
+    ix = index_inputs()
+    _stacks(ti.dist_selector(SPREF_ROWS, 30, g), "sel", out)
+    _stacks(ti.dist_selector(SPREF_COLS, 26, g, transpose=True), "selt",
+            out)
+    _stacks(ti.dist_spref(a, SPREF_ROWS, SPREF_COLS), "spref", out)
+    _stacks(ti.dist_prune_block(a, SPASGN_ROWS, SPASGN_COLS), "pruneblk",
+            out)
+    _stacks(ti.dist_spasgn(a, SPASGN_ROWS, SPASGN_COLS, dist(ix["asg"])),
+            "spasgn", out)
+    _stacks(ti.dist_permute(gr, ix["perm"]), "permute", out)
+    _stacks(ti.dist_permute(a, ix["rmap"], ix["cmap"]), "permute_fold", out)
+    _stacks(ti.dist_permute(a, ix["rmap"], ix["cmap"], sr=MIN_PLUS),
+            "permute_min", out)
+    _stacks(ti.dist_permute(a, ix["rmap"], ix["cmap"], out_capacity=8),
+            "permute_retry", out)
+
+
+def mcl_preprocess(g, full, out, outdir, side) -> None:
+    """HipMCL's preprocessing of :func:`rmat7_isolated`:
+    ``dist_remove_isolated``, ``dist_rand_permute`` and
+    ``mcl_dist(preprocess=True)`` from a seeded generator; on 2x2 also
+    ``mcl_dist(preprocess=True)`` with the parent's permutation
+    (OUTDIR/jax_perm.npy) in place of the port's draw."""
+    import torch
+
+    from combblas_tpu_torch.models import mcl as tmcl
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    r, c, w, shape = rmat7_isolated()
+    m = DistSpMat.from_coo_arrays(r, c, w, shape, g)
+    b, vmap, k = tmcl.dist_remove_isolated(m)
+    _stacks(b, "rmiso", out)
+    out["rmiso_map"], out["rmiso_k"] = vmap, np.asarray(k)
+    b2, perm = tmcl.dist_rand_permute(b, torch.Generator().manual_seed(
+        PRE_SEED))
+    _stacks(b2, "randpermute", out)
+    out["randpermute_perm"] = perm
+    p = tmcl.MCLParams(**MCL_PARAMS)
+    labels, iters = tmcl.mcl_dist(m, p, preprocess=True,
+                                  generator=torch.Generator().manual_seed(
+                                      PRE_SEED))
+    out["mclpre_labels"], out["mclpre_iters"] = full(labels), np.asarray(
+        iters)
+    # 41 vertices, two of them isolated: the label slices carry pad slots
+    d = components_loops()
+    r, c = np.nonzero(d)
+    labels, iters = tmcl.mcl_dist(
+        DistSpMat.from_coo_arrays(r, c, d[r, c], d.shape, g), p,
+        preprocess=True, generator=torch.Generator().manual_seed(PRE_SEED))
+    out["mclpre_comps"], out["mclpre_comps_iters"] = full(labels), \
+        np.asarray(iters)
+    if side != 2:
+        return
+    given = np.load(os.path.join(outdir, "jax_perm.npy"))
+    orig = tmcl.dist_rand_perm
+
+    def jax_perm(generator, n, grid):
+        lo, hi = grid.vec_range(given.shape[0])
+        return torch.from_numpy(given[lo:hi])
+
+    tmcl.dist_rand_perm = jax_perm
+    try:
+        labels, iters = tmcl.mcl_dist(m, p, preprocess=True)
+    finally:
+        tmcl.dist_rand_perm = orig
+    out["mclpre_jax_labels"] = full(labels)
+    out["mclpre_jax_iters"] = np.asarray(iters)
+
+
 def main() -> None:
     rank, nproc, addr, side, outdir = (int(sys.argv[1]), int(sys.argv[2]),
                                        sys.argv[3], int(sys.argv[4]),
@@ -259,12 +485,16 @@ def main() -> None:
         parallel_write_mtx,
     )
     from combblas_tpu_torch.models.bfs import bfs_dir_opt_dist, bfs_dist
+    from combblas_tpu_torch.models.bc import betweenness_centrality_dist
     from combblas_tpu_torch.models.lacc import lacc_dist
     from combblas_tpu_torch.models.mcl import mcl_dist
+    from combblas_tpu_torch.models.mis import luby_mis_dist
     from combblas_tpu_torch.ops.coo import SpCOO
     from combblas_tpu_torch.ops.kernels.ring import ring_shift
     from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.dense import dist_spmm
     from combblas_tpu_torch.parallel.dist import DistSpMat, dist_vec
+    from combblas_tpu_torch.parallel.matching import dist_bp_maximal
     from combblas_tpu_torch.parallel.multihost import (
         initialize_multihost,
         is_coordinator,
@@ -277,7 +507,7 @@ def main() -> None:
         summa_spgemm,
         summa_spgemm_auto,
     )
-    from combblas_tpu_torch.parallel.vector import dist_route, dist_sort_auto
+    from combblas_tpu_torch.parallel.vector import dist_sort_auto
     from combblas_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
 
     torch.set_num_threads(1)     # tiny tensors; the processes share cores
@@ -336,13 +566,23 @@ def main() -> None:
     from combblas_tpu_torch.models.cc import fastsv_dist
     out["fastsv_g"] = fastsv_dist(gr).numpy()
     out["fastsv_comps"] = fastsv_dist(dist(inp["comps"])).numpy()
+    # HipMCL's preprocessing and what lies under it; LACC and MIS
+    vectors(g, full, out)
+    indexing(g, inp, dist, out)
+    mcl_preprocess(g, full, out, outdir, side)
+    comps = dist(inp["comps"])
+    for tag, m in (("g", gr), ("comps", comps)):
+        out[f"lacc_{tag}"] = full(lacc_dist(m))
+        out[f"mis_{tag}"] = full(luby_mis_dist(
+            m, torch.Generator().manual_seed(MIS_SEED)))
     # what a pod refuses
     refused = {}
     for name, call in (
-            ("mcl_dist_preprocess", lambda: mcl_dist(gr, preprocess=True)),
+            ("dist_spmm", lambda: dist_spmm(gr, torch.ones(BFS_N, 2))),
+            ("betweenness_centrality_dist",
+             lambda: betweenness_centrality_dist(gr)),
+            ("dist_bp_maximal", lambda: dist_bp_maximal(gr)),
             ("mcl_dist_layers", lambda: mcl_dist(gr, layers=2)),
-            ("lacc_dist", lambda: lacc_dist(gr)),
-            ("dist_route", lambda: dist_route(xs, xs, xs > 0, xs, g)),
             ("pod_grid_layers", lambda: pod_grid(layers=2, device="cpu"))):
         try:
             call()

@@ -41,14 +41,14 @@ DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
 #: Names each slice added to a module that existed before it: the classed
 #: seg pipeline and the single-process join; the pod's exchange (with the
 #: element requests, owner routing and reduced decisions of HipMCL's pod
-#: path), its refusal of unported functions and K9's plain hop across
-#: processes.
+#: path, and the whole-vector gather of its preprocessing's host maps), its
+#: refusal of unported functions and K9's plain hop across processes.
 SLICE_NAMES = {
     "parallel.exchange": ("pull", "gather_blocks", "gather_range",
                           "reduce_to_owners", "alltoallv", "allgather_var",
                           "allgather_host", "gather_table", "barrier",
                           "route_to_owners", "gather_at", "any_proc",
-                          "max_proc"),
+                          "max_proc", "gather_whole"),
     "parallel.grid": ("ProcGrid", "default_grid", "single_process"),
     "ops.kernels.ring": ("ring_shift", "ring_shift_plain",
                          "ring_shift_pod_plain"),

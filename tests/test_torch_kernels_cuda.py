@@ -961,6 +961,60 @@ elif what == "mcl":
     l2, i2 = mcl_dist(DistSpMat.from_local(a, g), p)
     l2, = exchange.allgather_var([l2])
     assert i1 == i2 and torch.equal(l1, l2), (i1, i2)
+elif what == "preprocess":
+    import numpy as np
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.models.mcl import MCLParams, mcl_dist
+    from combblas_tpu_torch.ops.coo import SpCOO, merge
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.grid import ProcGrid
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+    from combblas_tpu_torch.parallel.vector import dist_rand_perm, dist_uniq
+    from combblas_tpu_torch.semiring import PLUS_TIMES
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(13), 10, 4,
+                    symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    rp = a.row_ptr()
+    live = torch.nonzero(rp[1:] > rp[:-1]).squeeze(1).cpu().numpy()
+    assert live.size < a.shape[0]          # isolated vertices stay empty
+    a = merge(a, SpCOO.from_arrays(live, live, np.ones(live.size,
+                                                       np.float32),
+                                   a.shape, sum_duplicates=False,
+                                   device=dev), PLUS_TIMES)
+    n = a.shape[0]
+    g1 = ProcGrid.make(2, 2, device=dev)
+    one, pod = DistSpMat.from_local(a, g1), DistSpMat.from_local(a, g)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(21)
+
+    perm = dist_rand_perm(gen(), n, g1)
+    got, = exchange.allgather_var([dist_rand_perm(gen(), n, g)])
+    assert torch.equal(perm, got)
+    # a permutation, and a map that folds duplicates (float sums)
+    for rmap in (perm[:n], perm[:n] // 3):
+        want, got = dist_permute(one, rmap), dist_permute(pod, rmap)
+        assert torch.equal(got.nnz, want.nnz)
+        for f in ("row", "col", "val"):
+            assert torch.equal(getattr(got, f).view(torch.uint8),
+                               getattr(want, f)[rank:rank + 1]
+                               .view(torch.uint8)), f
+    x = torch.randn(1 << 14, device=dev, generator=gen())
+    x[::7] = x[3]                          # a run across the slices
+    x[5::11] = -0.0
+    mask = torch.rand(1 << 14, device=dev, generator=gen()) < 0.8
+    lo, hi = g.vec_range(x.shape[0])
+    u1, h1 = dist_uniq(x, mask, g1)
+    u2, h2 = exchange.allgather_var(list(dist_uniq(x[lo:hi], mask[lo:hi],
+                                                   g)))
+    assert torch.equal(u1.view(torch.int32), u2.view(torch.int32))
+    assert torch.equal(h1, h2)
+    p = MCLParams(select=64, recover_num=80)
+    l1, i1 = mcl_dist(one, p, preprocess=True, generator=gen())
+    l2, i2 = mcl_dist(pod, p, preprocess=True, generator=gen())
+    l2, = exchange.allgather_var([l2])
+    assert i1 == i2 and torch.equal(l1, l2[:n]), (i1, i2)
+    assert (l1 >= n).sum() == n - live.size
 else:
     from combblas_tpu_torch.gen.rmat import rmat_matrix
     from combblas_tpu_torch.models.bfs import bfs_dist
@@ -1055,6 +1109,16 @@ def test_pod_mcl_on_card(cuda):
     scale-10 SSCA R-MAT with self loops gives one process's iterations
     and labels bit for bit."""
     _run_pod_on_card("mcl")
+
+
+def test_pod_preprocess_on_card(cuda):
+    """HipMCL's preprocessing on the card over 2 processes, on a scale-10
+    SSCA R-MAT with isolated vertices: ``dist_rand_perm`` and
+    ``dist_permute`` (by the permutation, and by a map that folds
+    duplicates) equal one process's blocks bit for bit, ``dist_uniq`` with
+    a run across the slices one process's vector, and
+    ``mcl_dist(preprocess=True)`` one process's iterations and labels."""
+    _run_pod_on_card("preprocess")
 
 
 def test_pod_slice_on_card(cuda):

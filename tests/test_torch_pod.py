@@ -7,8 +7,11 @@ the whole slice across the process boundary: SUMMA, the ring SUMMA and its
 hop (K9's plain version through ``gloo``), ``dist_spmv``, ``bfs_dist``,
 ``dist_sort_auto``, the cooperative writes and read, HipMCL's path (the
 distributed elementwise ops and k-selects, the staged and phased SpGEMM,
-the sampling estimate, ``dist_mcl_prune``, ``mcl_dist``, ``fastsv_dist``)
-and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
+the sampling estimate, ``dist_mcl_prune``, ``mcl_dist``, ``fastsv_dist``),
+HipMCL's preprocessing and what lies under it (the vector layer, the
+distributed indexing, ``dist_permute``, ``dist_remove_isolated``,
+``dist_rand_permute``, ``mcl_dist(preprocess=True)``), ``lacc_dist``,
+``luby_mis_dist`` and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
 JAX has no 4x4 mesh on 8 devices) and the port in one process, and
 compares every process's blocks and vectors:
 
@@ -24,7 +27,14 @@ compares every process's blocks and vectors:
   is compared on ``impl="xla"``, and ``block_spgemm`` and ``mcl_dist``'s
   final iterate compacted (``to_local``), as ``test_torch_mcl_dist.py``
   does; JAX's sampling draws are threefry, so the estimate is held against
-  one process only.
+  one process only.  For the same reason the RandPerm and the MIS are held
+  against one process (the MIS also on its invariants), ``perm_from_keys``
+  against JAX's sort of the same keys, and the preprocessed ``mcl_dist``
+  against JAX's given JAX's permutation (the parent writes it to the
+  scenario's directory).  SpRef and SpAsgn are compared with JAX's
+  compacted (``to_local``), as ``test_torch_dist_indexing.py`` does; the
+  float route sums and ``dist_permute``'s folds of duplicates equal one
+  process's bit for bit and JAX's within rtol 1e-5.
 """
 
 import functools
@@ -46,9 +56,11 @@ from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.io import parallel as jpar  # noqa: E402
 from combblas_tpu.models import bfs as jbfs  # noqa: E402
 from combblas_tpu.models import cc as jcc  # noqa: E402
+from combblas_tpu.models import lacc as jlacc  # noqa: E402
 from combblas_tpu.models import mcl as jmcl  # noqa: E402
 from combblas_tpu.parallel import dist as jdist  # noqa: E402
 from combblas_tpu.parallel import elementwise as jel  # noqa: E402
+from combblas_tpu.parallel import indexing as jix  # noqa: E402
 from combblas_tpu.parallel import memefficient as jme  # noqa: E402
 from combblas_tpu.parallel import rma as jrma  # noqa: E402
 from combblas_tpu.parallel import spmv as jsp  # noqa: E402
@@ -57,9 +69,12 @@ from combblas_tpu.parallel import vector as jvec  # noqa: E402
 from combblas_tpu_torch.io import parallel as tpar  # noqa: E402
 from combblas_tpu_torch.models import bfs as tbfs  # noqa: E402
 from combblas_tpu_torch.models import cc as tcc  # noqa: E402
+from combblas_tpu_torch.models import lacc as tlacc  # noqa: E402
 from combblas_tpu_torch.models import mcl as tmcl  # noqa: E402
+from combblas_tpu_torch.models import mis as tmis  # noqa: E402
 from combblas_tpu_torch.parallel import dist as tdist  # noqa: E402
 from combblas_tpu_torch.parallel import elementwise as tel  # noqa: E402
+from combblas_tpu_torch.parallel import indexing as tix  # noqa: E402
 from combblas_tpu_torch.parallel import memefficient as tme  # noqa: E402
 from combblas_tpu_torch.ops.kernels.ring import ring_shift  # noqa: E402
 from combblas_tpu_torch.parallel import rma as trma  # noqa: E402
@@ -81,8 +96,19 @@ SCENARIOS = {"2proc_2x2": (2, 2), "4proc_2x2": (4, 2), "4proc_4x4": (4, 4)}
 LAUNCH_TIMEOUT_SECS = 300
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_pre_perm() -> np.ndarray:
+    """JAX's permutation of the preprocessed ``mcl_dist`` (its default key,
+    on 2x2) of the worker's isolated-vertex R-MAT."""
+    n = W.rmat7_isolated()[3][1]
+    return np.asarray(jvec.dist_rand_perm(jax.random.PRNGKey(17), n,
+                                          jgrid(2, 2)))
+
+
 def _launch(nproc: int, side: int, outdir: Path) -> list:
     W.write_triples(str(outdir / "in.mtx"), W.inputs()["tri"])
+    if side == 2:
+        np.save(outdir / "jax_perm.npy", _jax_pre_perm())
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -348,8 +374,9 @@ def test_pod_refuses_unported(pods, name):
     ranks, _ = pods(name)
     for r in ranks:
         refused = json.loads(str(r["refused"]))
-        assert set(refused) == {"mcl_dist_preprocess", "mcl_dist_layers",
-                                "lacc_dist", "dist_route", "pod_grid_layers"}
+        assert set(refused) == {"dist_spmm", "betweenness_centrality_dist",
+                                "dist_bp_maximal", "mcl_dist_layers",
+                                "pod_grid_layers"}
         for what, msg in refused.items():
             assert "ROADMAP item 1.8" in msg, (what, msg)
 
@@ -624,3 +651,246 @@ def test_pod_fastsv(pods, name):
                 dist_pair(d, 2, 2)[0])))
     n = inp["comps"].shape[0]
     assert tcc.count_components(_vec_of(ranks, "fastsv_comps"), n) == 7
+
+
+# ------------------------------------------- HipMCL's preprocessing, LACC --
+
+def _vector_results(mod, grid, put, perm, keys_perm) -> dict:
+    """The worker's vector calls in one process of ``mod`` (the port's or
+    JAX's vector module) on ``grid``, ``put`` making a vector of a host
+    array; ``perm`` is the port's RandPerm (host), ``keys_perm`` the
+    permutation of the keys: results by tag, as numpy."""
+    v = W.vec_inputs()
+    out = dict(perm_keys=keys_perm)
+    for tag, k, combine in W.ROUTES:
+        out[tag], out[f"{tag}_hit"] = mod.dist_route(
+            put(v["ridx"]), put(v[f"rval_{k}"]), put(v["rmask"]),
+            put(v[f"rinit_{k}"]), grid, combine=combine)
+    out["gather"] = mod.dist_gather(put(v["gx"]), put(v["gidx"]), grid)
+    out["apply_perm"] = mod.dist_apply_perm(put(v["gx"]), put(perm), grid)
+    out["invert"], out["invert_hit"] = mod.dist_invert(
+        put(v["inv"]), put(v["inv_mask"]), grid)
+    out["invert_perm"], out["invert_perm_hit"] = mod.dist_invert(
+        put(perm), put(perm < W.PERM_N), grid)
+    for tag in W.UNIQS:
+        out[tag], out[f"{tag}_hit"] = mod.dist_uniq(
+            put(v[tag]), put(v[f"{tag}_mask"]), grid)
+    return {k: np.asarray(x) for k, x in out.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_vectors(side: int):
+    """One process's vector results, and its RandPerm."""
+    g = tgrid(side, side)
+    perm = tvec.dist_rand_perm(torch.Generator().manual_seed(W.PERM_SEED),
+                               W.PERM_N, g).numpy()
+    keys = W.vec_inputs()["keys"]
+    got = _vector_results(tvec, g, lambda x: torch.from_numpy(np.array(x)),
+                          perm, tvec.perm_from_keys(torch.from_numpy(keys),
+                                                    W.PERM_N, g))
+    return got, perm
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vectors():
+    """JAX's vector results on 2x2, given the port's RandPerm; JAX's
+    RandPerm of the worker's keys is its ``dist_sort`` of them carrying
+    the identity, the slots past n marked n (``dist_rand_perm``'s body
+    without its threefry draw)."""
+    jg = jgrid(2, 2)
+    keys = W.vec_inputs()["keys"].astype(np.uint32)
+    iota = np.arange(W.VEC_PAD, dtype=np.int32)
+    _, kp = jvec.dist_sort(jdist.dist_vec(keys, jg), jg,
+                           jdist.dist_vec(iota, jg), length=W.PERM_N)
+    kp = np.where(iota < W.PERM_N, np.asarray(kp), W.PERM_N)
+    return _vector_results(jvec, jg, lambda x: jdist.dist_vec(x, jg),
+                           _one_vectors(2)[1], kp)
+
+
+#: The vector results that are float sums.
+_VEC_SUMS = ("route_f_sum",)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_vectors(pods, name):
+    """``perm_from_keys``, ``dist_rand_perm``, ``dist_route`` (every
+    combine, float and int, duplicate / masked / out-of-range / negative
+    indices), ``dist_gather``, ``dist_apply_perm``, ``dist_invert`` and
+    ``dist_uniq`` (a run of one value across a slice boundary; the pad-key
+    NaN beside a dead slot) across processes: every process's slices,
+    put together, equal one process's vectors bit for bit, and JAX's on
+    2x2 (the float sum within rtol 1e-5)."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    want, perm = _one_vectors(side)
+    for r in ranks:
+        _same_vec(r["rand_perm"], perm)
+        for tag, v in want.items():
+            _same_vec(r[tag], v)
+    assert (perm[W.PERM_N:] == W.PERM_N).all() and np.array_equal(
+        np.sort(perm[:W.PERM_N]), np.arange(W.PERM_N))
+    if side == 2:
+        for tag, v in _jax_vectors().items():
+            _same_vec(ranks[0][tag], v, exact=tag not in _VEC_SUMS)
+
+
+def _index_results(ix, a, gr, b, grid, sr_min) -> dict:
+    """The worker's indexing calls in one process of ``ix`` (the port's or
+    JAX's indexing module): DistSpMats by tag."""
+    m = W.index_inputs()
+    return dict(
+        sel=ix.dist_selector(W.SPREF_ROWS, 30, grid),
+        selt=ix.dist_selector(W.SPREF_COLS, 26, grid, transpose=True),
+        spref=ix.dist_spref(a, W.SPREF_ROWS, W.SPREF_COLS),
+        pruneblk=ix.dist_prune_block(a, W.SPASGN_ROWS, W.SPASGN_COLS),
+        spasgn=ix.dist_spasgn(a, W.SPASGN_ROWS, W.SPASGN_COLS, b),
+        permute=ix.dist_permute(gr, m["perm"]),
+        permute_fold=ix.dist_permute(a, m["rmap"], m["cmap"]),
+        permute_min=ix.dist_permute(a, m["rmap"], m["cmap"], sr=sr_min),
+        permute_retry=ix.dist_permute(a, m["rmap"], m["cmap"],
+                                      out_capacity=8))
+
+
+#: Products (compared with JAX compacted) and float folds of duplicates.
+_IX_PRODUCTS = ("spref", "spasgn")
+_IX_SUMS = ("permute_fold", "permute_retry")
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_indexing(pods, name):
+    """The selectors, SpRef, the block prune, SpAsgn and ``dist_permute``
+    (a permutation; maps that fold duplicates under plus-times and
+    min-plus and drop entries; a capacity that retries) across processes:
+    every process's blocks equal one process's slot for slot, values bit
+    for bit; on 2x2 JAX's slot for slot (fold sums within rtol 1e-5),
+    SpRef and SpAsgn compacted."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    asg = W.index_inputs()["asg"]
+    want = _index_results(tix, _one(inp["a"], side), _one(inp["g"], side),
+                          _one(asg, side), tgrid(side, side), MIN_PLUS)
+    for tag, m in want.items():
+        _same_share(ranks, tag, m)
+    assert want["permute_retry"].capacity > 8
+    if side == 2:
+        jm = _index_results(
+            jix, dist_pair(inp["a"], 2, 2)[0], dist_pair(inp["g"], 2, 2)[0],
+            dist_pair(asg, 2, 2)[0], jgrid(2, 2), jsr.MIN_PLUS)
+        for tag, m in jm.items():
+            if tag in _IX_PRODUCTS:
+                _same_local(_assemble(ranks, tag, 2, m.gshape), m)
+            else:
+                _same_share(ranks, tag, m, exact=tag not in _IX_SUMS)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_preprocess(side: int):
+    """One process's ``dist_remove_isolated``, ``dist_rand_permute`` and
+    ``mcl_dist(preprocess=True)`` (the R-MAT and the components graph)."""
+    g = tgrid(side, side)
+    r, c, w, shape = W.rmat7_isolated()
+    m = tdist.DistSpMat.from_coo_arrays(r, c, w, shape, g)
+    b, vmap, k = tmcl.dist_remove_isolated(m)
+    b2, perm = tmcl.dist_rand_permute(b, torch.Generator().manual_seed(
+        W.PRE_SEED))
+    p = tmcl.MCLParams(**W.MCL_PARAMS)
+    labels, iters = tmcl.mcl_dist(m, p, preprocess=True,
+                                  generator=torch.Generator().manual_seed(
+                                      W.PRE_SEED))
+    d = W.components_loops()
+    r, c = np.nonzero(d)
+    cl, ci = tmcl.mcl_dist(
+        tdist.DistSpMat.from_coo_arrays(r, c, d[r, c], d.shape, g), p,
+        preprocess=True, generator=torch.Generator().manual_seed(
+            W.PRE_SEED))
+    return dict(rmiso=b, randpermute=b2), vmap, k, perm, (
+        labels.numpy(), iters), (cl.numpy(), ci)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_preprocess():
+    """JAX's ``dist_remove_isolated`` and ``mcl_dist(preprocess=True)``
+    (its default key) on 2x2."""
+    r, c, w, shape = W.rmat7_isolated()
+    m = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(2, 2))
+    b, vmap, k = jmcl.dist_remove_isolated(m)
+    labels, iters = jmcl.mcl_dist(m, jmcl.MCLParams(**W.MCL_PARAMS),
+                                  preprocess=True)
+    return b, np.asarray(vmap), int(k), np.asarray(labels), int(iters)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_mcl_preprocess(pods, name):
+    """HipMCL's preprocessing across processes: ``dist_remove_isolated``
+    (blocks, the whole keep map in every process, the kept count),
+    ``dist_rand_permute`` (blocks, the whole permutation) and
+    ``mcl_dist(preprocess=True)`` of an R-MAT with isolated vertices and
+    of a 41-vertex graph (its label slices padded, a pad slot i labelled
+    n + i): one process's bit for bit; on 2x2 the removal equals JAX's and
+    the labels and iterations, given JAX's permutation, JAX's."""
+    ranks, _ = pods(name)
+    nproc, side = SCENARIOS[name]
+    mats, vmap, k, perm, (labels, iters), (cl, ci) = _one_preprocess(side)
+    assert 0 < k < vmap.shape[0]
+    for tag, m in mats.items():
+        _same_share(ranks, tag, m)
+    nc = cl.shape[0]
+    pad = -(-nc // nproc) * nproc
+    assert pad > nc
+    for r in ranks:
+        np.testing.assert_array_equal(r["rmiso_map"], vmap)
+        assert int(r["rmiso_k"]) == k
+        np.testing.assert_array_equal(r["randpermute_perm"], perm)
+        _same_vec(r["mclpre_labels"], labels)
+        assert int(r["mclpre_iters"]) == iters
+        got = r["mclpre_comps"]
+        assert got.shape == (pad,)
+        _same_vec(got[:nc], cl)
+        np.testing.assert_array_equal(got[nc:], nc + np.arange(nc, pad))
+        assert int(r["mclpre_comps_iters"]) == ci
+    if side == 2:
+        jb, jvmap, jk, jlabels, jiters = _jax_preprocess()
+        _same_share(ranks, "rmiso", jb)
+        np.testing.assert_array_equal(vmap, jvmap)
+        assert k == jk
+        for r in ranks:
+            _same_vec(r["mclpre_jax_labels"], jlabels)
+            assert int(r["mclpre_jax_iters"]) == jiters
+
+
+def _mis_ok(d, in_set):
+    """No edge inside the set, every vertex outside it beside one in it."""
+    adj = d != 0
+    s = np.asarray(in_set, bool)
+    assert not (adj & s[:, None] & s[None, :]).any(), "not independent"
+    assert (s | (adj & s[None, :]).any(1)).all(), "not maximal"
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_lacc_mis(pods, name):
+    """``lacc_dist`` and ``luby_mis_dist`` across processes on the BFS
+    graph and the 7-component graph: the label and set slices, put
+    together, equal one process's (the MIS drawn from one seed); the
+    labels JAX's on 2x2 and the components counted; the set independent
+    and maximal."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    for tag in ("g", "comps"):
+        d = inp[tag]
+        n = d.shape[0]
+        one = _one(d, side)
+        labels = tlacc.lacc_dist(one).numpy()
+        mis = tmis.luby_mis_dist(one, torch.Generator().manual_seed(
+            W.MIS_SEED)).numpy()
+        for r in ranks:
+            _same_vec(r[f"lacc_{tag}"], labels)
+            _same_vec(r[f"mis_{tag}"], mis)
+        _mis_ok(d, mis[:n])
+        assert not mis[n:].any()
+        if side == 2:
+            _same_vec(labels, np.asarray(jlacc.lacc_dist(
+                dist_pair(d, 2, 2)[0])))
+    n = inp["comps"].shape[0]
+    assert tcc.count_components(ranks[0]["lacc_comps"], n) == 7
