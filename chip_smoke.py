@@ -200,7 +200,23 @@ Phases, each raising on failure:
      with phase 20's generator seed: phase 20's iterations, isolated count
      and labels bit for bit, K1/K2 each an iteration; the seconds per
      iteration, total and peak memory per worker of both beside phases 18
-     and 20.
+     and 20.  Four processes of their own (``"algos"``), item 1.8's step
+     3 on the 4x4 grid, each result equal to one process's of this run
+     bit for bit (digests of every process's slices or blocks) and timed
+     as the slowest process between two rendezvous: ``dist_spmm`` (sum
+     and max, d = 32) and BC (phase 21's 64 roots) of phase 8's graph
+     (phases 17 and 21), phase 24's filtered BFS from 4 roots, filtered
+     MIS and materialization, ``dense_put`` / ``dense_add_sparse`` /
+     ``dense_to_host`` / ``dense_reduce`` of a 4096-vertex graph (against
+     the one-process calls and numpy), and below their phases' sizes (a
+     pod level or step costs an exchange or more) ``rcm_order_dist`` of
+     the relabelled 32^3 stencil (also the host Cuthill-McKee's),
+     ``md_order_dist`` of the 12x12 stencil (also ``md_order``'s) and the
+     three matchings of a scale-18 weighted R-MAT (scipy's maximum
+     cardinality); phase 23's ``mis2_dist``, ``restriction_op_dist`` and
+     ``galerkin_dist`` of the 128^3 stencil (K3/K4), and
+     ``galerkin_dist`` on 16x16 over the processes (K1/K2), equal to
+     phase 23's.
 
 Every bound is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -290,7 +306,12 @@ from combblas_tpu_torch.parallel.multihost import (
     pod_grid,
 )
 from combblas_tpu_torch.profile_summa import grid_cells
-from combblas_tpu_torch.semiring import MAX_SECOND, MIN_PLUS, PLUS_TIMES
+from combblas_tpu_torch.semiring import (
+    MAX_SECOND,
+    MAX_TIMES,
+    MIN_PLUS,
+    PLUS_TIMES,
+)
 
 SEMIRINGS = (PLUS_TIMES, MIN_PLUS, MAX_SECOND)
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -2287,7 +2308,7 @@ def dist_graph_full(s, roots, want_levels, seed: int,
     if refs is not None:
         refs.update(lacc=labels["lacc_dist"].cpu().numpy(),
                     mis=mis.cpu().numpy(), lacc_secs=secs["lacc_dist"],
-                    mis_secs=mis_secs)
+                    mis_secs=mis_secs, spmm=pod_spmm_refs(dm, seed))
     b = out["bfs"]
     log(f"  4x4 grid: block capacity {dm.capacity}, imbalance "
         f"{out['block_imbalance']:.3f}, distributed in "
@@ -3714,6 +3735,23 @@ def bandwidth(row: torch.Tensor, col: torch.Tensor, order) -> int:
     return int((pos[row.long()] - pos[col.long()]).abs().max())
 
 
+def relabelled_stencil(seed: int, dev, k: int, grid):
+    """The 7-point stencil of a k^3 grid (diagonal included) on the
+    one-process ``grid``, relabelled at random by ``dist_rand_perm`` +
+    ``dist_permute``: (the matrix, the natural order's bandwidth)."""
+    from combblas_tpu_torch.parallel.indexing import dist_permute
+    from combblas_tpu_torch.parallel.vector import dist_rand_perm
+
+    n = k ** 3
+    r, c, v = stencil(k, 3, dev, diagonal=True)
+    natural_bw = int((r - c).abs().max())
+    dm0 = _grid_dist(r, c, v, n, grid)
+    del r, c, v
+    perm = dist_rand_perm(torch.Generator(device=dev).manual_seed(seed), n,
+                          grid)[:n]
+    return dist_permute(dm0, perm), natural_bw
+
+
 def rcm_full(seed: int, dev, k: int = RCM_SIDE,
              side: int = DIST_SIDE) -> dict:
     """Phase 21's RCM: the 7-point stencil of a k^3 grid (diagonal
@@ -3724,19 +3762,10 @@ def rcm_full(seed: int, dev, k: int = RCM_SIDE,
     bandwidth is at most 3 k^2, beside the natural (k^2) and relabelled
     orders' bandwidths."""
     from combblas_tpu_torch.models.ordering import rcm_order, rcm_order_dist
-    from combblas_tpu_torch.parallel.indexing import dist_permute
-    from combblas_tpu_torch.parallel.vector import dist_rand_perm
 
     n = k ** 3
     grid = ProcGrid.make(side, side, device=dev)
-    r, c, v = stencil(k, 3, dev, diagonal=True)
-    natural_bw = int((r - c).abs().max())
-    dm0 = _grid_dist(r, c, v, n, grid)
-    del r, c, v
-    perm = dist_rand_perm(torch.Generator(device=dev).manual_seed(seed), n,
-                          grid)[:n]
-    dm = dist_permute(dm0, perm)
-    del dm0
+    dm, natural_bw = relabelled_stencil(seed, dev, k, grid)
     loc = dm.to_local()
     nnz = int(loc.nnz)
     row, col = loc.row[:nnz], loc.col[:nnz]
@@ -3813,13 +3842,16 @@ def _bc_rel(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.where(den > 0, d / np.where(den > 0, den, 1), 0).max())
 
 
-def bc_full(s, seed: int, side: int = DIST_SIDE) -> dict:
+def bc_full(s, seed: int, side: int = DIST_SIDE,
+            refs: dict | None = None) -> dict:
     """Phase 21's betweenness centrality on phase 8's graph ``s`` from its
     first ``BC_SOURCES`` roots in batches of ``BC_BATCH``:
     ``betweenness_centrality`` (gather SpMM) and
     ``betweenness_centrality_dist`` on a side x side grid within
     ``BC_RTOL`` relative, all scores finite; seconds, BC TEPS (sources x
-    undirected edges / seconds) and peak memory of each."""
+    undirected edges / seconds) and peak memory of each.  ``refs`` gets
+    ``"bc"``: the digest of the grid's scores, which phase 26's pod must
+    give again, and its seconds."""
     from combblas_tpu_torch.models.bc import (
         betweenness_centrality,
         betweenness_centrality_dist,
@@ -3853,6 +3885,9 @@ def bc_full(s, seed: int, side: int = DIST_SIDE) -> dict:
         raise AssertionError(f"BC local vs distributed: {out['rel_diff']} "
                              f"relative")
     out["max_score"] = float(scores["local"].max())
+    if refs is not None:
+        refs["bc"] = dict(digest=vec_digest(torch.from_numpy(
+            scores["dist"])), secs=out["dist"]["secs"])
     log(f"  BC from {len(roots)} roots, batches of {BC_BATCH}: local "
         f"{out['local']['secs']:.3f} s ({out['local']['teps'] / 1e9:.3f} "
         f"GTEPS, peak {out['local']['peak_mem_gb']:.2f} GiB), "
@@ -4211,7 +4246,8 @@ def _r_scipy(rows, cols, shape):
 
 def multigrid_full(seed: int, dev, k: int = RCM_SIDE, side: int = DIST_SIDE,
                    local_k: int = MG_LOCAL_SIDE,
-                   packed_side: int = MG_PACKED_SIDE) -> dict:
+                   packed_side: int = MG_PACKED_SIDE,
+                   refs: dict | None = None) -> dict:
     """Phase 23: the k^3 7-point stencil (6 / -1) on a side x side grid:
     ``mis2_dist`` (``mis2_verify_dist`` on the 0/1 pattern, and a host
     check on the patterns of A and A²), ``restriction_op_dist`` (R checked
@@ -4222,7 +4258,9 @@ def multigrid_full(seed: int, dev, k: int = RCM_SIDE, side: int = DIST_SIDE,
     (K1/K2, at least one launch each); then at ``local_k``^3
     local ``mis2`` + ``restriction_op`` (host checks, R card against CPU
     exactly with one CPU generator) and ``galerkin`` (K1/K2) against
-    scipy."""
+    scipy.  ``refs`` gets ``"mg"``: the set's digest, the block digests of
+    R and of both grids' R·A·Rᵀ, and the seconds, which phase 26's pod
+    must give again."""
     from combblas_tpu_torch.models import multigrid as mg
     from combblas_tpu_torch.ops.coo import SpCOO
 
@@ -4270,6 +4308,13 @@ def multigrid_full(seed: int, dev, k: int = RCM_SIDE, side: int = DIST_SIDE,
     out["galerkin_dist"] = dict(secs=secs, nnz=int(cd.total_nnz()),
                                 launches=launches)
     log(f"  galerkin_dist {side}x{side}: equal to scipy, {out['galerkin_dist']}")
+    if refs is not None:
+        refs["mg"] = dict(
+            mis2=vec_digest(torch.from_numpy(in_set)),
+            r=block_digests(R), galerkin=block_digests(cd),
+            secs=dict(mis2_dist=out["mis2_dist"]["secs"],
+                      restriction_op_dist=out["restriction_op_dist"]["secs"],
+                      galerkin_dist=secs))
     del cd
     # a grid whose blocks' coarse x fine keys pack into int32: K1/K2
     gp = ProcGrid.make(packed_side, packed_side, device=dev)
@@ -4284,6 +4329,9 @@ def multigrid_full(seed: int, dev, k: int = RCM_SIDE, side: int = DIST_SIDE,
     _k1k2_each_iteration(launches_p, 1, f"galerkin_dist {packed_side}x"
                          f"{packed_side} at {k}^3")
     _same_as_scipy(cp, ref, f"galerkin_dist {packed_side}x{packed_side}")
+    if refs is not None:
+        refs["mg"]["packed"] = block_digests(cp)
+        refs["mg"]["secs"]["galerkin_dist_packed"] = secs
     out["galerkin_dist_packed"] = dict(secs=secs, grid=[packed_side] * 2,
                                        nnz=int(cp.total_nnz()),
                                        launches=launches_p)
@@ -4505,7 +4553,8 @@ def cli_full(seed: int, dev) -> dict:
     return dict(lines=out, secs=secs)
 
 
-def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
+def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE,
+                         refs: dict | None = None) -> dict:
     """Phase 24: a ``TwitterGraph`` over phase 8's graph with seeded
     symmetric attributes and a time window passing about a quarter of the
     edges: ``subgraph_within`` and ``materialize_filtered_dist`` equal to
@@ -4514,7 +4563,10 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
     filtered graph, parents validated on it; ``mis_filtered_dist``
     independent and maximal on the filtered edges.  Then the block-
     streamed I/O of a side x side scale-``IO_SCALE`` matrix read back,
-    and the CLI (:func:`cli_full`)."""
+    and the CLI (:func:`cli_full`).  ``refs`` gets ``"filtered"``: the
+    digests of the materialized blocks, of the 4 processes' slices of each
+    BFS's parents and levels and of the MIS, and the seconds, which phase
+    26's pod must give again."""
     from combblas_tpu_torch.io.binary import read_binary
     from combblas_tpu_torch.io.parallel import (
         parallel_read_mtx,
@@ -4555,6 +4607,8 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
     dsub, secs = _timed(lambda: materialize_filtered_dist(dm, pred), dev)
     _same_entries_host(dsub, hr, hc, codes[keep], "materialize_filtered_dist")
     out["materialize_dist_secs"] = secs
+    nproc = POD_SCENARIOS["algos"]
+    fref = dict(mat=block_digests(dsub), bfs=[], secs=dict(materialize=secs))
     del dsub
     indptr = np.searchsorted(hr, np.arange(n + 1))
     out["bfs"] = []
@@ -4563,6 +4617,9 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
         (p1, l1), t1 = _timed(lambda: tg.bfs_within(root, begin, end), dev)
         (p2, l2), t2 = _timed(lambda: tg.bfs_within_dist(dm, root, begin,
                                                           end), dev)
+        fref["bfs"].append(dict(root=root, secs=t2,
+                                parents=slice_digests(p2, nproc),
+                                levels=slice_digests(l2, nproc)))
         p2, l2 = p2[:n], l2[:n]
         want = _host_levels(indptr, hc, root, n)
         if not (torch.equal(l1, l2) and np.array_equal(
@@ -4579,6 +4636,10 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
         f"{side}x{side} and host, parents validate: {out['bfs']}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     in_set, secs = _timed(lambda: mis_filtered_dist(dm, gen, pred), dev)
+    fref["mis"] = slice_digests(in_set, nproc)
+    fref["secs"]["mis"] = secs
+    if refs is not None:
+        refs["filtered"] = fref
     in_set = in_set[:n].cpu().numpy()
     hit = np.zeros(n, bool)
     hit[hr[in_set[hc]]] = True
@@ -4632,10 +4693,73 @@ def semantic_io_cli_full(s, roots, seed: int, side: int = DIST_SIDE) -> dict:
 #: The processes of phase 26's pods on the one card, and each pod's
 #: timeout (on expiry every worker is killed).  ``"mcl"`` is a launch of
 #: its own, so that its workers' peak memory is its own.
-POD_SCENARIOS = {"two": 2, "four": 4, "mcl": 4}
+POD_SCENARIOS = {"two": 2, "four": 4, "mcl": 4, "algos": 4}
 POD_TIMEOUT_SECS = 420
 #: Phase 26's sample sort: phase 19's length.
 POD_SORT_LOG2 = 26
+#: Phase 26's ``"algos"`` launch: the dense SpMM's width (and its two
+#: semirings), the dense matrices' graph scale, and the sizes of the
+#: host-paced cases, cut below their one-process phases' (every level or
+#: step of a pod costs one exchange or more): RCM's stencil side (phase
+#: 21: 128), minimum degree's (phase 21: 24) and the matchings' R-MAT
+#: scale (phase 22: 20).
+POD_SPMM_D = 32
+POD_SPMM = (("sum", PLUS_TIMES), ("max", MAX_TIMES))
+POD_DENSE_SCALE = 12
+POD_RCM_SIDE = 32
+POD_MD_SIDE = 12
+POD_MATCH_SCALE = 18
+
+
+def vec_digest(x: torch.Tensor, lo: int = 0) -> int:
+    """The elements of ``x`` (flattened; ``lo`` the global index of its
+    first), each one's bits times a hash of its global index, summed
+    modulo 2^64: two vectors with the same bits at the same indices have
+    the same digest, whatever order the sum runs in."""
+    x = x.reshape(-1).contiguous()
+    if x.dtype == torch.bool:
+        bits = x.long()
+    elif x.element_size() == 8:
+        bits = x.view(torch.int64)
+    else:
+        bits = x.to(torch.int32) if x.element_size() < 4 else x.view(
+            torch.int32)
+        bits = bits.long()
+    t = torch.arange(lo + 1, lo + 1 + bits.numel(), device=x.device)
+    w = ((t * 0x9E3779B1) & 0x7FFFFFFF) | 1
+    return int((bits * w).sum())
+
+
+def slice_digests(x: torch.Tensor, nproc: int) -> list:
+    """:func:`vec_digest` of each of the ``nproc`` processes' slices of the
+    whole FullyDist vector (or row-major rows) ``x``."""
+    flat = x.reshape(-1)
+    k = flat.numel() // nproc
+    return [vec_digest(flat[q * k:(q + 1) * k], q * k)
+            for q in range(nproc)]
+
+
+def spmm_operand(seed: int, dev, rows: int) -> torch.Tensor:
+    """Phase 26's dense SpMM operand: (rows, ``POD_SPMM_D``) normal floats
+    drawn on the card from a seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 26)
+    return torch.randn((rows, POD_SPMM_D), generator=gen, device=dev)
+
+
+def pod_spmm_refs(dm, seed: int) -> dict:
+    """The ``"algos"`` launch's ``dist_spmm`` references on phase 17's
+    one-process 4x4 grid ``dm``: per semiring the digests of the 4
+    processes' slices of Y, and the seconds of the call."""
+    from combblas_tpu_torch.parallel.dense import dist_spmm
+    from combblas_tpu_torch.parallel.dist import col_vec_len
+    dev = dm.row.device
+    x = spmm_operand(seed, dev, col_vec_len(dm.gshape, dm.grid))
+    out = {}
+    for name, sr in POD_SPMM:
+        y, secs = _timed(lambda sr=sr: dist_spmm(dm, x, sr), dev)
+        out[name] = dict(digests=slice_digests(y, POD_SCENARIOS["algos"]),
+                         secs=secs)
+    return out
 
 
 def block_digests(c) -> list:
@@ -5073,6 +5197,211 @@ def _pod_mcl_preprocess(dev, d: str) -> dict:
                           generator=gen)[2]
 
 
+def _pod_dense(g, dev, seed: int) -> dict:
+    """``dense_put`` / ``dense_add_sparse`` / ``dense_to_host`` /
+    ``dense_reduce`` of a quarter-valued dense 2^``POD_DENSE_SCALE``-square
+    matrix and the R-MAT graph of that scale on the 4x4 grid over the
+    processes: each share and slice equal, bit for bit, to the same calls
+    on a one-process 4x4 grid in this process and to numpy (the values
+    are quarters, so every sum is exact)."""
+    from combblas_tpu_torch.parallel import dense
+    a = rmat_matrix(torch.Generator(device=dev).manual_seed(seed),
+                    POD_DENSE_SCALE, 16)
+    n = a.shape[0]
+    x = (np.random.default_rng(seed).integers(-40, 40, (n, n)) / 4.0
+         ).astype(np.float32)
+    one = ProcGrid.make(DIST_SIDE, DIST_SIDE, device=dev)
+    mats = {"pod": (g, DistSpMat.from_local(a, g)),
+            "one": (one, DistSpMat.from_local(a, one))}
+    got, secs = {}, {}
+    for key, (grid, m) in mats.items():
+        put, secs[f"dense_put_{key}"] = _timed(
+            lambda grid=grid: dense.dense_put(x, grid), dev)
+        add, secs[f"dense_add_sparse_{key}"] = _timed(
+            lambda m=m, put=put: dense.dense_add_sparse(put, m), dev)
+        host, secs[f"dense_to_host_{key}"] = _timed(
+            lambda grid=grid, add=add: dense.dense_to_host(
+                add, (n, n), grid=grid), dev)
+        red = {}
+        for dim in ("row", "col"):
+            red[dim], secs[f"dense_reduce_{dim}_{key}"] = _timed(
+                lambda grid=grid, add=add, dim=dim: dense.dense_reduce(
+                    add, dim, grid=grid), dev)
+        got[key] = (put, add, host, red)
+    k = int(a.nnz)
+    want = x.copy()
+    np.add.at(want, (a.row[:k].cpu().numpy(), a.col[:k].cpu().numpy()),
+              a.val[:k].cpu().numpy())
+    put, add, host, red = got["pod"]
+    put1, add1, host1, red1 = got["one"]
+    mb, nb = put1.shape[0] // DIST_SIDE, put1.shape[1] // DIST_SIDE
+    (r0, c0), (lr, lc) = g.origin(), g.local_shape()
+    share = (slice(r0 * mb, (r0 + lr) * mb), slice(c0 * nb, (c0 + lc) * nb))
+    rlo, rhi = g.vec_range(DIST_SIDE * mb)
+    clo, chi = g.vec_range(DIST_SIDE * nb)
+    if not (_bitwise_equal([put, add, red["row"], red["col"]],
+                           [put1[share].contiguous(),
+                            add1[share].contiguous(), red1["row"][rlo:rhi],
+                            red1["col"][clo:chi]])
+            and np.array_equal(host, host1) and np.array_equal(host, want)
+            and np.array_equal(red1["row"][:n].cpu().numpy(), want.sum(1))
+            and np.array_equal(red1["col"][:n].cpu().numpy(),
+                               want.sum(0))):
+        raise AssertionError("the dense matrices across processes differ "
+                             "from one process's or numpy's")
+    return dict(n=n, nnz=k, secs=secs)
+
+
+def _pod_filtered(s, g, dev, d: str, seed: int) -> dict:
+    """Phase 24's ``TwitterGraph`` over phase 8's graph ``s`` on the 4x4
+    grid over the processes: ``materialize_filtered_dist`` (block
+    digests), ``bfs_within_dist`` from phase 8's first roots and
+    ``mis_filtered_dist`` (digests of this process's slices)."""
+    from combblas_tpu_torch.models.filtered import (
+        materialize_filtered_dist,
+        mis_filtered_dist,
+    )
+    from combblas_tpu_torch.models.semantic import (
+        TwitterGraph,
+        tweet_within_interval,
+    )
+    from combblas_tpu_torch.ops.coo import SpCOO
+    from combblas_tpu_torch.parallel.dist import row_vec_len
+    begin, end = TWITTER_WINDOW
+    k = int(s.nnz)
+    val = torch.zeros(s.capacity, dtype=torch.float32, device=dev)
+    val[:k] = torch.from_numpy(_twitter_codes(s, seed)).to(dev)
+    tg = TwitterGraph(SpCOO(row=s.row, col=s.col, val=val, nnz=s.nnz,
+                            shape=s.shape))
+    dm = tg.distribute(g)
+    pred = tweet_within_interval(begin, end)
+    sub, mat = _pod_call("materialize_filtered_dist",
+                         lambda: materialize_filtered_dist(dm, pred), dev)
+    mat["digests"] = block_digests(sub)
+    del sub
+    lo = g.vec_range(row_vec_len(dm.gshape, g))[0]
+    out = dict(materialize=mat, bfs=[])
+    for root in np.load(os.path.join(d, "roots.npy")):
+        (par, lv), line = _pod_call("bfs_within_dist", lambda r=int(root): (
+            tg.bfs_within_dist(dm, r, begin, end)), dev)
+        out["bfs"].append(dict(line, root=int(root),
+                               parents=vec_digest(par, lo),
+                               levels=vec_digest(lv, lo)))
+    in_set, line = _pod_call("mis_filtered_dist", lambda: mis_filtered_dist(
+        dm, torch.Generator(device=dev).manual_seed(seed), pred), dev)
+    out["mis"] = dict(line, digest=vec_digest(in_set, lo))
+    return out
+
+
+def _pod_multigrid(g, dev, seed: int) -> dict:
+    """Phase 23 on the 4x4 grid over the processes: ``mis2_dist`` (the
+    whole set's digest), ``restriction_op_dist`` and ``galerkin_dist``
+    (block digests; K3/K4) of the ``RCM_SIDE``^3 stencil, then
+    ``galerkin_dist`` of the same R and A on a 16x16 grid over the
+    processes (K1/K2); each call's launches."""
+    from combblas_tpu_torch.models import multigrid as mg
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    k = RCM_SIDE
+    n = k ** 3
+    r, c, v = mg_stencil(k, dev)
+    dm = _grid_dist(r, c, v, n, g)
+    in_set, mis2 = _pod_call("mis2_dist", lambda: mg.mis2_dist(
+        dm, torch.Generator(device=dev).manual_seed(seed)), dev)
+    mis2["digest"] = vec_digest(torch.from_numpy(in_set))
+    R, rop = _pod_call("restriction_op_dist", lambda: mg.restriction_op_dist(
+        dm, torch.Generator(device=dev).manual_seed(seed + 1)), dev)
+    rop["digests"] = block_digests(R)
+    cd, gal = _pod_call("galerkin_dist", lambda: mg.galerkin_dist(R, dm),
+                        dev)
+    gal["digests"] = block_digests(cd)
+    del cd
+    rl = R.to_local()
+    nr = int(rl.nnz)
+    gp = pod_grid(pr=MG_PACKED_SIDE, pc=MG_PACKED_SIDE, device=dev)
+    rp = DistSpMat.from_coo_arrays(rl.row[:nr].cpu().numpy(),
+                                   rl.col[:nr].cpu().numpy(),
+                                   np.ones(nr, np.float32), R.gshape, gp)
+    del rl, R, dm
+    dmp = _grid_dist(r, c, v, n, gp)
+    del r, c, v
+    cp, packed = _pod_call("galerkin_dist_packed",
+                           lambda: mg.galerkin_dist(rp, dmp), dev)
+    packed["digests"] = block_digests(cp)
+    return dict(mis2_dist=mis2, restriction_op_dist=rop, galerkin_dist=gal,
+                galerkin_dist_packed=packed)
+
+
+def _pod_algos(dev, d: str, seed: int) -> dict:
+    """Item 1.8's step 3 on the 4x4 grid over the processes, each call
+    timed between two rendezvous and its result digested for the parent:
+    ``dist_spmm`` (sum and max, d = ``POD_SPMM_D``) and BC (phase 21's
+    roots) of phase 8's graph, phase 24's filtered traversals of it, the
+    dense matrices (:func:`_pod_dense`), ``rcm_order_dist`` of the
+    relabelled ``POD_RCM_SIDE``^3 stencil (the parent's,
+    ``d/rcm_graph.npz``), ``md_order_dist`` of the ``POD_MD_SIDE``^2
+    stencil, the three matchings of the scale-``POD_MATCH_SCALE``
+    weighted R-MAT, and phase 23's multigrid setup
+    (:func:`_pod_multigrid`)."""
+    from combblas_tpu_torch.models.bc import betweenness_centrality_dist
+    from combblas_tpu_torch.models.ordering import (
+        md_order_dist,
+        rcm_order_dist,
+    )
+    from combblas_tpu_torch.parallel import matching as pm
+    from combblas_tpu_torch.parallel.dense import dist_spmm
+    from combblas_tpu_torch.parallel.dist import col_vec_len
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    g = pod_grid(pr=DIST_SIDE, pc=DIST_SIDE, device=dev)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    s = spmm_bfs_graphs(seed, dev, GRAPH_SCALE)["s"]
+    dm = DistSpMat.from_local(s, g)
+    n_pad = col_vec_len(dm.gshape, g)
+    lo, hi = g.vec_range(n_pad)
+    x = spmm_operand(seed, dev, n_pad)[lo:hi].clone()
+    for name, sr in POD_SPMM:
+        y, line = _pod_call(f"dist_spmm {name}",
+                            lambda sr=sr: dist_spmm(dm, x, sr), dev)
+        out[f"spmm_{name}"] = dict(line, digest=vec_digest(
+            y, lo * POD_SPMM_D))
+    del x, y
+    roots = bfs_roots(s, seed)[:BC_SOURCES]
+    scores, line = _pod_call("betweenness_centrality_dist",
+                             lambda: betweenness_centrality_dist(
+                                 dm, BC_BATCH, roots), dev)
+    out["bc"] = dict(line, digest=vec_digest(torch.from_numpy(scores)))
+    del dm
+    torch.cuda.empty_cache()
+    out["filtered"] = _pod_filtered(s, g, dev, d, seed)
+    del s
+    torch.cuda.empty_cache()
+    out["dense"] = _pod_dense(g, dev, seed)
+    torch.cuda.empty_cache()
+    z = np.load(os.path.join(d, "rcm_graph.npz"))
+    n = int(z["n"])
+    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"], (n, n), g)
+    order, line = _pod_call("rcm_order_dist", lambda: rcm_order_dist(dm),
+                            dev)
+    out["rcm"] = dict(line, digest=vec_digest(torch.from_numpy(order)))
+    k = POD_MD_SIDE
+    r, c, v = stencil(k, 2, dev, diagonal=False)
+    dm = _grid_dist(r, c, v, k * k, g)
+    order, line = _pod_call("md_order_dist", lambda: md_order_dist(dm), dev)
+    out["md"] = dict(line, digest=vec_digest(order))
+    dm = DistSpMat.from_local(weighted_rmat(seed, dev, POD_MATCH_SCALE), g)
+    for name in ("dist_bp_maximal", "dist_bp_maximum", "dist_awpm"):
+        (mr, mc), line = _pod_call(name, lambda fn=getattr(pm, name): fn(
+            dm), dev)
+        out[name] = dict(line, row=vec_digest(mr, g.vec_range(
+            mr.shape[0] * g.nproc)[0]), col=vec_digest(mc, g.vec_range(
+                mc.shape[0] * g.nproc)[0]))
+    del dm
+    torch.cuda.empty_cache()
+    out["multigrid"] = _pod_multigrid(g, dev, seed)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
                seed: int) -> int:
     """One process of a phase-26 pod on the card (``--pod-worker``): joins
@@ -5095,6 +5424,8 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         res["mcl"] = _pod_mcl(dev, d)
         torch.cuda.empty_cache()
         res["mcl_preprocess"] = _pod_mcl_preprocess(dev, d)
+    elif scenario == "algos":
+        res["algos"] = _pod_algos(dev, d, seed)
     else:
         a = a2_matrix(seed, dev, AUTO_SCALE)
         dm = DistSpMat.from_local(a, pod_grid(pr=4, pc=4, device=dev))
@@ -5193,7 +5524,10 @@ def pod_full(seed: int, refs: dict, dev) -> dict:
     2^26 float32, phase 19's vector calls and its SpRef / block prune /
     SpAsgn; then HipMCL's pod path in a 4-process launch of its own
     (:func:`_pod_mcl`, :func:`check_pod_mcl`), with its preprocessing
-    (:func:`_pod_mcl_preprocess`, :func:`check_pod_mcl_preprocess`)."""
+    (:func:`_pod_mcl_preprocess`, :func:`check_pod_mcl_preprocess`); then
+    item 1.8's step 3 in a 4-process launch of its own (:func:`_pod_algos`
+    against :func:`algos_refs` and the references of phases 17, 21, 23
+    and 24, :func:`check_pod_algos`)."""
     d = os.path.abspath(os.path.join("chiprun_out", "pod"))
     os.makedirs(d, exist_ok=True)
     try:
@@ -5332,6 +5666,190 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
         mcl, refs["mcl_preprocess"], d)
     out["launches"].update(mcl=out["mcl"]["launches"],
                            mcl_preprocess=out["mcl_preprocess"]["launches"])
+    t = time.perf_counter()
+    one = algos_refs(seed, dev, d)
+    out["algos_refs_secs"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    algos = _run_pod("algos", d, seed)
+    out["algos_secs"] = time.perf_counter() - t
+    out["algos"] = check_pod_algos(algos, refs, one)
+    out["launches"]["galerkin"] = {}
+    for part in out["algos"]["launches"].values():
+        for k, v in part.items():
+            out["launches"]["galerkin"][k] = out["launches"]["galerkin"].get(
+                k, 0) + v
+    log(f"  item 1.8's step 3 across 4 processes, 4x4 ({out['algos_secs']:.1f}"
+        f" s launch, one-process references {out['algos_refs_secs']:.1f} s): "
+        f"every result equal to one process's: "
+        f"{json.dumps({k: v for k, v in out['algos'].items() if k != 'launches'})}"
+        f"; Galerkin launches {out['algos']['launches']}")
+    return out
+
+
+def algos_refs(seed: int, dev, d: str) -> dict:
+    """The one-process references of the ``"algos"`` launch's host-paced
+    cases at their cut sizes, on a 4x4 grid of the card, each timed:
+    ``rcm_order_dist`` of the relabelled ``POD_RCM_SIDE``^3 stencil (equal
+    to :func:`host_rcm`'s ``"min_label"`` order; its entries saved to
+    ``d/rcm_graph.npz`` for the workers), ``md_order_dist`` of the
+    ``POD_MD_SIDE``^2 stencil (equal to ``md_order``), and the three
+    matchings of the scale-``POD_MATCH_SCALE`` weighted R-MAT (checked on
+    the host, the maximum cardinalities equal to scipy's): digests of
+    the results, as the processes hold them."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+
+    from combblas_tpu_torch.models.ordering import (
+        md_order,
+        md_order_dist,
+        rcm_order_dist,
+    )
+    from combblas_tpu_torch.ops.coo import SpCOO
+    from combblas_tpu_torch.parallel import matching as pm
+    grid = ProcGrid.make(DIST_SIDE, DIST_SIDE, device=dev)
+    nproc = POD_SCENARIOS["algos"]
+    out = {}
+    k = POD_RCM_SIDE
+    n = k ** 3
+    dm, _ = relabelled_stencil(seed, dev, k, grid)
+    loc = dm.to_local()
+    nnz = int(loc.nnz)
+    row, col, val = (x[:nnz].cpu().numpy() for x in (loc.row, loc.col,
+                                                      loc.val))
+    del loc
+    np.savez(os.path.join(d, "rcm_graph.npz"), row=row, col=col, val=val,
+             n=np.asarray(n))
+    order, secs = _timed(lambda: rcm_order_dist(dm), dev)
+    if not np.array_equal(order, host_rcm(row.astype(np.int64),
+                                          col.astype(np.int64), n)[
+                                              "min_label"]):
+        raise AssertionError(f"rcm_order_dist of the {k}^3 stencil differs "
+                             "from the host Cuthill-McKee")
+    out["rcm"] = dict(digest=vec_digest(torch.from_numpy(order)), secs=secs,
+                      n=n, nnz=nnz)
+    k = POD_MD_SIDE
+    n = k * k
+    r, c, v = stencil(k, 2, dev, diagonal=False)
+    want = md_order(SpCOO.from_arrays(r.cpu().numpy(), c.cpu().numpy(),
+                                      v.cpu().numpy(), (n, n), device=dev))
+    order, secs = _timed(lambda: md_order_dist(_grid_dist(r, c, v, n, grid)),
+                         dev)
+    if not torch.equal(order, want):
+        raise AssertionError("md_order_dist differs from md_order")
+    out["md"] = dict(digest=vec_digest(order), secs=secs, n=n)
+    a = weighted_rmat(seed, dev, POD_MATCH_SCALE)
+    m, n = a.shape
+    k = int(a.nnz)
+    row = a.row[:k].cpu().numpy().astype(np.int64)
+    col = a.col[:k].cpu().numpy().astype(np.int64)
+    keys = row * n + col
+    scipy_max = int((maximum_bipartite_matching(csr_matrix(
+        (np.ones(k, np.int8), (row, col)), shape=(m, n)),
+        perm_type="column") >= 0).sum())
+    dm = DistSpMat.from_local(a, grid)
+    for name in ("dist_bp_maximal", "dist_bp_maximum", "dist_awpm"):
+        (mr, mc), secs = _timed(lambda fn=getattr(pm, name): fn(dm), dev)
+        card = check_matching(keys, row, col, n, mr[:m], mc[:n],
+                              name == "dist_bp_maximal")
+        if name != "dist_bp_maximal" and card != scipy_max:
+            raise AssertionError(f"{name}: cardinality {card}, scipy "
+                                 f"{scipy_max}")
+        out[name] = dict(row=slice_digests(mr, nproc),
+                         col=slice_digests(mc, nproc), secs=secs,
+                         cardinality=card)
+    out["matching"] = dict(scale=POD_MATCH_SCALE, nnz=k,
+                           scipy_maximum=scipy_max)
+    return out
+
+
+def check_pod_algos(ranks, refs: dict, one: dict) -> dict:
+    """The ``"algos"`` launch against one process of this run: every
+    digest equal (``refs`` from phases 17, 21, 23 and 24; ``one`` from
+    :func:`algos_refs`), the Galerkin products' launches (summed over the
+    processes) K3/K4 on 4x4 and K1/K2 on 16x16.  Returns each case's
+    seconds (the slowest process's) beside one process's, the launches
+    and every worker's peak."""
+    got = [r["algos"] for r in ranks]
+
+    def same(label: str, mine, want) -> None:
+        if mine != want:
+            raise AssertionError(f"{label} across {len(ranks)} processes "
+                                 "differs from one process's")
+
+    def secs(fn) -> float:
+        return max(fn(x) for x in got)
+
+    out = {}
+    for name, _sr in POD_SPMM:
+        same(f"dist_spmm {name}", [x[f"spmm_{name}"]["digest"] for x in got],
+             refs["spmm"][name]["digests"])
+        out[f"dist_spmm_{name}"] = dict(
+            secs=secs(lambda x: x[f"spmm_{name}"]["secs"]),
+            one_process_secs=refs["spmm"][name]["secs"])
+    same("betweenness_centrality_dist", [x["bc"]["digest"] for x in got],
+         [refs["bc"]["digest"]] * len(got))
+    out["bc"] = dict(secs=secs(lambda x: x["bc"]["secs"]),
+                     one_process_secs=refs["bc"]["secs"])
+    f = refs["filtered"]
+    _same_digests([x["filtered"] for x in got], "materialize", f["mat"],
+                  "materialize_filtered_dist across processes")
+    for i, want in enumerate(f["bfs"]):
+        for key in ("parents", "levels"):
+            same(f"bfs_within_dist from {want['root']} ({key})",
+                 [x["filtered"]["bfs"][i][key] for x in got], want[key])
+    same("mis_filtered_dist", [x["filtered"]["mis"]["digest"] for x in got],
+         f["mis"])
+    out["filtered"] = dict(
+        materialize=dict(secs=secs(lambda x: x["filtered"]["materialize"][
+            "secs"]), one_process_secs=f["secs"]["materialize"]),
+        bfs=[dict(root=want["root"], secs=secs(
+            lambda x, i=i: x["filtered"]["bfs"][i]["secs"]),
+            one_process_secs=want["secs"]) for i, want in enumerate(
+                f["bfs"])],
+        mis=dict(secs=secs(lambda x: x["filtered"]["mis"]["secs"]),
+                 one_process_secs=f["secs"]["mis"]))
+    out["dense"] = dict(n=got[0]["dense"]["n"], secs={
+        k: secs(lambda x, k=k: x["dense"]["secs"][k])
+        for k in got[0]["dense"]["secs"]})
+    for name in ("rcm", "md"):
+        same(name, [x[name]["digest"] for x in got],
+             [one[name]["digest"]] * len(got))
+        out[name] = dict(n=one[name]["n"], secs=secs(
+            lambda x, name=name: x[name]["secs"]),
+            one_process_secs=one[name]["secs"])
+    for name in ("dist_bp_maximal", "dist_bp_maximum", "dist_awpm"):
+        for key in ("row", "col"):
+            same(f"{name} ({key})", [x[name][key] for x in got],
+                 one[name][key])
+        out[name] = dict(secs=secs(lambda x, name=name: x[name]["secs"]),
+                         one_process_secs=one[name]["secs"],
+                         cardinality=one[name]["cardinality"])
+    mg = refs["mg"]
+    same("mis2_dist", [x["multigrid"]["mis2_dist"]["digest"] for x in got],
+         [mg["mis2"]] * len(got))
+    multi = [x["multigrid"] for x in got]
+    _same_digests(multi, "restriction_op_dist", mg["r"],
+                  "restriction_op_dist across processes")
+    _same_digests(multi, "galerkin_dist", mg["galerkin"],
+                  "galerkin_dist 4x4 across processes")
+    _same_digests(multi, "galerkin_dist_packed", mg["packed"],
+                  f"galerkin_dist {MG_PACKED_SIDE}x{MG_PACKED_SIDE} across "
+                  "processes")
+    launches = {key: _sum_launches(multi, key)
+                for key in ("galerkin_dist", "galerkin_dist_packed")}
+    for key, names in (("galerkin_dist", ("expand_i64", "compress_i64")),
+                       ("galerkin_dist_packed", ("expand_i32",
+                                                 "compress_i32"))):
+        if any(launches[key].get(k, 0) < 1 for k in names):
+            raise AssertionError(f"pod {key} launched {launches[key]}, want "
+                                 f"{names}")
+    out["multigrid"] = {key: dict(secs=secs(lambda x, key=key: x[
+        "multigrid"][key]["secs"]), one_process_secs=mg["secs"][key])
+        for key in ("mis2_dist", "restriction_op_dist", "galerkin_dist",
+                    "galerkin_dist_packed")}
+    out.update(launches=launches, matching=one["matching"],
+               peak_gib=[x["peak_gib"] for x in got])
     return out
 
 
@@ -5709,7 +6227,7 @@ def main() -> int:
     order_line = dict(rcm=rcm_full(args.seed, dev))
     torch.cuda.empty_cache()
     order_line["md"] = md_full(dev)
-    order_line["bc"] = bc_full(s21, args.seed)
+    order_line["bc"] = bc_full(s21, args.seed, refs=pod_refs)
     torch.cuda.empty_cache()
     order_line["bc"]["card_vs_cpu"] = bc_card_vs_cpu(args.seed, dev)
     log(json.dumps(order_line))
@@ -5732,7 +6250,7 @@ def main() -> int:
         f"the {RCM_SIDE}^3 stencil, {DIST_SIDE}x{DIST_SIDE}; local "
         f"restriction_op at {MG_LOCAL_SIDE}^3")
     torch.cuda.reset_peak_memory_stats()
-    mg_line = multigrid_full(args.seed, dev)
+    mg_line = multigrid_full(args.seed, dev, refs=pod_refs)
     mg_line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(json.dumps(mg_line))
     torch.cuda.empty_cache()
@@ -5744,7 +6262,8 @@ def main() -> int:
         f"local and {DIST_SIDE}x{DIST_SIDE}, block-streamed I/O at scale "
         f"{IO_SCALE}, the CLI")
     torch.cuda.reset_peak_memory_stats()
-    semantic_line = semantic_io_cli_full(s21, roots21, args.seed)
+    semantic_line = semantic_io_cli_full(s21, roots21, args.seed,
+                                         refs=pod_refs)
     semantic_line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del s21
     log(json.dumps(semantic_line))
@@ -5759,7 +6278,9 @@ def main() -> int:
         f"of phase 8's graph, dist_sort_auto 2^{POD_SORT_LOG2}, phase 19's "
         f"vector calls and SpRef / SpAsgn, cooperative I/O at scale "
         f"{IO_SCALE}; mcl_dist of phase 18's matrix and "
-        f"mcl_dist(preprocess=True) of phase 20's, 4x4 over 4 processes")
+        f"mcl_dist(preprocess=True) of phase 20's, 4x4 over 4 processes; "
+        f"item 1.8's step 3 (dense SpMM, BC, RCM, MD, matchings, "
+        f"multigrid, filtered traversals), 4x4 over 4 processes")
     torch.cuda.empty_cache()
     pod_line = pod_full(args.seed, pod_refs, dev)
     log(json.dumps(pod_line))
@@ -5807,6 +6328,8 @@ def main() -> int:
                          for c in ("spref", "spasgn")),
                      launches_pod_mcl_preprocess=pod_line["launches"][
                          "mcl_preprocess"].get(k["name"], 0),
+                     launches_pod_galerkin=pod_line["launches"][
+                         "galerkin"].get(k["name"], 0),
                      launches_seg=seg_line["launches"].get(k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:

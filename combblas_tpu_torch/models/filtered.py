@@ -6,7 +6,10 @@ The counterparts of ``Applications/FilteredBFS.cpp:129`` /
 an edge predicate masks the traversal's gather pass ("late filtering"), so
 no subgraph is built; :func:`materialize_filtered` builds it for repeated
 queries with one predicate.  A predicate maps a value tensor to a bool
-tensor.
+tensor.  The distributed forms run on a grid over several processes too:
+the prune needs no exchange, the BFS's vectors are this process's slices
+(its stop read over all the processes, as ``bfs_dist``'s), and the MIS is
+``luby_mis_dist``'s.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from combblas_tpu_torch.parallel.dist import (
     row_vec_len,
 )
 from combblas_tpu_torch.parallel.elementwise import dist_prune
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import dist_spmsv_masked
 from combblas_tpu_torch.semiring import MAX_SECOND
 
@@ -70,31 +72,30 @@ def mis_filtered(a: SpCOO, generator: torch.Generator, pred: Callable):
     return luby_mis(materialize_filtered(a, pred), generator)
 
 
-@single_process
 def materialize_filtered_dist(a: DistSpMat, pred: Callable) -> DistSpMat:
     """The semantic subgraph on the grid: a blockwise prune, no exchange
     (``SemanticGraph.h``'s repeated-query path)."""
     return dist_prune(a, lambda v: ~pred(v))
 
 
-@single_process
 def bfs_filtered_dist(a: DistSpMat, root: int, pred: Callable):
     """Distributed filtered BFS (``FilteredBFS.cpp:129``): the predicate
     masks the entries of every level's ``dist_spmsv_masked``, as
     ``bfs_dist`` steps otherwise.  ``a``: a DistSpMat whose values are
     attribute codes.  Returns (parents, levels) of length
-    ``row_vec_len``."""
-    n_pad = row_vec_len(a.gshape, a.grid)
-    s = _init_state(n_pad, int(root), a.row.device)
+    ``row_vec_len`` (on a pod, this process's slices)."""
+    g = a.grid
+    lo, hi = g.vec_range(row_vec_len(a.gshape, g))
+    s = _init_state(hi - lo, int(root), a.row.device,
+                    lo if g.is_pod else None)
     live = _live_entries(a)
     while s.nfront > 0:
         y, ym = dist_spmsv_masked(a, s.front_val, s.front_mask, MAX_SECOND,
                                   transpose=True, edge_pred=pred, live=live)
-        s = _advance(s, y, ym)
+        s = _advance(s, y, ym, lo, g.is_pod)
     return s.parents, s.levels
 
 
-@single_process
 def mis_filtered_dist(a: DistSpMat, generator: torch.Generator,
                       pred: Callable):
     """Distributed FilteredMIS (``FilteredMIS.cpp:147``): Luby rounds with

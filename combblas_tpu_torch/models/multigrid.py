@@ -12,6 +12,13 @@ and ``summa_spgemm_auto`` on the grid.
 Priorities come from a ``torch.Generator`` (JAX draws from a key): the
 draw is :func:`_priorities`, which the tests replace with JAX's draws to
 compare sets exactly.
+
+On a grid over several processes the live set, the priorities and the set
+are this process's slices: every process draws the whole vector's
+priorities from its generator (seeded alike) and keeps its slice, as
+``luby_mis_dist`` does, and every round's stop is read over all the
+processes.  The host maps the JAX functions return or walk (MIS-2's set,
+the attachments behind R's triples) are put together from the slices.
 """
 
 from __future__ import annotations
@@ -23,9 +30,9 @@ from combblas_tpu_torch.models.mis import _priorities
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.spgemm import spgemm_auto
 from combblas_tpu_torch.ops.spmv import spmv
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import DistSpMat, row_vec_len
 from combblas_tpu_torch.parallel.elementwise import dist_transpose
-from combblas_tpu_torch.parallel.grid import single_process
 from combblas_tpu_torch.parallel.spmv import _padded, dist_spmv
 from combblas_tpu_torch.parallel.summa import summa_spgemm_auto
 from combblas_tpu_torch.semiring import MAX_SECOND, MIN_SECOND, PLUS_TIMES
@@ -48,15 +55,17 @@ def _two_hop_max(spmv_max, x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(_finite_or_zero(spmv_max(h1)), h1)
 
 
-def _mis2_rounds(spmv_max, live: torch.Tensor,
-                 generator: torch.Generator) -> torch.Tensor:
+def _mis2_rounds(spmv_max, live: torch.Tensor, generator: torch.Generator,
+                 grid=None, lo: int = 0) -> torch.Tensor:
     """Luby rounds at distance 2 over the vertices where ``live`` holds,
     one host read a round: winners remove their distance-2
-    neighbourhood."""
-    n = live.shape[0]
-    in_set = torch.zeros(n, dtype=torch.bool, device=live.device)
-    while bool(live.any()):
-        pri = _priorities(n, live, generator)
+    neighbourhood.  On a pod (``grid``) ``live`` is this process's slice,
+    from ``lo`` on, of the padded vector."""
+    pod = grid is not None and grid.is_pod
+    n = live.shape[0] * (grid.nproc if pod else 1)
+    in_set = torch.zeros(live.shape[0], dtype=torch.bool, device=live.device)
+    while exchange.any_proc(live.any(), grid) if pod else bool(live.any()):
+        pri = _priorities(n, live, generator, lo)
         winners = live & (pri >= _two_hop_max(spmv_max, pri)) & (pri > 0)
         hit = _two_hop_max(spmv_max, winners.to(torch.float32)) > 0
         in_set, live = in_set | winners, live & ~hit
@@ -123,64 +132,77 @@ def galerkin(r: SpCOO, a: SpCOO) -> SpCOO:
 
 # -- on the block grid ------------------------------------------------------
 
-@single_process
+def _slice_of(a: DistSpMat, x: np.ndarray) -> torch.Tensor:
+    """This process's slice of the row-space vector whose first elements
+    are the host array ``x`` (zero-padded), on the grid's device."""
+    n_pad = row_vec_len(a.gshape, a.grid)
+    lo, hi = a.grid.vec_range(n_pad)
+    pad = np.zeros(n_pad, x.dtype)
+    pad[:x.shape[0]] = x
+    return torch.from_numpy(pad[lo:hi]).to(a.row.device)
+
+
+def _ids(a: DistSpMat, dtype) -> torch.Tensor:
+    """The global ids of this process's slice of a row-space vector."""
+    lo, hi = a.grid.vec_range(row_vec_len(a.gshape, a.grid))
+    return torch.arange(lo, hi, dtype=dtype, device=a.row.device)
+
+
 def mis2_dist(a: DistSpMat, generator: torch.Generator) -> np.ndarray:
     """Distributed MIS-2 (``RestrictionOp.h:118``): Luby rounds over the
     distance-2 neighbourhood, two chained (max, select2nd) ``dist_spmv``
     a hop, one host read a round (the reference's ``while (cntUnfinished
     > 0)``).  ``a``: symmetric.  Returns a host bool array of length
-    ``a.gshape[0]``."""
+    ``a.gshape[0]`` (on a pod, the whole array in every process)."""
     n = a.gshape[0]
-    live = torch.arange(row_vec_len(a.gshape, a.grid),
-                        device=a.row.device) < n
-    in_set = _mis2_rounds(lambda x: dist_spmv(a, x, MAX_SECOND), live,
-                          generator)
-    return in_set.cpu().numpy()[:n]
+    lo = a.grid.vec_range(row_vec_len(a.gshape, a.grid))[0]
+    in_set = _mis2_rounds(lambda x: dist_spmv(a, x, MAX_SECOND),
+                          _ids(a, torch.int64) < n, generator, a.grid, lo)
+    return exchange.gather_whole(in_set, a.grid).cpu().numpy()[:n]
 
 
-@single_process
 def mis2_verify_dist(a: DistSpMat, in_set) -> bool:
     """MIS-2 check (the reference's ``SpMV<MIS2verifySR>``) of a 0/1
     adjacency without self loops: no set vertex has a set neighbour, no
-    vertex has two, and every vertex lies within distance 2 of the set."""
+    vertex has two, and every vertex lies within distance 2 of the set.
+    ``in_set``: a host array of the n vertices (on a pod, whole in every
+    process)."""
     n = a.gshape[0]
-    dev = a.row.device
-    sp = torch.as_tensor(np.asarray(in_set)[:n], device=dev).to(torch.bool)
+    sp = _slice_of(a, np.asarray(in_set)[:n].astype(bool))
     s = sp.to(torch.float32)
     m1 = _finite_or_zero(dist_spmv(a, s, PLUS_TIMES))
-    independent = not bool((sp & (m1[:n] > 0)).any()) and \
-        not bool((m1 >= 2).any())
     cover = _two_hop_max(lambda x: dist_spmv(a, x, MAX_SECOND), s)
-    return independent and bool(((cover[:n] > 0) | sp).all())
+    bad = (sp & (m1 > 0)).any() | (m1 >= 2).any() | (
+        (_ids(a, torch.int64) < n) & ~((cover > 0) | sp)).any()
+    return not exchange.any_proc(bad, a.grid)
 
 
-@single_process
 def restriction_op_dist(a: DistSpMat, generator: torch.Generator
                         ) -> DistSpMat:
     """Distributed restriction matrix (``RestrictionOp.h:197``): coarse
     vertices are the distributed MIS-2; every fine vertex attaches to its
     least coarse neighbour, else to the least attachment among its
     neighbours (two (min, select2nd) ``dist_spmv``), else becomes coarse
-    itself; R is bucketed onto ``a``'s grid."""
+    itself; R is bucketed onto ``a``'s grid (on a pod, from the whole host
+    triples, each process its blocks)."""
     n = a.gshape[0]
-    dev = a.row.device
     in_set = mis2_dist(a, generator)
-    coarse = torch.from_numpy(in_set).to(dev)
-    ids = torch.arange(n, dtype=torch.float32, device=dev)
+    coarse = _slice_of(a, in_set)
+    ids = _ids(a, torch.float32)
     inf = float("inf")
-    att1 = dist_spmv(a, torch.where(coarse, ids, inf), MIN_SECOND)[:n]
+    att1 = dist_spmv(a, torch.where(coarse, ids, inf), MIN_SECOND)
     att1 = torch.where(coarse, ids, att1)
     att2 = dist_spmv(a, torch.where(torch.isfinite(att1), att1, inf),
-                     MIN_SECOND)[:n]
+                     MIN_SECOND)
     att = torch.where(torch.isfinite(att1), att1, att2)
     attach = torch.where(torch.isfinite(att), att, -1.0).to(torch.int64)
-    rows, ncoarse = _assemble_r(in_set, attach.cpu().numpy())
+    attach = exchange.gather_whole(attach, a.grid)[:n].cpu().numpy()
+    rows, ncoarse = _assemble_r(in_set, attach)
     return DistSpMat.from_coo_arrays(rows, np.arange(n),
                                      np.ones(n, np.float32),
                                      (int(ncoarse), n), a.grid)
 
 
-@single_process
 def galerkin_dist(r: DistSpMat, a: DistSpMat) -> DistSpMat:
     """Distributed R·A·Rᵀ: two ``summa_spgemm_auto`` and one
     ``dist_transpose`` (``RestrictionOp.h:197``,

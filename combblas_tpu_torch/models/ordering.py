@@ -21,7 +21,12 @@
   frontier through ``dist_spmm``); ties by vertex id, so the two are equal.
 
 Every loop is host-paced, as in the JAX package: ``rcm_order_dist`` reads
-the host a few times a level, the minimum-degree loops take n steps.
+the host a few times a level, the minimum-degree loops take n steps.  On a
+grid over several processes the device vectors are this process's slices;
+the host maps the JAX functions read whole (the degrees, each component's
+BFS levels, the labels, MD's frontier sets) are put together from the
+slices, so every process takes the same branches and returns the whole
+order.
 """
 
 from __future__ import annotations
@@ -32,14 +37,15 @@ import torch
 from combblas_tpu_torch.models.bfs import bfs_dist, bfs_local
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.reduce import nnz_per
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dense import dist_spmm
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _live_entries,
+    block_dims,
     row_vec_len,
 )
-from combblas_tpu_torch.parallel.elementwise import dist_reduce
-from combblas_tpu_torch.parallel.grid import single_process
+from combblas_tpu_torch.parallel.elementwise import _dim_fold, dist_reduce
 from combblas_tpu_torch.parallel.spmv import dist_spmsv_masked, dist_spmv
 from combblas_tpu_torch.parallel.vector import (
     dist_apply_perm,
@@ -123,13 +129,19 @@ def rcm_order(a: SpCOO, start: int | None = None) -> torch.Tensor:
     return torch.from_numpy(order).to(a.device)
 
 
+def _whole_host(x: torch.Tensor, a: DistSpMat, n: int) -> np.ndarray:
+    """The first ``n`` elements of the FullyDist vector of which ``x`` is
+    this process's slice, on the host of every process."""
+    return exchange.gather_whole(x, a.grid)[:n].cpu().numpy()
+
+
 def _dist_ppv(a: DistSpMat, s: int, degh: np.ndarray, n: int):
     """The pseudo-peripheral search of :func:`pseudo_peripheral_vertex` by
     ``bfs_dist``; returns the vertex."""
     last_ecc = -1
     for _ in range(_PPV_ROUNDS):
         _, levels = bfs_dist(a, s)
-        lv = levels[:n].cpu().numpy()
+        lv = _whole_host(levels, a, n)
         ecc = int(lv.max())
         if ecc <= last_ecc:
             break
@@ -139,28 +151,30 @@ def _dist_ppv(a: DistSpMat, s: int, degh: np.ndarray, n: int):
     return s
 
 
-@single_process
 def rcm_order_dist(a: DistSpMat, start: int | None = None) -> np.ndarray:
     """Distributed RCM on the block grid (``RCM.cpp:332,361``): per
     component a pseudo-peripheral vertex by repeated ``bfs_dist``, then
     level by level the labels: parent order = the smallest previous-level
     label among a vertex's neighbours (``dist_spmsv_masked``, MIN_SECOND),
     rank by (degree, id) in one stable sort, then by parent order in a
-    second, labels routed to their vertices.  Two host reads a level: the
-    level's size (JAX's one) and the masked SpMSpV's active count.
+    second, labels routed to their vertices.  One host read a level, the
+    masked SpMSpV's active count (the level's size, JAX's read, comes
+    from the component's host levels).
     ``a``: square, symmetric structure.  Returns the RCM order as a host
-    int64 array (order[i] = the i-th vertex)."""
+    int64 array (order[i] = the i-th vertex); on a pod, in every
+    process."""
     n = a.gshape[0]
     n_pad = row_vec_len(a.gshape, a.grid)
     grid = a.grid
+    lo, hi = grid.vec_range(n_pad)
     dev = a.row.device
     live = _live_entries(a)
     deg = dist_reduce(a, "row", PLUS_TIMES, premap=lambda v: 1.0 + 0.0 * v)
-    degh = deg[:n].cpu().numpy().astype(np.int64)
+    degh = _whole_host(deg, a, n).astype(np.int64)
     visited = np.zeros(n, bool)
     label = np.full(n_pad, -1, np.int64)
     counter = 0
-    ids = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
     inf = torch.tensor(float("inf"), device=dev)
     while not visited.all():
         if start is None:
@@ -170,19 +184,20 @@ def rcm_order_dist(a: DistSpMat, start: int | None = None) -> np.ndarray:
             s, start = start, None
         s = _dist_ppv(a, s, degh, n)
         _, levels = bfs_dist(a, s)
-        lvh = levels[:n].cpu().numpy()
+        lvh = _whole_host(levels, a, n)
         comp = lvh >= 0
         label[s] = counter
         counter += 1
         lab_dev = torch.from_numpy(np.concatenate(
-            [label[:n], np.full(n_pad - n, -1)]).astype(np.int32)).to(dev)
+            [label[:n], np.full(n_pad - n, -1)])[lo:hi].astype(
+                np.int32)).to(dev)
         for lev in range(1, int(lvh.max()) + 1):
             prev_mask = (levels == lev - 1) & (lab_dev >= 0)
             pord, _ = dist_spmsv_masked(
                 a, lab_dev.to(torch.float32) + 1.0, prev_mask, MIN_SECOND,
                 transpose=True, live=live)
             members = levels == lev
-            nmem = int(members.sum())
+            nmem = int((lvh == lev).sum())
             # rank 1: stable by (degree, id)
             degkey = torch.where(members, deg.to(torch.float32), inf)
             _, vid1 = dist_sort_auto(degkey, grid, ids)
@@ -202,7 +217,7 @@ def rcm_order_dist(a: DistSpMat, start: int | None = None) -> np.ndarray:
                 torch.zeros_like(ids), grid, combine="set")
             lab_dev = torch.where(hit, newlab, lab_dev)
             counter += nmem
-        lab_h = lab_dev[:n].cpu().numpy()
+        lab_h = _whole_host(lab_dev, a, n)
         label[:n] = np.where(comp, lab_h, label[:n])
         visited |= comp
     order = np.argsort(label[:n])
@@ -240,7 +255,6 @@ def md_order(a: SpCOO) -> torch.Tensor:
     return torch.tensor(order, dtype=torch.int32, device=a.device)
 
 
-@single_process
 def md_order_dist(a: DistSpMat) -> torch.Tensor:
     """Distributed minimum degree (``MD.cpp:290-346``): per step the
     smallest-degree live vertex is eliminated, its reach set found by a
@@ -249,27 +263,40 @@ def md_order_dist(a: DistSpMat) -> torch.Tensor:
     degrees recomputed by one multi-source BFS whose frontier is a dense n
     x k 0/1 matrix pushed through ``dist_spmm`` (``getReachesSPMM``).  A
     host-paced n-step loop.  ``a``: symmetric.  Ties by vertex id: equal
-    to :func:`md_order`.  Returns the order (int32, on the grid's
-    device)."""
+    to :func:`md_order`.  Returns the order (int32, on the grid's device;
+    on a pod, the whole order in every process)."""
     n = a.gshape[0]
+    g = a.grid
     dev = a.row.device
     live = _live_entries(a)
+    n_pad = row_vec_len(a.gshape, g)
+    lo, hi = g.vec_range(n_pad)
 
-    def neighbor_mask(mask: torch.Tensor) -> torch.Tensor:
-        y = dist_spmv(a, mask.to(torch.float32), PLUS_TIMES, live=live)
-        return y > 0
+    def mine(x: np.ndarray) -> np.ndarray:
+        """This process's rows of a host array of the n vertices."""
+        pad = np.zeros((n_pad,) + x.shape[1:], x.dtype)
+        pad[:n] = x
+        return pad[lo:hi]
+
+    def neighbor_mask(mask: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(mine(mask)).to(dev, torch.float32)
+        y = dist_spmv(a, x, PLUS_TIMES, live=live)
+        return _whole_host(y > 0, a, n)
 
     def spmm_step(x: torch.Tensor) -> torch.Tensor:
         return (dist_spmm(a, x, PLUS_TIMES, live=live) > 0).to(torch.float32)
 
     # external degree: the rows' stored non-zeros, less their self loops
+    # (the diagonal entries each block holds, folded over the blocks)
+    mb, nb = block_dims(a.gshape, g)
+    lc = g.local_shape()[1]
+    r0, c0 = g.origin()
+    bid, r, c, _v = live
+    loop = ((bid // lc + r0) * mb + r) == ((bid % lc + c0) * nb + c)
     ones = dist_reduce(a, "row", premap=lambda v: (v != 0).to(v.dtype))
-    deg = ones[:n].cpu().numpy().astype(np.int64)
-    loc = a.to_local()
-    rr, cc, _v, nnzl, _s = loc.to_numpy()
-    rr, cc = rr[:nnzl], cc[:nnzl]
-    deg -= np.bincount(rr[rr == cc], minlength=n)[:n]
-    del loc
+    loops = _dim_fold(a, loop.to(torch.float32), "row", PLUS_TIMES, live)
+    deg = (_whole_host(ones, a, n).astype(np.int64)
+           - _whole_host(loops, a, n).astype(np.int64))
 
     enodes = np.zeros(n, bool)
     order = []
@@ -278,19 +305,18 @@ def md_order_dist(a: DistSpMat) -> torch.Tensor:
         order.append(s)
         enodes[s] = True
         # getReach(s): BFS from s through eliminated vertices only
-        en_d = torch.from_numpy(enodes).to(dev)
+        en_d = torch.from_numpy(mine(enodes)).to(dev)
         f = np.zeros(n, bool)
         f[s] = True
         visited = f.copy()
         reach = np.zeros(n, bool)
         while f.any():
-            nb = neighbor_mask(torch.from_numpy(f).to(dev))[:n].cpu().numpy()
-            nb = nb & ~visited
-            if not nb.any():
+            nb_ = neighbor_mask(f) & ~visited
+            if not nb_.any():
                 break
-            visited |= nb
-            reach |= nb & ~enodes
-            f = nb & enodes
+            visited |= nb_
+            reach |= nb_ & ~enodes
+            f = nb_ & enodes
         srcs = np.nonzero(reach)[0]
         if srcs.size == 0:
             continue
@@ -299,18 +325,20 @@ def md_order_dist(a: DistSpMat) -> torch.Tensor:
         k_pad = max(8, 1 << int(np.ceil(np.log2(k))))
         x = np.zeros((n, k_pad), np.float32)
         x[srcs, np.arange(k)] = 1.0
-        xd = torch.from_numpy(x).to(dev)
+        xd = torch.from_numpy(mine(x)).to(dev)
         vis = xd
         while True:
-            y = spmm_step(xd)[:n]
-            y = torch.where(vis[: y.shape[0]] > 0, 0.0, y)
-            if not bool((y > 0).any()):
+            y = spmm_step(xd)[:hi - lo]
+            y = torch.where(vis > 0, 0.0, y)
+            if not exchange.any_proc((y > 0).any(), g):
                 break
-            vis = torch.maximum(vis[: y.shape[0]], y)
-            xd = y * en_d[: y.shape[0], None]
-            if not bool((xd > 0).any()):
+            vis = torch.maximum(vis, y)
+            xd = y * en_d[:, None]
+            if not exchange.any_proc((xd > 0).any(), g):
                 break
-        nen = torch.from_numpy(~enodes).to(dev, torch.float32)
-        newdeg = (vis[:n] * nen[:, None]).sum(0).cpu().numpy()[:k] - 1
-        deg[srcs] = newdeg.astype(np.int64)
+        nen = torch.from_numpy(mine(~enodes)).to(dev, torch.float32)
+        cnt = (vis * nen[:, None]).sum(0).cpu().numpy()
+        if g.is_pod:     # whole counts: the processes' in rank order
+            cnt = exchange.allgather_host(cnt).sum(0, dtype=cnt.dtype)
+        deg[srcs] = cnt[:k].astype(np.int64) - 1
     return torch.tensor(order, dtype=torch.int32, device=dev)

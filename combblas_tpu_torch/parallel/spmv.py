@@ -164,22 +164,24 @@ def _pod_plan(a: DistSpMat, transpose: bool):
 
 
 def _pod_input(a: DistSpMat, vecs, in_len: int, transpose: bool,
-               dtypes) -> list:
+               dtypes, d: int = 1) -> list:
     """The part of each vector of ``vecs`` (this process's slices of
     ``in_len``-long FullyDist vectors, as ``dtypes``) that this process's
     blocks read: its own slice where every process's blocks read exactly
-    their own, else gathered from the processes that hold it."""
+    their own, else gathered from the processes that hold it.  With ``d``
+    > 1 each vector is a slice of rows of ``d`` elements, flattened (a
+    dense SpMM operand), and so is its part."""
     g = a.grid
     mb, nb = block_dims(a.gshape, g)
     lr, lc = g.local_shape()
-    chunk = in_len // g.nproc
+    chunk = in_len // g.nproc * d
     vecs = [_padded(v, chunk, dt) for v, dt in zip(vecs, dtypes)]
     if transpose:
-        starts = [g.origin(q)[0] * mb for q in range(g.nproc)]
-        width = lr * mb
+        starts = [g.origin(q)[0] * mb * d for q in range(g.nproc)]
+        width = lr * mb * d
     else:
-        starts = [g.origin(q)[1] * nb for q in range(g.nproc)]
-        width = lc * nb
+        starts = [g.origin(q)[1] * nb * d for q in range(g.nproc)]
+        width = lc * nb * d
     if width == chunk and all(s == q * chunk for q, s in enumerate(starts)):
         return vecs
     lo = starts[g.rank]

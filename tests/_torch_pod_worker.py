@@ -17,7 +17,10 @@ SpRef, the block prune, SpAsgn and ``dist_permute``;
 ``dist_remove_isolated``, ``dist_rand_permute`` and
 ``mcl_dist(preprocess=True)``, also with the permutation the parent
 writes to OUTDIR/jax_perm.npy on 2x2), ``lacc_dist``, ``luby_mis_dist``,
-and the refusals of functions not ported to a pod.  Each process saves
+the dense matrices and ``dist_spmm``, betweenness centrality, the
+orderings (RCM, minimum degree), the three matchings, the multigrid setup
+(MIS-2, its check, R and R·A·Rᵀ) and the filtered traversals, and the
+refusals of functions not ported to a pod.  Each process saves
 what it holds to OUTDIR/rankR.npz; the parent compares.  Imports no JAX.
 """
 
@@ -55,6 +58,11 @@ SPREF_ROWS = (3, 0, 17, 17, 29, 8, 12, 3, 21)
 SPREF_COLS = (25, 1, 1, 9, 14, 0, 22)
 SPASGN_ROWS = (4, 27, 11, 0, 19, 8)
 SPASGN_COLS = (2, 13, 25, 7, 18)
+#: The dense operand's width, BC's batch, the RCM start, the sides of the
+#: minimum-degree stencil (2D) and the multigrid stencil (3D), and the
+#: seeds of the MIS-2 / R and the filtered MIS draws.
+SPMM_D, BC_BATCH, RCM_START, MD_SIDE, MG_SIDE = 5, 16, 5, 5, 8
+MG_SEED, FMIS_SEED = 11, 12
 
 
 def rand_sparse(m, n, density, seed):
@@ -226,6 +234,42 @@ def rmat7(seed=1):
     r = np.concatenate([row[:nnz], np.arange(n)])
     c = np.concatenate([col[:nnz], np.arange(n)])
     return r, c, np.concatenate([w, np.ones(n, np.float32)]), shape
+
+
+def stencil(k: int, dims: int) -> tuple:
+    """The k^dims grid's (2 dims + 1)-point stencil, 2 dims on the
+    diagonal, -1 off it: (rows, cols, values, n)."""
+    n = k ** dims
+    idx = np.arange(n).reshape((k,) * dims)
+    rows, cols = [np.arange(n)], [np.arange(n)]
+    for ax in range(dims):
+        a = np.take(idx, np.arange(k - 1), axis=ax).reshape(-1)
+        b = np.take(idx, np.arange(1, k), axis=ax).reshape(-1)
+        rows += [a, b]
+        cols += [b, a]
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    v = np.where(r == c, 2.0 * dims, -1.0).astype(np.float32)
+    return r, c, v, n
+
+
+def md_stencil() -> tuple:
+    """The minimum degree's graph: the 5-point stencil's pattern off the
+    diagonal (its pattern SpMVs read positive values): (rows, cols, n)."""
+    r, c, _v, n = stencil(MD_SIDE, 2)
+    off = r != c
+    return r[off], c[off], n
+
+
+def codes_graph(seed: int = SEED + 12) -> np.ndarray:
+    """The BFS graph with edge codes 1 or 2 (symmetric)."""
+    g = inputs()["g"]
+    w = 1.0 + (np.random.default_rng(seed).random(g.shape) < 0.5)
+    w = np.triu(w, 1)
+    return (g * (w + w.T)).astype(np.float32)
+
+
+def heavy(v):
+    return v > 1.5
 
 
 def small(v):
@@ -473,6 +517,97 @@ def mcl_preprocess(g, full, out, outdir, side) -> None:
     out["mclpre_jax_iters"] = np.asarray(iters)
 
 
+def algos(g, inp, dist, full, out) -> None:
+    """Item 1.8's step 3: ``parallel/dense.py`` (with the calls that must
+    refuse a share without its grid), BC, the orderings, the matchings,
+    the multigrid setup and the filtered traversals."""
+    import torch
+
+    from combblas_tpu_torch.models import multigrid as mg
+    from combblas_tpu_torch.models.bc import betweenness_centrality_dist
+    from combblas_tpu_torch.models.filtered import (
+        bfs_filtered_dist,
+        materialize_filtered_dist,
+        mis_filtered_dist,
+    )
+    from combblas_tpu_torch.models.ordering import md_order_dist, \
+        rcm_order_dist
+    from combblas_tpu_torch.parallel import dense, matching
+    from combblas_tpu_torch.parallel.dist import DistSpMat, col_vec_len
+    from combblas_tpu_torch.semiring import MAX_TIMES, MIN_PLUS, PLUS_TIMES
+    a, gr = dist(inp["a"]), dist(inp["g"])
+    d = dense_inputs()
+    lo, hi = g.vec_range(col_vec_len(a.gshape, g))
+    x = torch.from_numpy(d["spmm_x"][lo:hi])
+    for name, sr in (("plus", PLUS_TIMES), ("min", MIN_PLUS),
+                     ("max", MAX_TIMES)):
+        y = dense.dist_spmm(a, x, sr)
+        out[f"spmm_{name}"] = full(y.reshape(-1)).reshape(-1, SPMM_D)
+    for tag in ("dense_x", "dense_q"):
+        put = dense.dense_put(d[tag], g)
+        out[f"{tag}_put"] = put.numpy()
+        added = dense.dense_add_sparse(put, a)
+        out[f"{tag}_add"] = added.numpy()
+        out[f"{tag}_host"] = dense.dense_to_host(added, d[tag].shape, grid=g)
+        for dim in ("row", "col"):
+            out[f"{tag}_{dim}"] = full(dense.dense_reduce(put, dim, grid=g))
+    refused = {}
+    for name, call in (("dense_to_host", lambda: dense.dense_to_host(
+            put, (3, 3))), ("dense_reduce", lambda: dense.dense_reduce(
+                put, "row"))):
+        try:
+            call()
+            refused[name] = ""
+        except ValueError as e:
+            refused[name] = str(e)
+    out["dense_refused"] = np.asarray(json.dumps(refused))
+    out["bc"] = betweenness_centrality_dist(gr, batch_size=BC_BATCH)
+    out["rcm_comps"] = rcm_order_dist(dist(inp["comps"]))
+    out["rcm_g"] = rcm_order_dist(gr, start=RCM_START)
+    r, c, n = md_stencil()
+    out["md"] = md_order_dist(DistSpMat.from_coo_arrays(
+        r, c, np.ones(r.shape[0]), (n, n), g)).numpy()
+    for tag, fn in (("maximal", matching.dist_bp_maximal),
+                    ("maximum", matching.dist_bp_maximum),
+                    ("awpm", matching.dist_awpm),
+                    ("awpm_greedy", lambda m: matching.dist_awpm(
+                        m, complete=False))):
+        mr, mc = fn(a)
+        out[f"{tag}_row"], out[f"{tag}_col"] = full(mr), full(mc)
+    r, c, v, n = stencil(MG_SIDE, 3)
+    st = DistSpMat.from_coo_arrays(r, c, v, (n, n), g)
+    off = r != c
+    st01 = DistSpMat.from_coo_arrays(r[off], c[off], np.ones(off.sum()),
+                                     (n, n), g)
+    s2 = mg.mis2_dist(st, torch.Generator().manual_seed(MG_SEED))
+    out["mis2"] = s2
+    out["mis2_ok"] = np.asarray([mg.mis2_verify_dist(st01, s2),
+                                 mg.mis2_verify_dist(st01, ~s2)])
+    rop = mg.restriction_op_dist(st, torch.Generator().manual_seed(MG_SEED))
+    _stacks(rop, "restrict", out)
+    _stacks(mg.galerkin_dist(rop, st), "galerkin", out)
+    gw = dist(codes_graph())
+    _stacks(materialize_filtered_dist(gw, heavy), "fmat", out)
+    for root in BFS_ROOTS:
+        parents, levels = bfs_filtered_dist(gw, root, heavy)
+        out[f"fbfs{root}_parents"] = full(parents)
+        out[f"fbfs{root}_levels"] = full(levels)
+    out["fmis"] = full(mis_filtered_dist(
+        gw, torch.Generator().manual_seed(FMIS_SEED), heavy))
+
+
+def dense_inputs(seed: int = SEED + 13) -> dict:
+    """``dist_spmm``'s operand (the column-space rows of ``a``'s 26
+    columns, padded for the 4x4 grid, which the 2x2 grid's length
+    divides), and two dense 30 x 26 matrices: normal floats, and quarters
+    (whose sums are exact in any order)."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        spmm_x=rng.standard_normal((32, SPMM_D)).astype(np.float32),
+        dense_x=rng.standard_normal((30, 26)).astype(np.float32),
+        dense_q=(rng.integers(-40, 40, (30, 26)) / 4.0).astype(np.float32))
+
+
 def main() -> None:
     rank, nproc, addr, side, outdir = (int(sys.argv[1]), int(sys.argv[2]),
                                        sys.argv[3], int(sys.argv[4]),
@@ -485,16 +620,13 @@ def main() -> None:
         parallel_write_mtx,
     )
     from combblas_tpu_torch.models.bfs import bfs_dir_opt_dist, bfs_dist
-    from combblas_tpu_torch.models.bc import betweenness_centrality_dist
     from combblas_tpu_torch.models.lacc import lacc_dist
     from combblas_tpu_torch.models.mcl import mcl_dist
     from combblas_tpu_torch.models.mis import luby_mis_dist
     from combblas_tpu_torch.ops.coo import SpCOO
     from combblas_tpu_torch.ops.kernels.ring import ring_shift
     from combblas_tpu_torch.parallel import exchange
-    from combblas_tpu_torch.parallel.dense import dist_spmm
     from combblas_tpu_torch.parallel.dist import DistSpMat, dist_vec
-    from combblas_tpu_torch.parallel.matching import dist_bp_maximal
     from combblas_tpu_torch.parallel.multihost import (
         initialize_multihost,
         is_coordinator,
@@ -506,6 +638,11 @@ def main() -> None:
         summa_bounds,
         summa_spgemm,
         summa_spgemm_auto,
+    )
+    from combblas_tpu_torch.parallel.summa3d import (
+        mem_efficient_spgemm3d,
+        summa3d_bounds,
+        summa3d_spgemm,
     )
     from combblas_tpu_torch.parallel.vector import dist_sort_auto
     from combblas_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
@@ -575,13 +712,15 @@ def main() -> None:
         out[f"lacc_{tag}"] = full(lacc_dist(m))
         out[f"mis_{tag}"] = full(luby_mis_dist(
             m, torch.Generator().manual_seed(MIS_SEED)))
+    algos(g, inp, dist, full, out)
     # what a pod refuses
     refused = {}
     for name, call in (
-            ("dist_spmm", lambda: dist_spmm(gr, torch.ones(BFS_N, 2))),
-            ("betweenness_centrality_dist",
-             lambda: betweenness_centrality_dist(gr)),
-            ("dist_bp_maximal", lambda: dist_bp_maximal(gr)),
+            ("summa3d_spgemm", lambda: summa3d_spgemm(
+                gr, gr, flops_cap=8, out_capacity=8)),
+            ("mem_efficient_spgemm3d", lambda: mem_efficient_spgemm3d(
+                gr, gr)),
+            ("summa3d_bounds", lambda: summa3d_bounds(gr, gr)),
             ("mcl_dist_layers", lambda: mcl_dist(gr, layers=2)),
             ("pod_grid_layers", lambda: pod_grid(layers=2, device="cpu"))):
         try:

@@ -3,7 +3,9 @@ block grid) vs the JAX package's, on shared numpy inputs: a path, a star
 and a seeded scale-7 R-MAT, every vertex or a sample of sources.
 
 Tolerance: rtol 1e-5, atol 1e-6 (float32 path counts and dependencies
-summed in other orders; the scores are float64 sums of them).
+summed in other orders; the scores are float64 sums of them); against a
+float64 run of the port itself, rtol 1e-5 and atol 0, so that the least
+scores count.
 """
 
 import numpy as np
@@ -94,3 +96,38 @@ def test_betweenness_centrality_dist_matches_jax(case, grid):
     local = tbc.betweenness_centrality(TCOO.from_dense(d, device="cpu"),
                                        batch_size=32, sources=src)
     np.testing.assert_allclose(got, local, rtol=RTOL, atol=ATOL)
+
+
+def _bc64(run, monkeypatch):
+    """``run`` with the fringes in float64 (the matrix's values are cast
+    by the caller): the reference for the float32 scores."""
+    first = tbc._first_fringe
+    monkeypatch.setattr(tbc, "_first_fringe",
+                        lambda *args: first(*args).double())
+    return run()
+
+
+@pytest.mark.parametrize("where", ["local", "dist"])
+def test_betweenness_centrality_small_scores_keep_precision(where,
+                                                            monkeypatch):
+    """Float32 scores within rtol 1e-5 of a float64 run down to the least
+    score (atol 0), on a scale-12 G500 R-MAT from 64 roots whose least
+    score is about 4e-4: the dependencies are kept as delta, not 1 +
+    delta, so a delta far below 1 keeps its own precision."""
+    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+
+    s = spmm_bfs_graphs(1, "cpu", 12)["s"]
+    s64 = TCOO(**{**{f: getattr(s, f) for f in s.__dataclass_fields__},
+                  "val": s.val.double()})
+    roots = bfs_roots(s, 1)[:64]
+
+    def run(m):
+        if where == "local":
+            return tbc.betweenness_centrality(m, 32, roots)
+        return tbc.betweenness_centrality_dist(
+            tdist.DistSpMat.from_local(m, tgrid(2, 2)), 32, roots)
+
+    got = run(s)
+    want = _bc64(lambda: run(s64), monkeypatch)
+    assert want[want > 0].min() < 1e-3
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=0)

@@ -92,3 +92,19 @@ def test_dense_reduce_matches_jax(grids, dim):
     want = np.asarray(jdense.dense_reduce(jdense.dense_put(x, jg), dim))
     got = tdense.dense_reduce(tdense.dense_put(x, tg), dim)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dim", ["row", "col"])
+def test_dense_to_host_and_reduce_with_grid_unchanged(grids, dim):
+    """In one process, passing the grid (the keyword a pod needs) changes
+    nothing: the corner and the sums equal the calls without it, bit for
+    bit."""
+    _jg, tg = grids
+    x = np.random.default_rng(4).random((10, 14)).astype(np.float32)
+    put = tdense.dense_put(x, tg)
+    np.testing.assert_array_equal(
+        tdense.dense_to_host(put, (10, 14), grid=tg),
+        tdense.dense_to_host(put, (10, 14)))
+    np.testing.assert_array_equal(
+        tdense.dense_reduce(put, dim, grid=tg).numpy().view(np.uint32),
+        tdense.dense_reduce(put, dim).numpy().view(np.uint32))

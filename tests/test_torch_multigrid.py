@@ -62,15 +62,15 @@ IDS = [g[0] for g in GRAPHS]
 def jax_draws(seed: int):
     """The port's priority draw replaced by JAX's: each call splits the
     key as JAX's MIS-2 round does and draws uniform + 1 on the live
-    vertices."""
+    vertices (``live`` covering [lo, lo + len(live)) of the ``n``)."""
     key = jax.random.PRNGKey(seed)
 
-    def draw(n, live, _generator):
+    def draw(n, live, _generator, lo=0):
         nonlocal key
         key, sub = jax.random.split(key)
         pri = torch.from_numpy(np.array(
-            jax.random.uniform(sub, (n,)) + 1.0)).to(live.device)
-        return torch.where(live, pri, 0.0)
+            jax.random.uniform(sub, (n,)) + 1.0))[lo:lo + live.shape[0]]
+        return torch.where(live, pri.to(live.device), 0.0)
 
     return draw
 

@@ -11,7 +11,9 @@ the sampling estimate, ``dist_mcl_prune``, ``mcl_dist``, ``fastsv_dist``),
 HipMCL's preprocessing and what lies under it (the vector layer, the
 distributed indexing, ``dist_permute``, ``dist_remove_isolated``,
 ``dist_rand_permute``, ``mcl_dist(preprocess=True)``), ``lacc_dist``,
-``luby_mis_dist`` and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
+``luby_mis_dist``, item 1.8's step 3 (the dense matrices and
+``dist_spmm``, BC, RCM and minimum degree, the three matchings, MIS-2,
+R and R·A·Rᵀ, the filtered BFS, MIS and prune) and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
 JAX has no 4x4 mesh on 8 devices) and the port in one process, and
 compares every process's blocks and vectors:
 
@@ -35,6 +37,18 @@ compares every process's blocks and vectors:
   compacted (``to_local``), as ``test_torch_dist_indexing.py`` does; the
   float route sums and ``dist_permute``'s folds of duplicates equal one
   process's bit for bit and JAX's within rtol 1e-5.
+
+Step 3 is held to one process bit for bit (float sums by their bits:
+``dist_spmm``'s blocks meet in the one-process order; BC's scores),
+except ``dense_reduce`` of normal floats, whose blocks' partials meet in
+another order than one process's ``torch.sum`` over a whole row (rtol
+1e-5; of quarter values, whose sums are exact, bit for bit).  Against
+JAX on 2x2: ``dist_spmm`` sums and ``dense_reduce`` within rtol 1e-5,
+min / max exactly; BC within rtol 1e-5; the orders, the mates and the
+filtered BFS exactly; the filtered prune on compacted entries exactly;
+``galerkin_dist`` of one R (the port's host triples on both sides)
+compacted, within rtol 1e-5.  MIS-2, R and the filtered MIS (JAX draws
+threefry) are held to one process and to their invariants.
 """
 
 import functools
@@ -52,29 +66,42 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from combblas_tpu import SpCOO as JCOO  # noqa: E402
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.io import parallel as jpar  # noqa: E402
+from combblas_tpu.models import bc as jbc  # noqa: E402
 from combblas_tpu.models import bfs as jbfs  # noqa: E402
 from combblas_tpu.models import cc as jcc  # noqa: E402
+from combblas_tpu.models import filtered as jfil  # noqa: E402
 from combblas_tpu.models import lacc as jlacc  # noqa: E402
 from combblas_tpu.models import mcl as jmcl  # noqa: E402
+from combblas_tpu.models import multigrid as jmg  # noqa: E402
+from combblas_tpu.models import ordering as jord  # noqa: E402
+from combblas_tpu.parallel import dense as jdense  # noqa: E402
 from combblas_tpu.parallel import dist as jdist  # noqa: E402
 from combblas_tpu.parallel import elementwise as jel  # noqa: E402
 from combblas_tpu.parallel import indexing as jix  # noqa: E402
+from combblas_tpu.parallel import matching as jpm  # noqa: E402
 from combblas_tpu.parallel import memefficient as jme  # noqa: E402
 from combblas_tpu.parallel import rma as jrma  # noqa: E402
 from combblas_tpu.parallel import spmv as jsp  # noqa: E402
 from combblas_tpu.parallel import summa as jsu  # noqa: E402
 from combblas_tpu.parallel import vector as jvec  # noqa: E402
 from combblas_tpu_torch.io import parallel as tpar  # noqa: E402
+from combblas_tpu_torch.models import bc as tbc  # noqa: E402
 from combblas_tpu_torch.models import bfs as tbfs  # noqa: E402
 from combblas_tpu_torch.models import cc as tcc  # noqa: E402
+from combblas_tpu_torch.models import filtered as tfil  # noqa: E402
 from combblas_tpu_torch.models import lacc as tlacc  # noqa: E402
 from combblas_tpu_torch.models import mcl as tmcl  # noqa: E402
 from combblas_tpu_torch.models import mis as tmis  # noqa: E402
+from combblas_tpu_torch.models import multigrid as tmg  # noqa: E402
+from combblas_tpu_torch.models import ordering as tord  # noqa: E402
+from combblas_tpu_torch.parallel import dense as tdense  # noqa: E402
 from combblas_tpu_torch.parallel import dist as tdist  # noqa: E402
 from combblas_tpu_torch.parallel import elementwise as tel  # noqa: E402
 from combblas_tpu_torch.parallel import indexing as tix  # noqa: E402
+from combblas_tpu_torch.parallel import matching as tpm  # noqa: E402
 from combblas_tpu_torch.parallel import memefficient as tme  # noqa: E402
 from combblas_tpu_torch.ops.kernels.ring import ring_shift  # noqa: E402
 from combblas_tpu_torch.parallel import rma as trma  # noqa: E402
@@ -84,11 +111,13 @@ from combblas_tpu_torch.parallel import vector as tvec  # noqa: E402
 from combblas_tpu_torch.parallel.dist import dist_vec  # noqa: E402
 from combblas_tpu_torch.semiring import (  # noqa: E402
     MAX_FIRST,
+    MAX_TIMES,
     MIN_PLUS,
     PLUS_TIMES,
 )
 from tests import _torch_pod_worker as W  # noqa: E402
 from tests.test_torch_dist import dist_pair, jgrid, tgrid  # noqa: E402
+from tests.test_torch_multigrid import check_mis2, check_r  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 #: name -> (processes, grid side)
@@ -368,14 +397,15 @@ def test_pod_io(pods, name, tmp_path):
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_pod_refuses_unported(pods, name):
-    """A distributed function with no exchange across processes yet raises
-    ``NotImplementedError`` naming ROADMAP item 1.8 on a pod grid, in every
-    process, and so does a layered pod grid."""
+    """A distributed function with no exchange across processes yet (the
+    3D SUMMA) raises ``NotImplementedError`` naming ROADMAP item 1.8 on a
+    pod grid, in every process, and so do the layered ``mcl_dist`` and a
+    layered pod grid."""
     ranks, _ = pods(name)
     for r in ranks:
         refused = json.loads(str(r["refused"]))
-        assert set(refused) == {"dist_spmm", "betweenness_centrality_dist",
-                                "dist_bp_maximal", "mcl_dist_layers",
+        assert set(refused) == {"summa3d_spgemm", "mem_efficient_spgemm3d",
+                                "summa3d_bounds", "mcl_dist_layers",
                                 "pod_grid_layers"}
         for what, msg in refused.items():
             assert "ROADMAP item 1.8" in msg, (what, msg)
@@ -894,3 +924,274 @@ def test_pod_lacc_mis(pods, name):
                 dist_pair(d, 2, 2)[0])))
     n = inp["comps"].shape[0]
     assert tcc.count_components(ranks[0]["lacc_comps"], n) == 7
+
+
+# ------------------------------------------ item 1.8's step 3 on a pod --
+
+#: ``dist_spmm``'s semirings by tag.
+_SPMM = {"plus": (PLUS_TIMES, jsr.PLUS_TIMES), "min": (MIN_PLUS, jsr.MIN_PLUS),
+         "max": (MAX_TIMES, jsr.MAX_TIMES)}
+
+
+def _same_rows(got, want, exact=True):
+    """Dense rows equal: bit for bit, or within rtol 1e-5."""
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if exact:
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _rect(x, r, side):
+    """Process ``r``'s rectangle of blocks of a padded dense matrix."""
+    x = np.asarray(x)
+    mb, nb = x.shape[0] // side, x.shape[1] // side
+    (r0, c0), (lr, lc) = r["origin"], r["local_shape"]
+    return x[r0 * mb:(r0 + lr) * mb, c0 * nb:(c0 + lc) * nb]
+
+
+def _dense_results(dense, a, grid, put, tag):
+    """The worker's dense calls of ``W.dense_inputs()[tag]`` in one
+    process of ``dense`` (the port's or JAX's module)."""
+    x = W.dense_inputs()[tag]
+    p = put(x, grid)
+    added = dense.dense_add_sparse(p, a)
+    return dict(put=np.asarray(p), add=np.asarray(added),
+                host=dense.dense_to_host(added, x.shape),
+                row=np.asarray(dense.dense_reduce(p, "row")),
+                col=np.asarray(dense.dense_reduce(p, "col")))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense_bc():
+    """JAX's ``dist_spmm``, dense calls and BC on 2x2."""
+    inp = W.inputs()
+    ja, jg = dist_pair(inp["a"], 2, 2)[0], dist_pair(inp["g"], 2, 2)[0]
+    x = W.dense_inputs()["spmm_x"]
+    n_pad = tdist.col_vec_len(ja.gshape, tgrid(2, 2))
+    spmm = {k: np.asarray(jdense.dist_spmm(ja, jnp.asarray(x[:n_pad]), j))
+            for k, (_t, j) in _SPMM.items()}
+    dense = {tag: _dense_results(jdense, ja, ja.grid, jdense.dense_put, tag)
+             for tag in ("dense_x", "dense_q")}
+    return spmm, dense, jbc.betweenness_centrality_dist(
+        jg, batch_size=W.BC_BATCH)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_dense_bc(pods, name):
+    """``dist_spmm`` (plus-times, min-plus, max-times) of a 30 x 26
+    matrix, ``dense_put`` / ``dense_add_sparse`` / ``dense_to_host`` /
+    ``dense_reduce`` and BC of the BFS graph in batches of 16, across
+    processes: one process's bit for bit (``dense_reduce`` of normal
+    floats within rtol 1e-5), JAX's on 2x2; ``dense_to_host`` and
+    ``dense_reduce`` of a share without its grid refuse."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    ta, tg = _one(inp["a"], side), _one(inp["g"], side)
+    x = torch.from_numpy(W.dense_inputs()["spmm_x"])
+    spmm = {k: tdense.dist_spmm(ta, x, t).numpy()
+            for k, (t, _j) in _SPMM.items()}
+    dense = {tag: _dense_results(tdense, ta, ta.grid, tdense.dense_put, tag)
+             for tag in ("dense_x", "dense_q")}
+    bc = tbc.betweenness_centrality_dist(tg, batch_size=W.BC_BATCH)
+    for r in ranks:
+        for k, want in spmm.items():
+            _same_rows(r[f"spmm_{k}"], want)
+        for tag, want in dense.items():
+            for f in ("put", "add"):
+                _same_rows(r[f"{tag}_{f}"], _rect(want[f], r, side))
+            _same_rows(r[f"{tag}_host"], want["host"])
+            for f in ("row", "col"):
+                _same_rows(r[f"{tag}_{f}"], want[f], exact=tag == "dense_q")
+        np.testing.assert_array_equal(r["bc"], bc)
+        for what, msg in json.loads(str(r["dense_refused"])).items():
+            assert "needs the matrix's grid" in msg, (what, msg)
+    if side == 2:
+        jspmm, jdense_, jbc_ = _jax_dense_bc()
+        for k, want in jspmm.items():
+            _same_rows(ranks[0][f"spmm_{k}"], want, exact=k != "plus")
+        for tag, want in jdense_.items():
+            for f in ("put", "add"):
+                for r in ranks:
+                    _same_rows(r[f"{tag}_{f}"], _rect(want[f], r, side))
+            _same_rows(ranks[0][f"{tag}_host"], want["host"])
+            for f in ("row", "col"):
+                _same_rows(ranks[0][f"{tag}_{f}"], want[f], exact=False)
+        np.testing.assert_allclose(ranks[0]["bc"], jbc_, rtol=1e-5,
+                                   atol=1e-6)
+
+
+def _md_graph(grid, mod):
+    r, c, n = W.md_stencil()
+    return mod.DistSpMat.from_coo_arrays(r, c, np.ones(r.shape[0]), (n, n),
+                                         grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_orderings():
+    inp = W.inputs()
+    return (jord.rcm_order_dist(dist_pair(inp["comps"], 2, 2)[0]),
+            jord.rcm_order_dist(dist_pair(inp["g"], 2, 2)[0],
+                                start=W.RCM_START),
+            np.asarray(jord.md_order_dist(_md_graph(jgrid(2, 2), jdist))))
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_orderings(pods, name):
+    """``rcm_order_dist`` of the 7-component graph and of the BFS graph
+    from a given start, and ``md_order_dist`` of the 5 x 5 stencil,
+    across processes: every process's whole order equals one process's,
+    JAX's on 2x2, and the minimum degree ``md_order``'s."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    inp = W.inputs()
+    want = dict(
+        rcm_comps=tord.rcm_order_dist(_one(inp["comps"], side)),
+        rcm_g=tord.rcm_order_dist(_one(inp["g"], side), start=W.RCM_START),
+        md=tord.md_order_dist(_md_graph(tgrid(side, side), tdist)).numpy())
+    r, c, n = W.md_stencil()
+    from combblas_tpu_torch.ops.coo import SpCOO
+    np.testing.assert_array_equal(want["md"], tord.md_order(
+        SpCOO.from_arrays(r, c, np.ones(r.shape[0], np.float32), (n, n),
+                          device="cpu")).numpy())
+    for rk in ranks:
+        for tag, w in want.items():
+            np.testing.assert_array_equal(rk[tag], w, err_msg=tag)
+    if side == 2:
+        for tag, w in zip(("rcm_comps", "rcm_g", "md"), _jax_orderings()):
+            np.testing.assert_array_equal(ranks[0][tag], w, err_msg=tag)
+
+
+#: The matchings the worker runs, by tag: (port call, JAX call).
+_MATCHINGS = {
+    "maximal": (tpm.dist_bp_maximal, jpm.dist_bp_maximal),
+    "maximum": (tpm.dist_bp_maximum, jpm.dist_bp_maximum),
+    "awpm": (tpm.dist_awpm, jpm.dist_awpm),
+    "awpm_greedy": (lambda m: tpm.dist_awpm(m, complete=False),
+                    lambda m: jpm.dist_awpm(m, complete=False))}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_matchings():
+    ja = dist_pair(W.inputs()["a"], 2, 2)[0]
+    return {k: tuple(np.asarray(x) for x in j(ja))
+            for k, (_t, j) in _MATCHINGS.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_matchings(pods, name):
+    """``dist_bp_maximal``, ``dist_bp_maximum`` and ``dist_awpm`` (with and
+    without the completion) of the weighted 30 x 26 matrix across
+    processes: the mate slices, put together, equal one process's and
+    JAX's (2x2) exactly, padding slots included."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    ta = _one(W.inputs()["a"], side)
+    for tag, (t, _j) in _MATCHINGS.items():
+        mr, mc = t(ta)
+        for r in ranks:
+            _same_vec(r[f"{tag}_row"], mr.numpy())
+            _same_vec(r[f"{tag}_col"], mc.numpy())
+    assert (ranks[0]["maximum_row"] >= 0).sum() >= (
+        ranks[0]["maximal_row"] >= 0).sum()
+    if side == 2:
+        for tag, (mr, mc) in _jax_matchings().items():
+            _same_vec(ranks[0][f"{tag}_row"], mr)
+            _same_vec(ranks[0][f"{tag}_col"], mc)
+
+
+def _mg_graph(grid):
+    r, c, v, n = W.stencil(W.MG_SIDE, 3)
+    return tdist.DistSpMat.from_coo_arrays(r, c, v, (n, n), grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_multigrid(side: int):
+    """One process's MIS-2, R and R·A·Rᵀ of the 8³ stencil."""
+    st = _mg_graph(tgrid(side, side))
+    s2 = tmg.mis2_dist(st, torch.Generator().manual_seed(W.MG_SEED))
+    rop = tmg.restriction_op_dist(st, torch.Generator().manual_seed(
+        W.MG_SEED))
+    return s2, rop, tmg.galerkin_dist(rop, st)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_multigrid(pods, name):
+    """``mis2_dist``, ``mis2_verify_dist``, ``restriction_op_dist`` and
+    ``galerkin_dist`` of the 8³ stencil across processes: the set, R's
+    blocks and R·A·Rᵀ's blocks equal one process's bit for bit; the set
+    is a distance-2 MIS (and the check says so, and refuses its
+    complement), every fine vertex lies within two hops of its coarse
+    vertex; on 2x2 R·A·Rᵀ equals JAX's ``galerkin_dist`` of the same R,
+    compacted, within rtol 1e-5."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    s2, rop, gal = _one_multigrid(side)
+    for r in ranks:
+        np.testing.assert_array_equal(r["mis2"], s2)
+        np.testing.assert_array_equal(r["mis2_ok"], [True, False])
+    _same_share(ranks, "restrict", rop)
+    _same_share(ranks, "galerkin", gal)
+    r_, c_, v_, n = W.stencil(W.MG_SIDE, 3)
+    d = np.zeros((n, n), np.float32)
+    d[r_, c_] = v_
+    check_mis2(d, s2)
+    check_r(d, rop.to_dense(), hops=2)
+    if side == 2:
+        rl = rop.to_local()
+        k = int(rl.nnz)
+        jr = jdist.DistSpMat.from_local(JCOO.from_arrays(
+            rl.row[:k].numpy(), rl.col[:k].numpy(), rl.val[:k].numpy(),
+            rop.gshape), jgrid(2, 2))
+        ja = jdist.DistSpMat.from_coo_arrays(r_, c_, v_, (n, n), jgrid(2, 2))
+        _same_local(_assemble(ranks, "galerkin", 2, gal.gshape),
+                    jmg.galerkin_dist(jr, ja))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_filtered():
+    jg = dist_pair(W.codes_graph(), 2, 2)[0]
+    bfs = {root: tuple(np.asarray(x) for x in jfil.bfs_filtered_dist(
+        jg, root, W.heavy)) for root in W.BFS_ROOTS}
+    return jfil.materialize_filtered_dist(jg, W.heavy), bfs
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_filtered(pods, name):
+    """``materialize_filtered_dist``, ``bfs_filtered_dist`` from two roots
+    and ``mis_filtered_dist`` of the BFS graph with edge codes 1 / 2, the
+    heavy edges kept, across processes: one process's bit for bit; the
+    prune JAX's on compacted entries exactly and the BFS JAX's exactly
+    (2x2); the MIS independent and maximal in the filtered graph."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    d = W.codes_graph()
+    tw = _one(d, side)
+    _same_share(ranks, "fmat", tfil.materialize_filtered_dist(tw, W.heavy))
+    fmis = tfil.mis_filtered_dist(tw, torch.Generator().manual_seed(
+        W.FMIS_SEED), W.heavy).numpy()
+    for root in W.BFS_ROOTS:
+        p, lv = tfil.bfs_filtered_dist(tw, root, W.heavy)
+        for r in ranks:
+            _same_vec(r[f"fbfs{root}_parents"], p.numpy())
+            _same_vec(r[f"fbfs{root}_levels"], lv.numpy())
+    for r in ranks:
+        _same_vec(r["fmis"], fmis)
+    n = d.shape[0]
+    _mis_ok(np.where(W.heavy(d), d, 0.0), fmis[:n])
+    assert not fmis[n:].any()
+    if side == 2:
+        jmat, jbfs_ = _jax_filtered()
+        got = _assemble(ranks, "fmat", 2, jmat.gshape).to_local()
+        want = jmat.to_local()
+        k = int(want.nnz)
+        assert int(got.nnz) == k
+        for f in ("row", "col", "val"):
+            np.testing.assert_array_equal(getattr(got, f)[:k].numpy(),
+                                          np.asarray(getattr(want, f))[:k])
+        for root, (p, lv) in jbfs_.items():
+            _same_vec(ranks[0][f"fbfs{root}_parents"], p)
+            _same_vec(ranks[0][f"fbfs{root}_levels"], lv)
