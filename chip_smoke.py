@@ -190,7 +190,13 @@ Phases, each raising on failure:
      ``dist_apply_perm``, ``dist_route`` with every combine) on phase 19's
      inputs, every slice equal to phase 19's bit for bit, and
      ``dist_spref`` / ``dist_prune_block`` / ``dist_spasgn`` of phase 15's
-     graph equal to phase 19's blocks (K1/K2 summed over the processes).
+     graph equal to phase 19's blocks (K1/K2 summed over the processes);
+     item 1.8's step 4, the layered grid: ``summa3d_spgemm`` of the
+     scale-16 A² on (2, 2, 2) over the 4 processes (a layer's block row
+     each; phase 14's case, cut from scale 17 so that four workers fit the
+     card), its caps from ``layer_bounds`` over the processes, every block
+     equal to a one-process call of this run (the compress kernel twice a
+     block of a layer, summed over the processes).
      Four processes of their own: HipMCL's pod path, ``mcl_dist`` of phase
      18's matrix on the 4x4 grid, ``phases=1`` (K1/K2 at least once each
      an iteration, summed over the processes): phase 18's iteration count
@@ -200,7 +206,10 @@ Phases, each raising on failure:
      with phase 20's generator seed: phase 20's iterations, isolated count
      and labels bit for bit, K1/K2 each an iteration; the seconds per
      iteration, total and peak memory per worker of both beside phases 18
-     and 20.  Four processes of their own (``"algos"``), item 1.8's step
+     and 20; and phase 18's scale-12 ``mcl_dist(layers=2, phases=2)`` on
+     a 2x2 grid over the processes, its expansion on (2, 2, 2) over them:
+     iterations, labels and the final iterate's blocks equal phase 18's
+     one-process run.  Four processes of their own (``"algos"``), item 1.8's step
      3 on the 4x4 grid, each result equal to one process's of this run
      bit for bit (digests of every process's slices or blocks) and timed
      as the slowest process between two rendezvous: ``dist_spmm`` (sum
@@ -1500,6 +1509,7 @@ def _grid_call(label: str, run, ref, flops: int) -> dict:
         capacity=c.row.shape[-1], block_nnz_max=int(nnz.max()),
         block_nnz_min=int(nnz.min()),
         imbalance=float(nnz.max().float() / nnz.float().mean()),
+        block_shape=list(c.block_shape()),
         digests=block_digests(c) if isinstance(c, DistSpMat) else None)
     local = c.to_local()
     del c
@@ -1515,12 +1525,28 @@ def _grid_call(label: str, run, ref, flops: int) -> dict:
     return out
 
 
+def summa3d_launches(grid, block_shape) -> dict:
+    """The compress launches of one ``summa3d_spgemm`` on the (l, pr, pc)
+    ``grid`` whose product has blocks ``block_shape`` (mb, nb / l), summed
+    over the processes: every block of every layer folds its partial
+    product, (mb, nb), and its slice of the fiber's reduction, (mb, nb /
+    l), each with K2 where the block's packed keys fit, else K4."""
+    l, pr, pc = grid
+    mb, nbs = block_shape
+    want = {}
+    for n in (nbs * l, nbs):
+        k = "compress_" + ("i32" if (mb + 1) * (n + 1) < 1 << 31 else "i64")
+        want[k] = want.get(k, 0) + l * pr * pc
+    return want
+
+
 def grid_phase(cells, ref, flops: int) -> dict:
     """Phases 13 and 14: each grid product of ``profile_summa.grid_cells``
     timed (:func:`_grid_call`), its C equal to phase 11's, and its launches
     those of its route: ``summa_spgemm_auto`` the expansion and compress
     once a block an attempt, the staged SUMMA once a block a stage, the
-    ring SUMMA K9 p - 1 times, the 3D SUMMA (plain ESC) none."""
+    ring SUMMA K9 p - 1 times, the 3D SUMMA the compress kernel twice a
+    block of a layer (:func:`summa3d_launches`)."""
     out = {}
     for label, call, info in cells:
         line = dict(info, **_grid_call(label, call, ref, flops))
@@ -1539,7 +1565,7 @@ def grid_phase(cells, ref, flops: int) -> dict:
         elif kind == "summa_spgemm_rma":
             want = {"ring_shift": side - 1}
         else:
-            want = {}
+            want = summa3d_launches(info["grid"], line["block_shape"])
         if got != want or line.get("attempts", 1) < 1:
             raise AssertionError(f"{label} launched {got}, want {want}")
         out[label] = line
@@ -2779,7 +2805,8 @@ def _k1k2_each_iteration(launches: dict, iters: int, label: str) -> None:
 
 def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
                          side: int = MCL_DIST_CHECK_SIDE,
-                         params: dict = MCL_PARAMS) -> dict:
+                         params: dict = MCL_PARAMS,
+                         refs: dict | None = None) -> dict:
     """``mcl_dist`` on a side x side grid of the card against the same call
     on CPU tensors (plain versions), on phase 15's check graph (seeded
     uniform(0.5, 1.5) weights) with self loops: iterations, nnz of every
@@ -2789,8 +2816,12 @@ def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
     least once an iteration.  On the CPU, a 2-phase run's iterate after
     ``MCL_PHASES_ITERS`` iterations equals the 1-phase run's (keys exact,
     values within ``MCL_PHASES_RTOL``).  Then the 3D route on a (side, side, 2) grid
-    (``layers=2``, ``phases=2``) on the card: its labels equal the 2D
-    run's (both are each component's least vertex)."""
+    (``layers=2``, ``phases=2``) on the card, twice: its labels equal the
+    2D run's (both are each component's least vertex), and the second
+    run's labels, iterations and final iterate are the first's bits.  ``refs`` (when given)
+    gets, under ``"mcl_layers"``, what phase 26's pod must give again: the
+    graph, the layered run's labels, iterations and final iterate's
+    :func:`block_digests`, its seconds and peak."""
     from combblas_tpu_torch.models import mcl as mcl_mod
     from combblas_tpu_torch.ops.coo import SpCOO
 
@@ -2846,13 +2877,36 @@ def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
                                MCL_PHASES_RTOL)
     phases_secs = time.perf_counter() - t
     del w2, _l
-    _sync(dev)
-    t = time.perf_counter()
-    labels3, iters3 = mcl_mod.mcl_dist(
-        card["dm"], p, phases=2, layers=2,
-        grid3=ProcGrid.make(side, side, 2, device=dev))
-    _sync(dev)
-    secs3 = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs3 = []
+    for _ in range(2):      # the second run must give the same bits
+        _sync(dev)
+        t = time.perf_counter()
+        with MCLDistWatch(p, light=True) as w3:
+            labels3, iters3 = mcl_mod.mcl_dist(
+                card["dm"], p, phases=2, layers=2,
+                grid3=ProcGrid.make(side, side, 2, device=dev))
+        _sync(dev)
+        runs3.append((time.perf_counter() - t, labels3.cpu(), iters3,
+                      block_digests(w3.last)))
+    secs3 = runs3[0][0]
+    peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (torch.equal(runs3[0][1], runs3[1][1]) and runs3[0][2:] ==
+            runs3[1][2:]):
+        raise AssertionError("mcl_dist layers=2: two runs differ in their "
+                             "labels, iterations or final iterate's bits")
+    if refs is not None:
+        a = card["dm"].to_local()
+        k = int(a.nnz)
+        refs["mcl_layers"] = dict(
+            graph=dict(row=a.row[:k].cpu().numpy(),
+                       col=a.col[:k].cpu().numpy(),
+                       val=a.val[:k].cpu().numpy(), shape=np.asarray(shape)),
+            params=params, scale=scale, labels=labels3.cpu().numpy(),
+            iters=int(iters3), digests=runs3[0][3], secs=secs3,
+            peak_gib=peak3)
+    del w3, runs3
     if not torch.equal(labels3.cpu(), card["labels"]):
         raise AssertionError("mcl_dist layers=2: partition differs from "
                              "the 2D run's")
@@ -2867,7 +2921,8 @@ def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
                clusters=int(torch.unique(card["labels"]).numel()),
                cpu_phases2=dict(iters=MCL_PHASES_ITERS, secs=phases_secs,
                                 max_rel_diff=phases_rel),
-               layers2=dict(iters=iters3, secs=secs3, phases=2))
+               layers2=dict(iters=iters3, secs=secs3, phases=2,
+                            peak_gib=peak3, repeat_same_bits=True))
     log(f"  card vs CPU, scale {scale}, {side}x{side}: {card['iters']} "
         f"iterations, nnz and labels equal; card launches "
         f"{card['launches']}; one step from the card's iterate: values "
@@ -2877,7 +2932,7 @@ def mcl_dist_card_vs_cpu(seed: int, dev, scale: int = MCL_DIST_CHECK_SCALE,
         f"phases=2 equals phases=1 after {MCL_PHASES_ITERS} iterations "
         f"({phases_rel:.3g} rel); layers=2 "
         f"({side}, {side}, 2): {iters3} iterations in {secs3:.2f} s, the "
-        f"same partition")
+        f"same partition, a second run the same bits")
     return out
 
 
@@ -4763,24 +4818,26 @@ def pod_spmm_refs(dm, seed: int) -> dict:
 
 
 def block_digests(c) -> list:
-    """[i, j, nnz, keys, values] of each of this process's blocks of ``c``:
-    the live entries' keys (row * 2^32 + col) and value bits, each times a
-    hash of its slot, summed modulo 2^64.  Two blocks whose live slots hold
-    the same keys and the same value bits in the same order have the same
-    digest; the sums of integers do not depend on the order they run in."""
-    from combblas_tpu_torch.parallel.dist import live_counts
-
-    lc = c.grid.local_shape()[1]
-    r0, c0 = c.grid.origin()
+    """[i, j, nnz, keys, values] of each of this process's blocks of ``c``
+    ([t, i, j, ...] of a layered ``Dist3DSpMat``): the live entries' keys
+    (row * 2^32 + col) and value bits, each times a hash of its slot,
+    summed modulo 2^64.  Two blocks whose live slots hold the same keys and
+    the same value bits in the same order have the same digest; the sums
+    of integers do not depend on the order they run in."""
+    if isinstance(c, DistSpMat):
+        origin, shape = c.grid.origin(), c.grid.local_shape()
+    else:
+        origin, shape = c.grid.origin3(), c.grid.local_shape3()
+    live = torch.clamp(c.local_nnz, max=c.capacity).reshape(-1).tolist()
     out = []
-    for b, k in enumerate(live_counts(c)):
-        i, j = divmod(b, lc)
+    for b, idx in enumerate(np.ndindex(*shape)):
+        k = live[b]
         t = torch.arange(1, k + 1, device=c.row.device)
         w = ((t * 0x9E3779B1) & 0x7FFFFFFF) | 1
-        key = (c.row[i, j, :k].long() << 32) | c.col[i, j, :k].long()
-        bits = c.val[i, j, :k].contiguous().view(torch.int32).long()
-        out.append([r0 + i, c0 + j, k, int((key * w).sum()),
-                    int((bits * w).sum())])
+        key = (c.row[idx][:k].long() << 32) | c.col[idx][:k].long()
+        bits = c.val[idx][:k].contiguous().view(torch.int32).long()
+        out.append([o + x for o, x in zip(origin, idx)] + [
+            k, int((key * w).sum()), int((bits * w).sum())])
     return out
 
 
@@ -4810,6 +4867,73 @@ def _pod_summa(dm, dev) -> dict:
                         lambda: summa_spgemm_auto(dm, dm), dev)
     line.update(digests=block_digests(c), capacity=c.capacity,
                 nnz=int(c.nnz.sum()))
+    return line
+
+
+#: Phase 26's layered A²: phase 14's (2, 2, 2) ``summa3d_spgemm``, cut
+#: from scale 17 to 16 so that four workers fit the card (at scale 17 even
+#: two workers, a layer each, ran out of its memory).
+POD_3D_SCALE = 16
+
+
+def _summa3d_call(a, g3):
+    """The (2, 2, 2) ``summa3d_spgemm`` of A² on ``g3`` (one process, or
+    over the processes), its caps from ``layer_bounds``: (call, caps)."""
+    from combblas_tpu_torch.parallel.summa3d import (
+        Dist3DSpMat,
+        summa3d_spgemm,
+    )
+    from combblas_tpu_torch.profile_summa import layer_bounds
+    a3 = Dist3DSpMat.from_dist2d(a, g3, "col")
+    b3 = Dist3DSpMat.from_dist2d(a, g3, "row")
+    fc, oc = layer_bounds(a3, b3)
+    return (lambda: summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=oc),
+            (fc, oc))
+
+
+def summa3d_one(seed: int, dev) -> dict:
+    """Phase 26's one-process reference of the layered A²: the
+    scale-``POD_3D_SCALE`` (2, 2, 2) product timed (a warm call, then the
+    best of two), its blocks digested, its caps and peak."""
+    from combblas_tpu_torch.profile_summa import GRID3D
+    a = a2_matrix(seed, dev, POD_3D_SCALE)
+    call, caps = _summa3d_call(a, ProcGrid.make(GRID3D[1], GRID3D[2],
+                                                GRID3D[0], device=dev))
+    c = call()
+    del c
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        c = None
+        _sync(dev)
+        t = time.perf_counter()
+        c = call()
+        _sync(dev)
+        secs.append(time.perf_counter() - t)
+    out = dict(digests=block_digests(c), caps=list(caps), secs=min(secs),
+               times=secs, nnz=int(c.nnz.sum()),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del c, call
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pod_summa3d(a, dev) -> dict:
+    """The layered A² on a (2, 2, 2) grid over the processes (a layer's
+    block row each over 4), its caps from ``layer_bounds`` over the
+    processes: the call timed between two rendezvous, its blocks digested,
+    the caps and the peak memory."""
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    from combblas_tpu_torch.profile_summa import GRID3D
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    call, caps = _summa3d_call(a, pod_grid(
+        layers=GRID3D[0], pr=GRID3D[1], pc=GRID3D[2], device=dev))
+    c, line = _pod_call("summa3d 2x2x2", call, dev)
+    line.update(digests=block_digests(c), caps=list(caps),
+                nnz=int(c.nnz.sum()), block_shape=list(c.block_shape()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return line
 
 
@@ -5186,6 +5310,36 @@ def _pod_mcl_timed(z, dev, d: str, tag: str, **kw):
     return dm, p, line
 
 
+def _pod_mcl_layers(dev, d: str) -> dict:
+    """Phase 18's scale-12 ``mcl_dist(layers=2, phases=2)`` (the parent
+    saved its graph to ``d/mcl_layers_graph.npz``) on a 2x2 grid over the
+    processes, its expansion on a (2, 2, 2) grid over them, timed as a user
+    calls it and watched ``light``: the iterations, the seconds, the final
+    iterate's digests, the peak; its label slice saved to
+    ``d/mcl_layers_labels_rank<r>.npy``."""
+    from combblas_tpu_torch.models import mcl as mcl_mod
+    from combblas_tpu_torch.parallel import exchange
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    z = np.load(os.path.join(d, "mcl_layers_graph.npz"))
+    side = MCL_DIST_CHECK_SIDE
+    g = pod_grid(pr=side, pc=side, device=dev)
+    g3 = pod_grid(layers=2, pr=side, pc=side, device=dev)
+    dm = DistSpMat.from_coo_arrays(z["row"], z["col"], z["val"],
+                                   tuple(int(x) for x in z["shape"]), g)
+    p = mcl_mod.MCLParams(**MCL_PARAMS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with MCLDistWatch(p, light=True) as w:
+        (labels, iters), line = _pod_call(
+            "mcl_dist layers=2", lambda: mcl_mod.mcl_dist(
+                dm, p, phases=2, layers=2, grid3=g3), dev)
+    line.update(iters=int(iters), digests=block_digests(w.last),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    np.save(os.path.join(d, f"mcl_layers_labels_rank{exchange.rank()}.npy"),
+            labels.cpu().numpy())
+    return line
+
+
 def _pod_mcl_preprocess(dev, d: str) -> dict:
     """``mcl_dist(preprocess=True)`` of phase 20's matrix
     (``d/preprocess_graph.npz``, with phase 20's generator seed) on a 4x4
@@ -5424,6 +5578,8 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         res["mcl"] = _pod_mcl(dev, d)
         torch.cuda.empty_cache()
         res["mcl_preprocess"] = _pod_mcl_preprocess(dev, d)
+        torch.cuda.empty_cache()
+        res["mcl_layers"] = _pod_mcl_layers(dev, d)
     elif scenario == "algos":
         res["algos"] = _pod_algos(dev, d, seed)
     else:
@@ -5435,6 +5591,9 @@ def pod_worker(scenario: str, rank: int, nproc: int, port: int, d: str,
         torch.cuda.empty_cache()
         res["k9"] = _pod_k9(dm, a, dev)
         del a, dm
+        torch.cuda.empty_cache()
+        res["summa3d_2x2x2"] = _pod_summa3d(
+            a2_matrix(seed, dev, POD_3D_SCALE), dev)
         torch.cuda.empty_cache()
         s = spmm_bfs_graphs(seed, dev, GRAPH_SCALE)["s"]
         dm = DistSpMat.from_local(s, pod_grid(pr=DIST_SIDE, pc=DIST_SIDE,
@@ -5518,13 +5677,17 @@ def pod_full(seed: int, refs: dict, dev) -> dict:
     byte for byte one process's, the read equal to one process's blocks);
     a 4-process pod: ``summa_spgemm_auto`` 4x4 (K1/K2) equal to phase
     13's, the ring SUMMA 4x4 equal to phase 14's (K9 across processes), K9
-    across processes alone against its ``gloo`` plain version, ``bfs_dist``
+    across processes alone against its ``gloo`` plain version, the layered
+    (2, 2, 2) ``summa3d_spgemm`` of the scale-16 A² against one process's
+    (:func:`summa3d_one`, :func:`check_pod_summa3d`), ``bfs_dist``
     from 4 of phase 8's roots, ``lacc_dist`` and ``luby_mis_dist`` (phase
     17's), phase 19's permutation of that graph, ``dist_sort_auto`` of
     2^26 float32, phase 19's vector calls and its SpRef / block prune /
     SpAsgn; then HipMCL's pod path in a 4-process launch of its own
     (:func:`_pod_mcl`, :func:`check_pod_mcl`), with its preprocessing
-    (:func:`_pod_mcl_preprocess`, :func:`check_pod_mcl_preprocess`); then
+    (:func:`_pod_mcl_preprocess`, :func:`check_pod_mcl_preprocess`) and
+    the layered ``mcl_dist`` (:func:`_pod_mcl_layers`,
+    :func:`check_pod_mcl_layers`); then
     item 1.8's step 3 in a 4-process launch of its own (:func:`_pod_algos`
     against :func:`algos_refs` and the references of phases 17, 21, 23
     and 24, :func:`check_pod_algos`)."""
@@ -5544,6 +5707,8 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     np.save(os.path.join(d, "roots.npy"), np.asarray(refs["roots"]))
     np.save(os.path.join(d, "levels.npy"), refs["levels"])
     np.savez(os.path.join(d, "mcl_graph.npz"), **refs["mcl"]["graph"])
+    np.savez(os.path.join(d, "mcl_layers_graph.npz"),
+             **refs["mcl_layers"]["graph"])
     for name in ("lacc", "mis"):
         np.save(os.path.join(d, f"{name}.npy"), refs[name])
     np.save(os.path.join(d, "perm.npy"), refs["permute"]["perm"])
@@ -5574,12 +5739,16 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     _same_digests(two, "summa_2x2", refs["summa_spgemm_auto 2x2"],
                   "summa_spgemm_auto 2x2 across 2 processes")
     t = time.perf_counter()
+    one3 = summa3d_one(seed, dev)
+    out["summa3d_one_secs"] = time.perf_counter() - t
+    t = time.perf_counter()
     four = _run_pod("four", d, seed)
     out["four_secs"] = time.perf_counter() - t
     _same_digests(four, "summa_4x4", refs["summa_spgemm_auto 4x4"],
                   "summa_spgemm_auto 4x4 across 4 processes")
     _same_digests(four, "rma_4x4", refs["summa_spgemm_rma 4x4"],
                   "summa_spgemm_rma 4x4 across 4 processes")
+    out["summa3d"] = check_pod_summa3d(four, one3)
     _same_digests(four, "permute", refs["permute"]["digests"],
                   "dist_permute of phase 8's graph across 4 processes")
     index = [r["indexing"] for r in four]
@@ -5664,6 +5833,7 @@ def _pod_phase(seed: int, refs: dict, dev, d: str) -> dict:
     out["mcl"] = check_pod_mcl(mcl, refs["mcl"], d)
     out["mcl_preprocess"] = check_pod_mcl_preprocess(
         mcl, refs["mcl_preprocess"], d)
+    out["mcl_layers"] = check_pod_mcl_layers(mcl, refs["mcl_layers"], d)
     out["launches"].update(mcl=out["mcl"]["launches"],
                            mcl_preprocess=out["mcl_preprocess"]["launches"])
     t = time.perf_counter()
@@ -5914,6 +6084,76 @@ def _pod_mcl_secs(ranks, key: str, iters: int) -> dict:
                 total_secs=max(r[key]["secs"] for r in ranks),
                 rest_secs=max(r[key]["rest_secs"] for r in ranks),
                 iter_secs=secs, peak_gib=[r[key]["peak_gib"] for r in ranks])
+
+
+def check_pod_summa3d(ranks, one: dict) -> dict:
+    """The layered pod's A² against one process's (:func:`summa3d_one`):
+    the caps equal in every process, every block equal by digest (nnz
+    included), the compress kernel launched twice a block of a layer over
+    the processes (:func:`summa3d_launches`).  Reports the
+    slowest process's seconds and every worker's peak beside one
+    process's."""
+    for r in ranks:
+        if r["summa3d_2x2x2"]["caps"] != one["caps"]:
+            raise AssertionError(f"summa3d across processes: caps "
+                                 f"{r['summa3d_2x2x2']['caps']}, one "
+                                 f"process {one['caps']}")
+    _same_digests(ranks, "summa3d_2x2x2", one["digests"],
+                  f"summa3d_spgemm 2x2x2 across {len(ranks)} processes")
+    launches = _sum_launches(ranks, "summa3d_2x2x2")
+    want = summa3d_launches([2, 2, 2], ranks[0]["summa3d_2x2x2"][
+        "block_shape"])
+    if launches != want:
+        raise AssertionError(f"summa3d across processes launched "
+                             f"{launches}, want {want}")
+    out = dict(grid=[2, 2, 2], processes=len(ranks), scale=POD_3D_SCALE,
+               launches=launches, secs=max(r["summa3d_2x2x2"]["secs"] for r in ranks),
+               peak_gib=[r["summa3d_2x2x2"]["peak_gib"] for r in ranks],
+               nnz=one["nnz"], caps=one["caps"],
+               one_process_secs=one["secs"], one_process_times=one["times"],
+               one_process_peak_gib=one["peak_gib"])
+    log(f"  summa3d_spgemm (2, 2, 2) of the scale-{POD_3D_SCALE} A² over "
+        f"{len(ranks)} processes: every block equals one process's, caps "
+        f"{one['caps']}; {out['secs']:.3f} s (one process "
+        f"{one['secs']:.4f}), peak GiB a worker "
+        f"{[round(x, 2) for x in out['peak_gib']]} (one process "
+        f"{one['peak_gib']:.2f})")
+    return out
+
+
+def check_pod_mcl_layers(ranks, ref: dict, d: str) -> dict:
+    """The layered pod MCL against phase 18's one-process scale-12
+    ``mcl_dist(layers=2, phases=2)``: the iterations equal, the label
+    slices put together equal bit for bit, the final iterate's blocks
+    equal by digest.  Reports the slowest process's seconds and every
+    worker's peak beside one process's."""
+    got = [r["mcl_layers"]["iters"] for r in ranks]
+    if got != [ref["iters"]] * len(ranks):
+        raise AssertionError(f"mcl_dist(layers=2) across processes: "
+                             f"iterations {got}, one process {ref['iters']}")
+    labels = np.concatenate([np.load(os.path.join(
+        d, f"mcl_layers_labels_rank{r['rank']}.npy")) for r in ranks])
+    if not np.array_equal(labels, ref["labels"]):
+        raise AssertionError("mcl_dist(layers=2) across processes: labels "
+                             "differ from one process's")
+    _same_digests(ranks, "mcl_layers", ref["digests"],
+                  "mcl_dist(layers=2) final iterate across processes")
+    out = dict(grid=[2, MCL_DIST_CHECK_SIDE, MCL_DIST_CHECK_SIDE],
+               processes=len(ranks), scale=ref["scale"],
+               iters=ref["iters"],
+               secs=max(r["mcl_layers"]["secs"] for r in ranks),
+               peak_gib=[r["mcl_layers"]["peak_gib"] for r in ranks],
+               launches=_sum_launches(ranks, "mcl_layers"),
+               one_process_secs=ref["secs"],
+               one_process_peak_gib=ref["peak_gib"])
+    log(f"  mcl_dist(layers=2, phases=2) scale {ref['scale']}, "
+        f"(2, {MCL_DIST_CHECK_SIDE}, {MCL_DIST_CHECK_SIDE}) over "
+        f"{len(ranks)} processes: {ref['iters']} iterations, labels and the "
+        f"final iterate's blocks equal one process's; {out['secs']:.3f} s "
+        f"(one process {ref['secs']:.3f}), peak GiB a worker "
+        f"{[round(x, 3) for x in out['peak_gib']]} (one process "
+        f"{ref['peak_gib']:.3f})")
+    return out
 
 
 def check_pod_mcl(ranks, ref: dict, d: str) -> dict:
@@ -6183,7 +6423,8 @@ def main() -> int:
         f"{DIST_SIDE}x{DIST_SIDE} grid, phases=1")
     mcl_dist_line = mcl_dist_full(a_mcl, args.seed, mcl_line, pod_refs)
     torch.cuda.empty_cache()
-    mcl_dist_line["card_vs_cpu"] = mcl_dist_card_vs_cpu(args.seed, dev)
+    mcl_dist_line["card_vs_cpu"] = mcl_dist_card_vs_cpu(args.seed, dev,
+                                                        refs=pod_refs)
     log(json.dumps(mcl_dist_line))
     torch.cuda.empty_cache()
     phase_secs["18"] = time.perf_counter() - t
@@ -6277,8 +6518,10 @@ def main() -> int:
         f"processes), bfs_dist / lacc_dist / luby_mis_dist / dist_permute "
         f"of phase 8's graph, dist_sort_auto 2^{POD_SORT_LOG2}, phase 19's "
         f"vector calls and SpRef / SpAsgn, cooperative I/O at scale "
-        f"{IO_SCALE}; mcl_dist of phase 18's matrix and "
-        f"mcl_dist(preprocess=True) of phase 20's, 4x4 over 4 processes; "
+        f"{IO_SCALE}, summa3d_spgemm (2, 2, 2) of the scale-{POD_3D_SCALE}"
+        f" A² over 4 processes; mcl_dist of phase 18's matrix and "
+        f"mcl_dist(preprocess=True) of phase 20's, 4x4 over 4 processes, "
+        f"phase 18's layered scale-12 mcl_dist over 4; "
         f"item 1.8's step 3 (dense SpMM, BC, RCM, MD, matchings, "
         f"multigrid, filtered traversals), 4x4 over 4 processes")
     torch.cuda.empty_cache()
@@ -6330,7 +6573,11 @@ def main() -> int:
                          "mcl_preprocess"].get(k["name"], 0),
                      launches_pod_galerkin=pod_line["launches"][
                          "galerkin"].get(k["name"], 0),
-                     launches_seg=seg_line["launches"].get(k["name"], 0))
+                     launches_seg=seg_line["launches"].get(k["name"], 0),
+                     launches_summa3d=ring_line["summa3d_spgemm 2x2x2"][
+                         "launches"].get(k["name"], 0),
+                     launches_pod_summa3d=pod_line["summa3d"][
+                         "launches"].get(k["name"], 0))
     for name, n_launch in launches.items():
         if n_launch < 1:
             raise AssertionError(f"{name} was not launched on its path")

@@ -22,9 +22,10 @@ The loops run on the host (capacities change between iterations).
   A^T``.  ``preprocess=True`` first runs HipMCL's ``RemoveIsolated`` and
   ``RandPermute`` (:func:`dist_remove_isolated`, :func:`dist_rand_permute`:
   ``dist_permute`` owner exchanges) and translates the labels back.
-  On a grid over several processes (a pod) ``mcl_dist`` runs with
-  ``layers == 1``, with or without the preprocessing: every stage is the
-  pod form of its distributed op, every branch and the loop's stop read
+  On a grid over several processes (a pod) ``mcl_dist`` runs with or
+  without the layers and the preprocessing: every stage is the pod form
+  of its distributed op (the 3D expansion on a layered grid over the same
+  processes), every branch and the loop's stop read
   values reduced over the processes, and the labels are this process's
   slice.  The preprocessing's host maps (length n) are built whole in
   every process, from one all-gather of their slices.
@@ -436,14 +437,9 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
     the labels are this process's slice: of the column-space vector, or
     with ``preprocess`` its ``vec_range`` slice of the n labels padded to
     a multiple of the processes (a pad slot i labelled ``n + i``), so that
-    the slices put together and cut to n are one process's labels.
-    ``layers > 1`` is not ported there yet and raises
-    ``NotImplementedError``."""
+    the slices put together and cut to n are one process's labels.  There
+    ``grid3`` must span the same processes as ``a``'s grid."""
     p = params or MCLParams()
-    if a.grid.is_pod and layers > 1:
-        raise NotImplementedError(
-            f"mcl_dist(layers={layers}) across {a.grid.nproc} processes is "
-            "not ported yet (ROADMAP item 1.8)")
     vmap = None
     if preprocess:
         a, vmap = _preprocess(a, generator)
@@ -455,6 +451,10 @@ def mcl_dist(a: DistSpMat, params: Optional[MCLParams] = None,
         if grid3 is None or not grid3.is3d or grid3.layers != layers:
             raise ValueError("mcl_dist(layers > 1) needs a 3D ProcGrid "
                              "(grid3=) with that many layers")
+        if (grid3.nproc, grid3.rank) != (a.grid.nproc, a.grid.rank):
+            raise ValueError(f"grid3 spans {grid3.nproc} processes (rank "
+                             f"{grid3.rank}), the matrix's grid "
+                             f"{a.grid.nproc} (rank {a.grid.rank})")
 
         def expand(m):
             return _expand_3d(m, hook, phases, grid3)

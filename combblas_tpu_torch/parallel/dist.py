@@ -86,17 +86,29 @@ def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     of two (at least 8), pads (mb, nb, 0).  A block past ``capacity``
     raises ``ValueError``.  On a pod only this process's blocks are built
     (the counts are the whole table, all-gathered)."""
+    mb, nb = block_dims(gshape, grid)
+    box = ((grid.origin(), grid.local_shape()) if grid.is_pod
+           else ((0, 0), (grid.pr, grid.pc)))
+    ents = _box_entries(row, col, val, mb, nb, box, own=grid.is_pod)
+    table = exchange.gather_table(ents[-1].reshape(box[1]), grid)
+    cap = _block_capacity(int(table.max()), capacity)
+    return (*_fill_box(ents, box[1], cap, mb, nb), table)
+
+
+def _box_entries(row, col, val, mb: int, nb: int, box, own: bool):
+    """The triples of the box ``((r0, c0), (lr, lc))`` of (mb, nb) blocks
+    (``own``: drop the others; else every triple lies in it) sorted by
+    (block, local row, local col), duplicates summed in that order: (block
+    index within the box, local row, local col, value, count a block)."""
     dev = row.device
     row, col = row.long(), col.long()
-    pr, pc = grid.pr, grid.pc
-    mb, nb = block_dims(gshape, grid)
+    (r0, c0), (pr, pc) = box
     bi, bj = row // mb, col // nb
-    if grid.is_pod:     # keep this process's triples; local block ids
-        (r0, c0), (pr, pc) = grid.origin(), grid.local_shape()
-        own = torch.nonzero((bi >= r0) & (bi < r0 + pr) & (bj >= c0)
-                            & (bj < c0 + pc)).squeeze(1)
-        row, col, val = row[own], col[own], val[own]
-        bi, bj = bi[own] - r0, bj[own] - c0
+    if own:     # keep the box's triples; block ids within the box
+        keep = torch.nonzero((bi >= r0) & (bi < r0 + pr) & (bj >= c0)
+                             & (bj < c0 + pc)).squeeze(1)
+        row, col, val = row[keep], col[keep], val[keep]
+        bi, bj = bi[keep] - r0, bj[keep] - c0
         row, col = row - r0 * mb, col - c0 * nb
     lr, lc = row - bi * mb, col - bj * nb
     blk = bi * pc + bj
@@ -108,24 +120,37 @@ def _bucket_blocks(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
         if not bool(new.all()):
             val = _fold_runs(val, new)
             blk, lr, lc = blk[new], lr[new], lc[new]
-    counts = torch.bincount(blk, minlength=pr * pc)
-    table = exchange.gather_table(counts.reshape(pr, pc), grid)
-    most = int(table.max())
+    return blk, lr, lc, val, torch.bincount(blk, minlength=pr * pc)
+
+
+def _block_capacity(most: int, capacity) -> int:
+    """The stacks' capacity: ``capacity`` (default ``most``, the fullest
+    block's count) rounded up to a power of two, at least 8; ``ValueError``
+    when ``most`` passes it."""
     cap = most if capacity is None else capacity
     cap = max(8, 1 << int(np.ceil(np.log2(max(cap, 1)))))
     if most > cap:
         raise ValueError(f"a block holds {most} entries, past the capacity "
                          f"{cap}")
+    return cap
+
+
+def _fill_box(ents, shape, cap: int, mb: int, nb: int):
+    """(R, C, V) stacks of ``shape`` + (cap,) of :func:`_box_entries`'
+    result, each block's entries first, then pads (mb, nb, 0)."""
+    blk, lr, lc, val, counts = ents
+    dev = blk.device
+    g = shape[0] * shape[1]
     pos = torch.arange(blk.shape[0], device=dev) - (
         torch.cumsum(counts, 0) - counts)[blk]
-    R = torch.full((pr * pc, cap), mb, dtype=torch.int32, device=dev)
-    C = torch.full((pr * pc, cap), nb, dtype=torch.int32, device=dev)
-    V = torch.zeros((pr * pc, cap), dtype=val.dtype, device=dev)
+    R = torch.full((g, cap), mb, dtype=torch.int32, device=dev)
+    C = torch.full((g, cap), nb, dtype=torch.int32, device=dev)
+    V = torch.zeros((g, cap), dtype=val.dtype, device=dev)
     R[blk, pos] = lr.to(torch.int32)
     C[blk, pos] = lc.to(torch.int32)
     V[blk, pos] = val
-    return (R.reshape(pr, pc, cap), C.reshape(pr, pc, cap),
-            V.reshape(pr, pc, cap), table)
+    return (R.reshape(*shape, cap), C.reshape(*shape, cap),
+            V.reshape(*shape, cap))
 
 
 def _gather_blocks(row, col, val, nnz, row_off, col_off,

@@ -12,23 +12,27 @@ schedules are the ones a TPU slice runs; only the memory is one card's.
 
 A grid may span ``nproc`` processes (a pod, :func:`parallel.multihost.
 pod_grid`).  ``jax.devices()`` is process-major and the JAX grid reshapes
-it row-major, so process p owns the blocks at raster positions
-[p·B/P, (p+1)·B/P) of the B = pr·pc blocks.  The port asks that these form
-a rectangle of whole block rows, or a run of one block row: the local
-stacks are then (lr, lc, ...) with every process's of one shape.  A grid of
-one process is the grid of one device, and compares equal to it.
+it row-major to (layers, pr, pc), so process p owns the blocks at raster
+positions [p·B/P, (p+1)·B/P) of the B = layers·pr·pc blocks.  The port asks
+that these form a box.  On a one-layer grid that is a rectangle of whole
+block rows, or a run of one block row: the local stacks are then (lr, lc,
+...), every process's of one shape.  On a layered grid it is whole layers,
+or such a rectangle inside one layer: the local stacks are (ll, lr, lc,
+...).  The raster order of (layers, pr, pc) is that of the one-layer
+(layers·pr, pc) grid (:meth:`ProcGrid.flat`), so the layered ownership is
+that grid's.  A grid of one process is the grid of one device, and
+compares equal to it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
 from combblas_tpu_torch.device import resolve_device
 
-__all__ = ["ProcGrid", "default_grid", "single_process"]
+__all__ = ["ProcGrid", "default_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +64,7 @@ class ProcGrid:
         g = ProcGrid(int(pr), int(pc), int(layers), resolve_device(device),
                      int(nproc), int(rank))
         if nproc > 1:
-            g.local_shape()   # the ownership must be a rectangle
+            g.local_shape3()   # the ownership must be a box
         return g
 
     @property
@@ -78,18 +82,33 @@ class ProcGrid:
         return self.nproc > 1
 
     def grid2d(self) -> "ProcGrid":
-        """The per-layer 2D grid of a 3D grid."""
+        """The per-layer 2D grid of a 3D grid: its sides and block dims.  It
+        keeps ``nproc``, so on a layered pod its ownership is not the
+        layered grid's (that is :meth:`local_shape3`, :meth:`origin3`,
+        :meth:`owner3`)."""
         return dataclasses.replace(self, layers=1)
 
+    def flat(self) -> "ProcGrid":
+        """The one-layer (layers·pr, pc) grid over the same processes:
+        block (i, j) of layer t is its block (t·pr + i, j), at the same
+        raster position, so the one's ownership is the other's and the
+        exchanges of :mod:`parallel.exchange` take (ll·lr, lc, ...) views
+        of layered stacks.  A one-layer grid's is itself."""
+        if self.layers == 1:
+            return self
+        return dataclasses.replace(self, pr=self.layers * self.pr, layers=1)
+
     def local_shape(self) -> tuple:
-        """(lr, lc): the block rows and columns each process holds."""
+        """(lr, lc): the block rows and columns each process holds, on a
+        one-layer grid (and of every layer in one process)."""
         if self.nproc == 1:
             return self.pr, self.pc
         blocks = self.pr * self.pc
         if self.layers != 1 or blocks % self.nproc:
             raise ValueError(f"a {self.layers}x{self.pr}x{self.pc} grid "
                              f"cannot be split evenly over {self.nproc} "
-                             "processes")
+                             "processes by block rows (a layered grid's "
+                             "share is local_shape3)")
         per = blocks // self.nproc
         if per % self.pc == 0:
             return per // self.pc, self.pc
@@ -112,6 +131,37 @@ class ProcGrid:
         lr, lc = self.local_shape()
         return (i * self.pc + j) // (lr * lc)
 
+    def local_shape3(self) -> tuple:
+        """(ll, lr, lc): the layers, block rows and columns each process
+        holds.  A share that is not a box (whole layers, or whole block
+        rows or a run of one inside one layer) raises ``ValueError``."""
+        if self.nproc == 1:
+            return self.layers, self.pr, self.pc
+        if self.nprocs % self.nproc:
+            raise ValueError(f"a {self.layers}x{self.pr}x{self.pc} grid "
+                             f"cannot be split evenly over {self.nproc} "
+                             "processes")
+        rows, lc = self.flat().local_shape()
+        if rows % self.pr == 0:
+            return rows // self.pr, self.pr, lc
+        if self.pr % rows:
+            raise ValueError(f"{rows} block rows a process on a "
+                             f"{self.layers}x{self.pr}x{self.pc} grid are "
+                             "neither whole layers nor a box inside one")
+        return 1, rows, lc
+
+    def origin3(self, rank: int | None = None) -> tuple:
+        """(t0, r0, c0): the first block of process ``rank`` (default: this
+        one)."""
+        self.local_shape3()
+        r, c = self.flat().origin(rank)
+        return r // self.pr, r % self.pr, c
+
+    def owner3(self, t: int, i: int, j: int) -> int:
+        """The process that holds block (i, j) of layer t."""
+        self.local_shape3()
+        return self.flat().owner(t * self.pr + i, j)
+
     def local_blocks(self):
         """This process's blocks as global (i, j), in raster order."""
         lr, lc = self.local_shape()
@@ -132,21 +182,3 @@ class ProcGrid:
 def default_grid(layers: int = 1, device=None) -> ProcGrid:
     """The grid with one block per layer on ``device``."""
     return ProcGrid.make(layers=layers, device=device)
-
-
-def single_process(fn):
-    """Decorate a distributed function that has no exchange across
-    processes yet: a call whose grid (a ``ProcGrid`` argument, or the
-    ``grid`` of a matrix argument) spans several processes raises
-    ``NotImplementedError`` naming ROADMAP item 1.8, instead of computing
-    on this process's share alone."""
-    @functools.wraps(fn)
-    def checked(*args, **kwargs):
-        for x in (*args, *kwargs.values()):
-            g = x if isinstance(x, ProcGrid) else getattr(x, "grid", None)
-            if isinstance(g, ProcGrid) and g.is_pod:
-                raise NotImplementedError(
-                    f"{fn.__name__} across {g.nproc} processes is not "
-                    "ported yet (ROADMAP item 1.8)")
-        return fn(*args, **kwargs)
-    return checked

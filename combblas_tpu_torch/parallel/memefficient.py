@@ -44,6 +44,7 @@ from combblas_tpu_torch.parallel.spmv import est_nnz_spgemm_sampling
 from combblas_tpu_torch.parallel.summa import (
     _check_operands,
     _local_multiply,
+    _layer,
     _panel_stacks,
     _run_blocks,
     summa_bounds,
@@ -60,7 +61,8 @@ __all__ = ["summa_spgemm_staged", "mem_efficient_spgemm",
 
 
 def _stage_block(stack, i: int, j: int, shape) -> SpCOO:
-    """Block (i, j) of a :func:`summa._panel_stacks` stack as an SpCOO."""
+    """Block (i, j) of a layer of a :func:`summa._panel_stacks` stack as an
+    SpCOO."""
     r, c, v, n = stack
     return SpCOO(row=r[i, j], col=c[i, j], val=v[i, j], nnz=n[i, j],
                  shape=shape)
@@ -95,7 +97,7 @@ def summa_spgemm_staged(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES,
     route as in :func:`combblas_tpu_torch.parallel.summa.summa_spgemm`.  C's
     blocks have ``out_capacity`` slots."""
     _check_operands(a, b)
-    stacks = _panel_stacks(a, b)
+    stacks = _layer(_panel_stacks(a, b), 0)
     row, col, val, nnz = _run_blocks(
         a.grid.local_shape(),
         lambda i, j: _staged_block(a, b, i, j, stacks, sr=sr,

@@ -83,15 +83,13 @@ def pod_grid(layers: int = 1, pr: int | None = None, pc: int | None = None,
     """The grid over every process's blocks.  In one process this is
     ``ProcGrid.make(pr, pc, layers, device)``: the grid of ``default_grid``
     when ``pr`` and ``pc`` are not given.  Across P processes process p
-    holds the raster blocks [p·B/P, (p+1)·B/P) (B = pr·pc, a multiple of
-    P, as JAX's uniform-job assertion asks), whole block rows or a run of
-    one; a layered grid does not spread over processes yet."""
+    holds the raster blocks [p·B/P, (p+1)·B/P) of the (layers, pr, pc)
+    raster (B = layers·pr·pc, a multiple of P, as JAX's uniform-job
+    assertion asks): whole block rows or a run of one, and on a layered
+    grid whole layers or such a box inside one layer
+    (:meth:`ProcGrid.local_shape3`)."""
     n, rank = ((dist.get_world_size(), dist.get_rank()) if _joined()
                else (1, 0))
-    if n > 1 and layers != 1:
-        raise NotImplementedError(
-            f"a {layers}-layer grid across {n} processes is not ported yet "
-            "(ROADMAP item 1.8)")
     return ProcGrid.make(pr, pc, layers, device, nproc=n, rank=rank)
 
 

@@ -134,47 +134,65 @@ def _check_operands(a: DistSpMat, b: DistSpMat) -> None:
         raise ValueError("SpGEMM needs a square grid (reference: √p×√p)")
 
 
-def _remote_panel(m: DistSpMat, positions, shape):
+def _remote_panel(m, positions, shape):
     """The blocks of ``m`` at ``positions`` from their owners, only their
     live entries moved, as stacks of ``shape`` (blocks) and the capacity
     the most entries of one of them need (the matrix's when a block's nnz
     passes it): a panel reads each block's live prefix only, so the
-    panel's pads are what shrinks."""
-    nnz = m.nnz.cpu().numpy()
+    panel's pads are what shrinks.  ``m`` is a DistSpMat, or a layered
+    ``Dist3DSpMat`` whose positions are those of ``m.grid.flat()`` (block
+    row i of layer t is row t·pr + i)."""
+    g = m.grid.flat()
+    nnz = m.nnz.reshape(g.pr, g.pc).cpu().numpy()
     need = max(int(nnz[i, j]) for i, j in positions)
     cap = min(m.capacity, max(need, 1))
     mb, nb = m.block_shape()
-    got = exchange.gather_live([m.row, m.col, m.val], m.grid, positions,
+    stacks = [x.reshape(-1, x.shape[-2], m.capacity)
+              for x in (m.row, m.col, m.val)]
+    got = exchange.gather_live(stacks, g, positions,
                                np.minimum(nnz, m.capacity), (mb, nb, 0), cap)
     return [x.reshape(*shape, cap) for x in got]
 
 
-def _panel_stacks(a: DistSpMat, b: DistSpMat):
-    """The block stacks this process's panels read: A's (row, col, val,
-    nnz) of its block rows, every column, and B's of every row, its block
-    columns, indexed from its first block.  In one process the operands'
-    own stacks; on a pod the blocks come from their owners, each block's
-    live entries only (the stacks then hold as many slots as the fullest
-    of them needs), unless this process holds them all (A's whole block
-    rows): those are its own stacks."""
+def _panel_stacks(a, b):
+    """The block stacks this process's panels read, by layer: A's (row,
+    col, val, nnz) of its layers and block rows, every column (ll, lr, pc,
+    ...), and B's of its layers and block columns, every row (ll, pr, lc,
+    ...), indexed from its first block.  ``a`` and ``b`` are DistSpMats (one
+    layer: the caller takes :func:`_layer` 0) or layered ``Dist3DSpMat``s.
+    In one process the operands' own stacks; on a pod the blocks come from
+    their owners, each block's live entries only (``_remote_panel`` on the
+    grid's ``flat()`` view; the stacks then hold as many slots as the
+    fullest of them needs), unless this process holds them all (A's whole
+    block rows, B's whole block columns): those are its own stacks."""
     g = a.grid
-    if not g.is_pod:
-        return (a.row, a.col, a.val, a.nnz), (b.row, b.col, b.val, b.nnz)
-    (r0, c0), (lr, lc) = g.origin(), g.local_shape()
-    if lc == g.pc:
-        ast = [a.row, a.col, a.val]
-    else:
-        ast = _remote_panel(a, [(i, s) for i in range(r0, r0 + lr)
-                                for s in range(g.pc)], (lr, g.pc))
-    bst = _remote_panel(b, [(s, j) for s in range(g.pr)
-                            for j in range(c0, c0 + lc)], (g.pr, lc))
-    return ((*ast, a.nnz[r0:r0 + lr]), (*bst, b.nnz[:, c0:c0 + lc]))
+    (t0, r0, c0), (ll, lr, lc) = g.origin3(), g.local_shape3()
+    layers = range(t0, t0 + ll)
+    ast, bst = ([x.reshape(ll, lr, lc, -1) for x in (m.row, m.col, m.val)]
+                for m in (a, b))
+    if lc != g.pc:
+        ast = _remote_panel(a, [(t * g.pr + i, s) for t in layers
+                                for i in range(r0, r0 + lr)
+                                for s in range(g.pc)], (ll, lr, g.pc))
+    if lr != g.pr:
+        bst = _remote_panel(b, [(t * g.pr + s, j) for t in layers
+                                for s in range(g.pr)
+                                for j in range(c0, c0 + lc)], (ll, g.pr, lc))
+    an, bn = (m.nnz.reshape(g.layers, g.pr, g.pc)[t0:t0 + ll]
+              for m in (a, b))
+    return ((*ast, an[:, r0:r0 + lr]), (*bst, bn[:, :, c0:c0 + lc]))
+
+
+def _layer(stacks, t: int):
+    """Layer t (counted from this process's first) of a
+    :func:`_panel_stacks`: the stacks :func:`_panels` reads."""
+    return [[x[t] for x in st] for st in stacks]
 
 
 def _panels(a: DistSpMat, b: DistSpMat, i: int, j: int, stacks):
     """The A row panel and B column panel of this process's block (i, j),
     (i, j) counted from its first block; ``stacks``: the
-    :func:`_panel_stacks` of the call."""
+    :func:`_layer` of the call's :func:`_panel_stacks`."""
     mb, kb_a = a.block_shape()
     kb_b, nb = b.block_shape()
     (ar, ac, av, an), (br, bc, bv, bn) = stacks
@@ -203,7 +221,7 @@ def summa_spgemm(a: DistSpMat, b: DistSpMat, sr: Semiring = PLUS_TIMES, *,
     ``max(ceil128(out_capacity), 2048)`` on the kernel routes; a block's
     nnz saturates at ``out_capacity``."""
     _check_operands(a, b)
-    stacks = _panel_stacks(a, b)
+    stacks = _layer(_panel_stacks(a, b), 0)
     row, col, val, nnz = _run_blocks(
         a.grid.local_shape(),
         lambda i, j: _summa_block(a, b, i, j, sr=sr, flops_cap=flops_cap,
@@ -243,7 +261,7 @@ def summa_flops(a: DistSpMat, b: DistSpMat) -> torch.Tensor:
     _check_operands(a, b)
     lr, lc = a.grid.local_shape()
     out = torch.empty((lr, lc), dtype=torch.int64, device=a.row.device)
-    stacks = _panel_stacks(a, b)
+    stacks = _layer(_panel_stacks(a, b), 0)
     for i, j in itertools.product(range(lr), range(lc)):
         pa, pb = _panels(a, b, i, j, stacks)
         out[i, j] = _entry_counts(pa, pb.row_ptr()).sum()

@@ -9,9 +9,24 @@ destination layer (layer t owns the columns [t*nb/l, (t+1)*nb/l) of every
 block) and sends each destination a ``fiber_cap`` chunk.  The JAX
 ``all_to_all`` of those (l, l, fiber_cap) send stacks is a transpose here;
 each layer then folds what it received.  An overfull chunk saturates the
-fiber's output nnz at ``out_capacity``: the caller's retry signal.  The port
-walks the fibers one at a time, so only one fiber's send stacks are on the
-device at once.
+fiber's output nnz at ``out_capacity``: the caller's retry signal.
+
+The port walks the fibers one at a time, so only one fiber's send stacks
+are on the device at once.  On a grid over several processes (a pod) each
+process holds its box of (ll, lr, lc) blocks (:meth:`ProcGrid.
+local_shape3`) and walks its (lr, lc) fibers in rounds, every process its
+own fiber of the round: the processes that share a fiber hold it at the
+same place of their boxes.  A round forms the partial products of this
+process's ll layers of its fiber, from panels of live prefixes fetched
+from their owners before the first round, then sends each destination
+layer's chunk, live prefix only, to that layer's owner (``exchange.pull``)
+and folds what it received in ascending source layer, which is the
+one-process stack.  The overflow flag is the fiber's, an OR over its l
+layers' host counts.  A layer's partial product and a fiber's reduction
+fold on the card through the compress kernel (K2 on packed keys, K4 on
+wide ones, :func:`_sort_fold`), whose sums follow the sorted stream alone:
+a pod's stream is one process's, so its blocks are one process's bit for
+bit, and two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -31,29 +46,46 @@ from combblas_tpu_torch.ops.coo import (
     compress_sorted,
     sort_compress,
 )
-from combblas_tpu_torch.ops.spgemm import spgemm_flops
+from combblas_tpu_torch.ops.kernels.compress import (
+    compress_sorted_packed,
+    compress_sorted_wide_keys,
+)
+from combblas_tpu_torch.ops.kernels.expand import KEY_SENTINEL
+from combblas_tpu_torch.ops.spgemm import _expand, spgemm_flops
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
-    _bucket_blocks,
+    _block_capacity,
+    _box_entries,
+    _fill_box,
     _gather_blocks,
     block_dims,
 )
-from combblas_tpu_torch.parallel.grid import ProcGrid, single_process
-from combblas_tpu_torch.parallel.summa import (
-    _local_multiply,
-    _panel_a,
-    _panel_b,
-)
+from combblas_tpu_torch.parallel.grid import ProcGrid
+from combblas_tpu_torch.parallel.summa import _layer, _panel_stacks, _panels
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
 __all__ = ["Dist3DSpMat", "summa3d_spgemm", "summa3d_bounds",
            "mem_efficient_spgemm3d"]
 
 
+def _nnz_table(local: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
+    """The (l, pr, pc) table of a per-block count from every process's
+    (ll, lr, lc) part; in one process ``local`` itself."""
+    if not grid.is_pod:
+        return local
+    ll, lr, lc = grid.local_shape3()
+    return exchange.gather_table(local.reshape(ll * lr, lc),
+                                 grid.flat()).reshape(
+        grid.layers, grid.pr, grid.pc)
+
+
 @dataclasses.dataclass(frozen=True)
 class Dist3DSpMat:
     """Layer-split distributed sparse matrix: (l, pr, pc, cap) block stacks
-    and (l, pr, pc) int64 nnz on the grid's device.
+    and (l, pr, pc) int64 nnz on the grid's device.  On a pod the stacks
+    hold this process's (ll, lr, lc) box of blocks and ``nnz`` stays the
+    whole table in every process, as a ``DistSpMat``'s does.
 
     ``split``: 'col' (A operands: layer t holds the t-th column range), 'row'
     (B operands) or 'blockcol' (products: layer t holds the t-th column slice
@@ -70,6 +102,20 @@ class Dist3DSpMat:
     @property
     def layers(self) -> int:
         return self.grid.layers
+
+    @property
+    def capacity(self) -> int:
+        return self.row.shape[-1]
+
+    @property
+    def local_nnz(self) -> torch.Tensor:
+        """The nnz of this process's blocks, (ll, lr, lc): ``nnz`` itself
+        in one process."""
+        if not self.grid.is_pod:
+            return self.nnz
+        (t0, r0, c0) = self.grid.origin3()
+        ll, lr, lc = self.grid.local_shape3()
+        return self.nnz[t0:t0 + ll, r0:r0 + lr, c0:c0 + lc]
 
     def layer_shape(self) -> Tuple[int, int]:
         """Per-layer global (sub)matrix shape before 2D blocking."""
@@ -95,7 +141,10 @@ class Dist3DSpMat:
         """2D -> 3D redistribution: slice the split dimension into l
         ranges, 2D-distribute each slice on the layer's grid (as
         ``DistSpMat.from_coo_arrays``), pad the layers to one capacity and
-        stack them, on the grid's device."""
+        stack them, on the grid's device.  On a pod the operand is gathered
+        whole (an SpCOO: every process passes the same) and each process
+        buckets its own blocks of its layers; the capacity comes from the
+        whole count table."""
         if not grid.is3d:
             raise ValueError("from_dist2d needs a grid with layers")
         if split not in ("col", "row"):
@@ -120,36 +169,41 @@ class Dist3DSpMat:
             lr_, lc_ = row - which * sb, col
             lshape = (sb, n)
         mb, nb = block_dims(lshape, g2)
-        layers = [_bucket_blocks(lr_[which == t], lc_[which == t],
-                                 val[which == t], lshape, g2, None)
-                  for t in range(l)]
-        cap = capacity or max(stk[0].shape[-1] for stk in layers)
-
-        def stack(i, fill):
-            out = torch.full((l, g2.pr, g2.pc, cap), fill,
-                             dtype=layers[0][i].dtype, device=grid.device)
-            for t, stk in enumerate(layers):
-                out[t, :, :, :stk[i].shape[-1]] = stk[i]
-            return out
-
-        return Dist3DSpMat(
-            row=stack(0, mb), col=stack(1, nb), val=stack(2, 0),
-            nnz=torch.stack([stk[3] for stk in layers]),
-            gshape=(int(m), int(n)), grid=grid, split=split)
+        (t0, r0, c0), (ll, lr, lc) = grid.origin3(), grid.local_shape3()
+        box = ((r0, c0), (lr, lc))
+        ents = [_box_entries(lr_[which == t], lc_[which == t],
+                             val[which == t], mb, nb, box, own=grid.is_pod)
+                for t in range(t0, t0 + ll)]
+        nnz = _nnz_table(torch.stack([e[-1].reshape(lr, lc) for e in ents]),
+                         grid)
+        most = int(nnz.max())
+        cap = capacity or _block_capacity(most, None)
+        if most > cap:
+            raise ValueError(f"a block holds {most} entries, past the "
+                             f"capacity {cap}")
+        stacks = [_fill_box(e, (lr, lc), cap, mb, nb) for e in ents]
+        row, col, val = (torch.stack([st[f] for st in stacks])
+                         for f in range(3))
+        return Dist3DSpMat(row=row, col=col, val=val, nnz=nnz,
+                           gshape=(int(m), int(n)), grid=grid, split=split)
 
     def to_local(self) -> SpCOO:
         """All layers' blocks as one SpCOO on the grid's device: global
         coordinates, (row, col) sorted, duplicates summed, capacity the
-        power of two (at least 8) at or above nnz (the JAX ``to_local``)."""
-        l = self.layers
-        g2 = self.grid.grid2d()
+        power of two (at least 8) at or above nnz (the JAX ``to_local``).
+        On a pod every process gets the whole matrix: its live entries,
+        all-gathered in rank order (the raster order of the blocks)."""
+        grid = self.grid
+        g2 = grid.grid2d()
         mb, nb = self.block_shape()
         ls0, ls1 = self.layer_shape()
         nb_full = block_dims(self.gshape, g2)[1]
         dev = self.row.device
+        (t0, r0, c0), (ll, lr, lc) = grid.origin3(), grid.local_shape3()
         t, i, j = (x.reshape(-1) for x in torch.meshgrid(
-            torch.arange(l, device=dev), torch.arange(g2.pr, device=dev),
-            torch.arange(g2.pc, device=dev), indexing="ij"))
+            torch.arange(t0, t0 + ll, device=dev),
+            torch.arange(r0, r0 + lr, device=dev),
+            torch.arange(c0, c0 + lc, device=dev), indexing="ij"))
         roff = i * mb + (t * ls0 if self.split == "row" else 0)
         if self.split == "blockcol":
             coff = j * nb_full + t * nb
@@ -157,23 +211,54 @@ class Dist3DSpMat:
             coff = j * nb + t * ls1
         else:
             coff = j * nb
-        g = l * g2.pr * g2.pc
+        g = ll * lr * lc
         flat = _gather_blocks(self.row.reshape(g, -1),
                               self.col.reshape(g, -1),
-                              self.val.reshape(g, -1), self.nnz.reshape(-1),
-                              roff, coff, self.gshape)
+                              self.val.reshape(g, -1),
+                              self.local_nnz.reshape(-1), roff, coff,
+                              self.gshape)
         total = int(flat.nnz)
-        row, col, val = _sort_pairs(flat.row[:total], flat.col[:total],
-                                    flat.val[:total])
+        row, col, val = flat.row[:total], flat.col[:total], flat.val[:total]
         del flat
+        if grid.is_pod:
+            row, col, val = exchange.allgather_var([row, col, val])
+            total = int(row.shape[0])
+        row, col, val = _sort_pairs(row, col, val)
         c = compress_sorted(row, col, val, total, self.gshape, sr=PLUS_TIMES,
                             out_capacity=max(total, 1))
         return c.with_capacity(_round_capacity(int(c.nnz)))
 
     def to_dist2d(self, grid2: ProcGrid) -> DistSpMat:
         """3D -> 2D redistribution (``Convert2D``): gather the layers and
-        re-bucket onto ``grid2``'s blocks on the host."""
+        re-bucket onto ``grid2``'s blocks (on a pod, a 2D grid over the
+        same processes: each process buckets its own)."""
         return DistSpMat.from_local(self.to_local(), grid2)
+
+
+def _sort_fold(i, j, v, nvalid, shape, sr: Semiring,
+               out_capacity: int) -> SpCOO:
+    """:func:`ops.coo.sort_compress` of a stream whose pads are (m, n), for
+    ``shape`` (m, n).  Float32 values take the compress kernel's route (on
+    CPU tensors its plain version): the keys ``i*(n+1) + j`` (int32 where
+    they fit, else int64; pads the key sentinel) sorted stably and folded
+    by K2 / K4, whose sums follow the sorted stream alone (ROADMAP §3,
+    trait 10), so a stream gives the same bits in every run and every
+    process.  Other value types take ``sort_compress``."""
+    if v.dtype != torch.float32:
+        return sort_compress(i, j, v, nvalid, shape, sr=sr,
+                             out_capacity=out_capacity)
+    m, n = shape
+    stride = n + 1
+    kd = torch.int32 if (m + 1) * stride < (1 << 31) else torch.int64
+    key = torch.where(i < m, i.to(kd) * stride + j.to(kd), KEY_SENTINEL[kd])
+    key, order = torch.sort(key, stable=True)
+    fold = compress_sorted_packed if kd == torch.int32 else \
+        compress_sorted_wide_keys
+    okey, oval, nnz = fold(key, v[order], sr, out_capacity=out_capacity)
+    live = torch.arange(out_capacity, device=key.device) < nnz
+    return SpCOO(row=torch.where(live, okey // stride, m).to(torch.int32),
+                 col=torch.where(live, okey % stride, n).to(torch.int32),
+                 val=oval, nnz=nnz, shape=(m, n))
 
 
 def _fiber_send(part: SpCOO, nlayers: int, fiber_cap: int):
@@ -200,6 +285,52 @@ def _fiber_send(part: SpCOO, nlayers: int, fiber_cap: int):
     return chunks, torch.clamp(lens, max=fiber_cap), (lens > fiber_cap).any()
 
 
+def _fiber_exchange(sends, lens, over, grid: ProcGrid, i: int, j: int):
+    """The ``all_to_all`` of fiber (i, j): this process's layers' send
+    chunks, lengths and overflow flags (one of each a layer it holds) ->
+    the (ll, l, fiber_cap) row / col / val stacks its layers received, in
+    ascending source layer, the (ll, l) received lengths and the fiber's
+    overflow flag (0-d bool).  In one process the transpose of the send
+    stacks; on a pod each chunk's live prefix comes from the owner of its
+    source layer's block, and the lengths and flags of the fiber's l
+    layers are read from one host all-gather."""
+    if not grid.is_pod:
+        recv = [torch.stack([s[k] for s in sends], 1) for k in range(3)]
+        return recv, torch.stack(lens, 1), torch.stack(over).any()
+    l = grid.layers
+    t0 = grid.origin3()[0]
+    ll, fiber_cap = len(sends), sends[0][0].shape[-1]
+    dev = sends[0][0].device
+    mine = torch.cat([torch.stack(lens), torch.stack(over)[:, None].long()],
+                     1).cpu().numpy()
+    table = exchange.allgather_host(mine)          # (P, ll, l + 1)
+    src = [grid.owner3(t, i, j) for t in range(l)]
+    first = [grid.origin3(q)[0] for q in src]
+    got_lens = np.stack([table[q, t - f, :l]
+                         for t, (q, f) in enumerate(zip(src, first))])
+    fiber_over = bool(any(table[q, t - f, l]
+                          for t, (q, f) in enumerate(zip(src, first))))
+    pub = [torch.cat([sends[a][k][d, :int(mine[a, d])] for a in range(ll)
+                      for d in range(l)]) for k in range(3)]
+    wants = []
+    for d in range(t0, t0 + ll):
+        for t in range(l):
+            q, at = src[t], t - first[t]
+            offs = table[q, :, :l].reshape(-1)
+            off = int(offs[:at * l + d].sum())
+            wants += [(q, k, off, off + int(offs[at * l + d]))
+                      for k in range(3)]
+    got = exchange.pull(pub, wants)
+    recv = [torch.zeros((ll, l, fiber_cap), dtype=x.dtype, device=dev)
+            for x in sends[0]]
+    for n, piece in enumerate(got):
+        (a, t), k = divmod(n // 3, l), n % 3
+        recv[k][a, t, :piece.shape[0]] = piece
+    rlen = torch.from_numpy(np.ascontiguousarray(
+        got_lens[:, t0:t0 + ll].T)).to(dev)
+    return recv, rlen, torch.tensor(fiber_over, device=dev)
+
+
 def _fiber_reduce(recv, rlen, t: int, over, sr: Semiring, *, out_capacity,
                   mb: int, nb_split: int) -> SpCOO:
     """Layer t folds the chunks it received from every layer into its
@@ -210,16 +341,14 @@ def _fiber_reduce(recv, rlen, t: int, over, sr: Semiring, *, out_capacity,
     tt = torch.arange(fiber_cap, device=rr.device)
     rok = tt[None, :] < rlen[:, None]
     lo = t * nb_split
-    c = sort_compress(torch.where(rok, rr, mb).reshape(-1),
-                      torch.where(rok, rc - lo, nb_split).reshape(-1),
-                      torch.where(rok, rv, torch.zeros_like(rv)).reshape(-1),
-                      rlen.sum(), (mb, nb_split), sr=sr,
-                      out_capacity=out_capacity)
+    c = _sort_fold(torch.where(rok, rr, mb).reshape(-1),
+                   torch.where(rok, rc - lo, nb_split).reshape(-1),
+                   torch.where(rok, rv, torch.zeros_like(rv)).reshape(-1),
+                   rlen.sum(), (mb, nb_split), sr, out_capacity)
     return dataclasses.replace(
         c, nnz=torch.where(over, out_capacity, c.nnz).to(torch.int64))
 
 
-@single_process
 def summa3d_spgemm(a: Dist3DSpMat, b: Dist3DSpMat, sr: Semiring = PLUS_TIMES,
                    *, flops_cap: int, out_capacity: int) -> Dist3DSpMat:
     """C = A ·_sr B with A col-split and B row-split across layers; C is
@@ -234,8 +363,8 @@ def summa3d_spgemm(a: Dist3DSpMat, b: Dist3DSpMat, sr: Semiring = PLUS_TIMES,
     g2 = grid.grid2d()
     if g2.pr != g2.pc:
         raise ValueError("3D SpGEMM needs square layers")
-    mb, kb_a = a.block_shape()
-    kb_b, nb = b.block_shape()
+    mb, _ = a.block_shape()
+    _, nb = b.block_shape()
     l = grid.layers
     if nb % l:
         raise ValueError("the column block must split evenly across layers")
@@ -243,39 +372,36 @@ def summa3d_spgemm(a: Dist3DSpMat, b: Dist3DSpMat, sr: Semiring = PLUS_TIMES,
     # per-destination exchange capacity: the balanced share, 2x slack
     fiber_cap = min(out_capacity, max(-(-out_capacity // l) * 2, 2048))
     dev = a.row.device
-    dims = (l, g2.pr, g2.pc)
+    (t0, r0, c0), dims = grid.origin3(), grid.local_shape3()
+    stacks = _panel_stacks(a, b)
     out = None
-    for i, j in itertools.product(range(g2.pr), range(g2.pc)):
+    for i, j in itertools.product(range(dims[1]), range(dims[2])):
         sends, lens, over = [], [], []
-        for t in range(l):
-            pa = _panel_a(a.row[t, i], a.col[t, i], a.val[t, i],
-                          a.nnz[t, i], kb_a, mb)
-            pb = _panel_b(b.row[t, :, j], b.col[t, :, j], b.val[t, :, j],
-                          b.nnz[t, :, j], kb_b, nb)
-            part = _local_multiply(pa, pb, sr, impl="xla",
-                                   flops_cap=flops_cap,
-                                   out_capacity=out_capacity)
+        for t in range(dims[0]):
+            pa, pb = _panels(a, b, i, j, _layer(stacks, t))
+            i_, j_, v_, total = _expand(pa, pb, pb.row_ptr(), sr, flops_cap)
+            part = _sort_fold(i_, j_, v_, total, (mb, nb), sr, out_capacity)
             chunks, n_t, over_t = _fiber_send(part, l, fiber_cap)
             sends.append(chunks)
             lens.append(n_t)
             over.append(over_t)
-            del pa, pb, part
+            del pa, pb, i_, j_, v_, part
         # the all_to_all: layer t receives chunk t of every layer
-        recv = [torch.stack([s[k] for s in sends], 1) for k in range(3)]
-        rlen = torch.stack(lens, 1)
-        any_over = torch.stack(over).any()
+        recv, rlen, any_over = _fiber_exchange(sends, lens, over, grid,
+                                               r0 + i, c0 + j)
         del sends
-        for t in range(l):
-            c = _fiber_reduce([x[t] for x in recv], rlen[t], t, any_over, sr,
-                              out_capacity=out_capacity, mb=mb,
-                              nb_split=nb_split)
+        for t in range(dims[0]):
+            c = _fiber_reduce([x[t] for x in recv], rlen[t], t0 + t,
+                              any_over, sr, out_capacity=out_capacity,
+                              mb=mb, nb_split=nb_split)
             if out is None:
                 out = [torch.empty(dims + (out_capacity,), dtype=x.dtype,
                                    device=dev) for x in (c.row, c.col, c.val)]
                 out.append(torch.empty(dims, dtype=torch.int64, device=dev))
             for dst, x in zip(out, (c.row, c.col, c.val, c.nnz)):
                 dst[t, i, j] = x
-    return Dist3DSpMat(row=out[0], col=out[1], val=out[2], nnz=out[3],
+    return Dist3DSpMat(row=out[0], col=out[1], val=out[2],
+                       nnz=_nnz_table(out[3], grid),
                        gshape=(a.gshape[0], b.gshape[1]), grid=grid,
                        split="blockcol")
 
@@ -289,15 +415,18 @@ def _sort_blocks(row, col, val):
 
 def _col_slab3d(b: Dist3DSpMat, lo: int, hi: int) -> Dist3DSpMat:
     """B's block-local columns [lo, hi): the rest become per-block pads and
-    every block is re-sorted (ColSplit for the phased 3D path)."""
+    every block is re-sorted (ColSplit for the phased 3D path).  Each
+    process masks its own blocks; on a pod the new count table is
+    all-gathered."""
     mb, nb = b.block_shape()
     idx = torch.arange(b.row.shape[-1], device=b.row.device)
-    valid = (idx < b.nnz[..., None]) & (b.col >= lo) & (b.col < hi)
+    valid = ((idx < b.local_nnz[..., None]) & (b.col >= lo)
+             & (b.col < hi))
     row, col, val = _sort_blocks(
         torch.where(valid, b.row, mb), torch.where(valid, b.col, nb),
         torch.where(valid, b.val, torch.zeros_like(b.val)))
     return dataclasses.replace(b, row=row, col=col, val=val,
-                               nnz=valid.sum(-1))
+                               nnz=_nnz_table(valid.sum(-1), b.grid))
 
 
 def _concat3d(a: Dist3DSpMat, b: Dist3DSpMat) -> Dist3DSpMat:
@@ -310,7 +439,6 @@ def _concat3d(a: Dist3DSpMat, b: Dist3DSpMat) -> Dist3DSpMat:
                                nnz=a.nnz + b.nnz)
 
 
-@single_process
 def mem_efficient_spgemm3d(a: Dist3DSpMat, b: Dist3DSpMat,
                            sr: Semiring = PLUS_TIMES, phases: int = 1,
                            flops_cap: int | None = None,
@@ -318,7 +446,9 @@ def mem_efficient_spgemm3d(a: Dist3DSpMat, b: Dist3DSpMat,
                            phase_hook=None) -> Dist3DSpMat:
     """Phased 3D SpGEMM (``MemEfficientSpGEMM3D``): B in column slabs, each
     through :func:`summa3d_spgemm`, the phase outputs concatenated (their
-    columns are disjoint).  ``phase_hook`` runs on each phase's product."""
+    columns are disjoint).  ``phase_hook`` runs on each phase's product.
+    The caps and the phase loop read only values every process of a pod
+    holds alike."""
     if flops_cap is None or out_capacity is None:
         fc, oc = summa3d_bounds(a, b)
         flops_cap = flops_cap or max(fc // max(phases, 1), 1024)
@@ -339,10 +469,11 @@ def mem_efficient_spgemm3d(a: Dist3DSpMat, b: Dist3DSpMat,
     return acc
 
 
-@single_process
 def summa3d_bounds(a: Dist3DSpMat, b: Dist3DSpMat) -> Tuple[int, int]:
     """(flops_cap, out_capacity): the whole product's count rounded up to a
-    power of two (at least 64), a safe bound for any block's layer panel."""
+    power of two (at least 64), a safe bound for any block's layer panel;
+    on a pod from the whole operands (``to_local``), the same in every
+    process."""
     total = spgemm_flops(a.to_local(), b.to_local())
     cap = max(64, 1 << int(np.ceil(np.log2(max(total, 1)))))
     return cap, cap

@@ -25,6 +25,7 @@ Usage: python3 -m combblas_tpu_torch.profile_summa [--seed 42]
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import sys
@@ -33,12 +34,16 @@ import time
 import torch
 
 from combblas_tpu_torch.gen.graph500 import AUTO_SCALE, a2_matrix
-from combblas_tpu_torch.ops.spgemm import round_capacity_frac
+from combblas_tpu_torch.ops.spgemm import _entry_counts, round_capacity_frac
+from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import DistSpMat
 from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.parallel.memefficient import summa_spgemm_staged
 from combblas_tpu_torch.parallel.rma import summa_spgemm_rma
 from combblas_tpu_torch.parallel.summa import (
+    _layer,
+    _panel_stacks,
+    _panels,
     summa_bounds,
     summa_chunk_bound,
     summa_flops,
@@ -63,17 +68,19 @@ STAGES = SPGEMM_STAGES + (
 
 
 def layer_bounds(a3: Dist3DSpMat, b3: Dist3DSpMat):
-    """(flops_cap, out_capacity) of ``summa3d_spgemm`` from each layer's
-    exact panel counts (``summa_flops`` of the layer's 2D view), rounded as
-    ``summa_bounds`` rounds; ``summa3d_bounds`` takes the whole product's
-    count, which at scale 17 would not fit the card."""
-    g2 = a3.grid.grid2d()
+    """(flops_cap, out_capacity) of ``summa3d_spgemm`` from each block's
+    exact layer-panel count, rounded as ``summa_bounds`` rounds;
+    ``summa3d_bounds`` takes the whole product's count, which at scale 17
+    would not fit the card.  On a pod each process counts its own blocks'
+    panels and the largest count is taken over the processes, so that
+    every process gets the same caps."""
+    stacks = _panel_stacks(a3, b3)
     worst = 0
-    for t in range(a3.layers):
-        la, lb = (DistSpMat(row=x.row[t], col=x.col[t], val=x.val[t],
-                            nnz=x.nnz[t], gshape=x.layer_shape(), grid=g2)
-                  for x in (a3, b3))
-        worst = max(worst, int(summa_flops(la, lb).max()))
+    for t, i, j in itertools.product(*map(range,
+                                          a3.grid.local_shape3())):
+        pa, pb = _panels(a3, b3, i, j, _layer(stacks, t))
+        worst = max(worst, int(_entry_counts(pa, pb.row_ptr()).sum()))
+    worst = int(exchange.max_proc(torch.tensor(worst), a3.grid))
     cap = round_capacity_frac(worst)
     return cap, cap
 

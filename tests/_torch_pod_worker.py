@@ -20,7 +20,8 @@ writes to OUTDIR/jax_perm.npy on 2x2), ``lacc_dist``, ``luby_mis_dist``,
 the dense matrices and ``dist_spmm``, betweenness centrality, the
 orderings (RCM, minimum degree), the three matchings, the multigrid setup
 (MIS-2, its check, R and R·A·Rᵀ) and the filtered traversals, and the
-refusals of functions not ported to a pod.  Each process saves
+layered grid (:func:`layered`: the 3D SUMMA, its phased form and bounds,
+and ``mcl_dist(layers=2)``).  Each process saves
 what it holds to OUTDIR/rankR.npz; the parent compares.  Imports no JAX.
 """
 
@@ -402,6 +403,108 @@ def mcl(g, inp, dist, out) -> None:
     _stacks(seen["a"], "mcl_final", out)
 
 
+#: The 3D SUMMA's output capacity that saturates some fibers of ``a`` x
+#: ``b`` on the (2, side, side) grids, and the 4-layer overflow case's
+#: (its fiber chunks hold 2048 entries).
+SAT_CAP3, OVER_CAP4 = 24, 4096
+#: The layered ``mcl_dist``'s R-MAT seed (``test_torch_mcl_dist.py``'s).
+MCL3_SEED = 3
+
+
+def overflow_pair(seed: int = SEED + 14):
+    """Two 256 x 256 matrices whose 4-layer product on a 2x2 grid
+    overflows the fiber (0, 0) only: A's columns 0-31 are dense in rows
+    0-127 and empty below, B's rows 0-31 dense in columns 0-31 and empty
+    beside (layer 0's partial block (0, 0) sends its 4096 entries to
+    destination layer 0, whose chunk holds 2048); sparse entries
+    elsewhere."""
+    rng = np.random.default_rng(seed)
+    a = rand_sparse(256, 256, 0.02, seed)
+    b = rand_sparse(256, 256, 0.02, seed + 1)
+    a[:128, :32] = rng.random((128, 32)).astype(np.float32) + 0.5
+    a[128:, :32] = 0.0
+    b[:32, :32] = rng.random((32, 32)).astype(np.float32) + 0.5
+    b[:32, 32:] = 0.0
+    return a, b
+
+
+def doubled3(c):
+    """The phased 3D SpGEMM's hook: every value of the phase doubled."""
+    import dataclasses
+    return dataclasses.replace(c, val=c.val * 2)
+
+
+def _stacks3(m, tag, out):
+    _stacks(m, tag, out)
+    out[f"{tag}_origin3"] = np.asarray(m.grid.origin3())
+
+
+def layered(g, side, inp, dist, out) -> None:
+    """The layered grid over the processes: ``pod_grid(layers=2)``,
+    ``Dist3DSpMat.from_dist2d`` ('col' from the pod's 2D ``a``, 'row' from
+    ``b`` given whole), ``summa3d_bounds``, ``summa3d_spgemm`` (also at
+    ``SAT_CAP3``, and on a 4-layer 2x2 grid whose fiber (0, 0) overflows),
+    ``mem_efficient_spgemm3d(phases=2)`` with a hook, ``to_local``,
+    ``to_dist2d`` and ``mcl_dist(layers=2, phases=2)`` (its final iterate
+    caught at the transpose).  ``layered_ran`` names the calls that ran
+    (none refuses a pod)."""
+    from combblas_tpu_torch.models import mcl as tmcl
+    from combblas_tpu_torch.ops.coo import SpCOO
+    from combblas_tpu_torch.parallel import summa3d as t3
+    from combblas_tpu_torch.parallel.dist import DistSpMat
+    from combblas_tpu_torch.parallel.multihost import pod_grid
+    ran = []
+    g3 = pod_grid(layers=2, pr=side, pc=side, device="cpu")
+    ran.append("pod_grid_layers")
+    out["origin3"] = np.asarray(g3.origin3())
+    out["local_shape3"] = np.asarray(g3.local_shape3())
+    a3 = t3.Dist3DSpMat.from_dist2d(dist(inp["a"]), g3, "col")
+    b3 = t3.Dist3DSpMat.from_dist2d(
+        SpCOO.from_dense(inp["b"], device="cpu"), g3, "row")
+    _stacks3(a3, "a3", out)
+    _stacks3(b3, "b3", out)
+    fc, oc = t3.summa3d_bounds(a3, b3)
+    ran.append("summa3d_bounds")
+    out["bounds3"] = np.asarray([fc, oc])
+    c3 = t3.summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=oc)
+    ran.append("summa3d_spgemm")
+    _stacks3(c3, "c3", out)
+    _stacks3(t3.summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=SAT_CAP3),
+             "c3sat", out)
+    _stacks3(t3.mem_efficient_spgemm3d(a3, b3, phases=2,
+                                       phase_hook=doubled3), "me3", out)
+    ran.append("mem_efficient_spgemm3d")
+    row, col, val, nnz, _shape = c3.to_local().to_numpy()
+    out["c3_local"] = np.stack([row[:nnz], col[:nnz]])
+    out["c3_local_val"] = val[:nnz]
+    _stacks(c3.to_dist2d(g), "c3_2d", out)
+    g4 = pod_grid(layers=4, pr=2, pc=2, device="cpu")
+    oa, ob = (SpCOO.from_dense(x, device="cpu") for x in overflow_pair())
+    a4 = t3.Dist3DSpMat.from_dist2d(oa, g4, "col")
+    b4 = t3.Dist3DSpMat.from_dist2d(ob, g4, "row")
+    _stacks3(t3.summa3d_spgemm(a4, b4, flops_cap=t3.summa3d_bounds(a4, b4)[0],
+                               out_capacity=OVER_CAP4), "over4", out)
+    r, c, w, shape = rmat7(MCL3_SEED)
+    m = DistSpMat.from_coo_arrays(r, c, w, shape, g)
+    seen, orig = {}, tmcl.dist_transpose
+
+    def caught(x):
+        seen["a"] = x
+        return orig(x)
+
+    tmcl.dist_transpose = caught
+    try:
+        labels, iters = tmcl.mcl_dist(m, tmcl.MCLParams(**MCL_PARAMS),
+                                      phases=2, layers=2, grid3=g3)
+    finally:
+        tmcl.dist_transpose = orig
+    ran.append("mcl_dist_layers")
+    out["mcl3_labels"] = labels.numpy()
+    out["mcl3_iters"] = np.asarray(iters)
+    _stacks(seen["a"], "mcl3_final", out)
+    out["layered_ran"] = np.asarray(json.dumps(ran))
+
+
 #: The vector layer's route cases: (tag, value dtype suffix, combine).
 ROUTES = [(f"route_{k}_{c}", k, c) for k in ("f", "i")
           for c in ("set", "sum", "min", "max")]
@@ -621,7 +724,6 @@ def main() -> None:
     )
     from combblas_tpu_torch.models.bfs import bfs_dir_opt_dist, bfs_dist
     from combblas_tpu_torch.models.lacc import lacc_dist
-    from combblas_tpu_torch.models.mcl import mcl_dist
     from combblas_tpu_torch.models.mis import luby_mis_dist
     from combblas_tpu_torch.ops.coo import SpCOO
     from combblas_tpu_torch.ops.kernels.ring import ring_shift
@@ -638,11 +740,6 @@ def main() -> None:
         summa_bounds,
         summa_spgemm,
         summa_spgemm_auto,
-    )
-    from combblas_tpu_torch.parallel.summa3d import (
-        mem_efficient_spgemm3d,
-        summa3d_bounds,
-        summa3d_spgemm,
     )
     from combblas_tpu_torch.parallel.vector import dist_sort_auto
     from combblas_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
@@ -713,22 +810,7 @@ def main() -> None:
         out[f"mis_{tag}"] = full(luby_mis_dist(
             m, torch.Generator().manual_seed(MIS_SEED)))
     algos(g, inp, dist, full, out)
-    # what a pod refuses
-    refused = {}
-    for name, call in (
-            ("summa3d_spgemm", lambda: summa3d_spgemm(
-                gr, gr, flops_cap=8, out_capacity=8)),
-            ("mem_efficient_spgemm3d", lambda: mem_efficient_spgemm3d(
-                gr, gr)),
-            ("summa3d_bounds", lambda: summa3d_bounds(gr, gr)),
-            ("mcl_dist_layers", lambda: mcl_dist(gr, layers=2)),
-            ("pod_grid_layers", lambda: pod_grid(layers=2, device="cpu"))):
-        try:
-            call()
-            refused[name] = ""
-        except NotImplementedError as e:
-            refused[name] = str(e)
-    out["refused"] = np.asarray(json.dumps(refused))
+    layered(g, side, inp, dist, out)
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     exchange.close()
     torch.distributed.destroy_process_group()

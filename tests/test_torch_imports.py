@@ -42,14 +42,14 @@ DIST_SLICE = ("parallel.spmv", "parallel.elementwise", "parallel.memefficient",
 #: seg pipeline and the single-process join; the pod's exchange (with the
 #: element requests, owner routing and reduced decisions of HipMCL's pod
 #: path, and the whole-vector gather of its preprocessing's host maps), its
-#: refusal of unported functions and K9's plain hop across processes.
+#: grid and K9's plain hop across processes.
 SLICE_NAMES = {
     "parallel.exchange": ("pull", "gather_blocks", "gather_range",
                           "reduce_to_owners", "alltoallv", "allgather_var",
                           "allgather_host", "gather_table", "barrier",
                           "route_to_owners", "gather_at", "any_proc",
                           "max_proc", "gather_whole"),
-    "parallel.grid": ("ProcGrid", "default_grid", "single_process"),
+    "parallel.grid": ("ProcGrid", "default_grid"),
     "ops.kernels.ring": ("ring_shift", "ring_shift_plain",
                          "ring_shift_pod_plain"),
     "ops.spgemm_seg": ("seg_plan", "seg_prepare", "seg_step",

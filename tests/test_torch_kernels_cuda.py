@@ -207,6 +207,46 @@ def test_compress_kernel_is_deterministic(cuda):
         assert int(again[2]) == int(first[2]) == 2000
 
 
+@pytest.mark.parametrize("sr_name", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("shape", [(1000, 700), (70000, 40000)])
+@pytest.mark.parametrize("out_cap", [1 << 16, 3000])
+def test_sort_fold_matches_sort_compress(cuda, sr_name, shape, out_cap):
+    """The 3D SUMMA's fold (``summa3d._sort_fold``) on the card: an
+    unsorted stream with repeated keys and (m, n) pads between them, on
+    packed keys (K2) and wide ones (K4), one launch each, against
+    ``sort_compress`` on the CPU: rows, columns and nnz exact (saturated
+    where ``out_cap`` is short), values within 1e-6 relative, and a second
+    call the same bits."""
+    from combblas_tpu_torch.ops.coo import sort_compress
+    from combblas_tpu_torch.parallel.summa3d import _sort_fold
+
+    m, n = shape
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, [m, n], (5000, 2))
+    pick = base[rng.integers(0, 5000, 1 << 16)]
+    pad = rng.random(1 << 16) < 0.2
+    i = torch.from_numpy(np.where(pad, m, pick[:, 0]).astype(np.int32))
+    j = torch.from_numpy(np.where(pad, n, pick[:, 1]).astype(np.int32))
+    v = torch.from_numpy(rng.random(1 << 16).astype(np.float32) + 0.5)
+    sr = tsr.get_semiring(sr_name)
+    want = sort_compress(i, j, v, int((~pad).sum()), shape, sr=sr,
+                         out_capacity=out_cap)
+    tag = "i32" if (m + 1) * (n + 1) < 1 << 31 else "i64"
+    before = LAUNCHES[f"compress_{tag}"]
+    got = _sort_fold(i.to(cuda), j.to(cuda), v.to(cuda),
+                     int((~pad).sum()), shape, sr, out_cap)
+    assert LAUNCHES[f"compress_{tag}"] == before + 1
+    assert int(got.nnz) == int(want.nnz)
+    assert torch.equal(got.row.cpu(), want.row)
+    assert torch.equal(got.col.cpu(), want.col)
+    np.testing.assert_allclose(got.val.cpu().numpy(), want.val.numpy(),
+                               rtol=1e-6)
+    again = _sort_fold(i.to(cuda), j.to(cuda), v.to(cuda),
+                       int((~pad).sum()), shape, sr, out_cap)
+    assert torch.equal(again.val.view(torch.int32),
+                       got.val.view(torch.int32))
+
+
 def test_seg2_slice_kernels_match_plain(cuda):
     from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
     from combblas_tpu_torch.ops.spgemm_seg import (

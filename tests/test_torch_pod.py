@@ -13,9 +13,11 @@ distributed indexing, ``dist_permute``, ``dist_remove_isolated``,
 ``dist_rand_permute``, ``mcl_dist(preprocess=True)``), ``lacc_dist``,
 ``luby_mis_dist``, item 1.8's step 3 (the dense matrices and
 ``dist_spmm``, BC, RCM and minimum degree, the three matchings, MIS-2,
-R and R·A·Rᵀ, the filtered BFS, MIS and prune) and the refusals.  The parent runs JAX on its virtual CPU mesh (2x2 grids;
-JAX has no 4x4 mesh on 8 devices) and the port in one process, and
-compares every process's blocks and vectors:
+R and R·A·Rᵀ, the filtered BFS, MIS and prune) and item 1.8's step 4,
+the layered grid (the 3D SUMMA, its phased form and bounds, and
+``mcl_dist(layers=2)``).  The parent runs JAX on its virtual CPU mesh
+(2x2 and (2, 2, 2) grids; JAX has no 4x4 mesh on 8 devices) and the port
+in one process, and compares every process's blocks and vectors:
 
 - against the port in one process, exactly (values bit for bit: the
   panels are assembled in the same block order, and the column sums meet
@@ -397,19 +399,164 @@ def test_pod_io(pods, name, tmp_path):
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_pod_refuses_unported(pods, name):
-    """A distributed function with no exchange across processes yet (the
-    3D SUMMA) raises ``NotImplementedError`` naming ROADMAP item 1.8 on a
-    pod grid, in every process, and so do the layered ``mcl_dist`` and a
-    layered pod grid."""
+    """No function refuses a pod: in every process the layered grid, the
+    3D SUMMA's three functions and the layered ``mcl_dist`` ran across the
+    processes, and the layered grid's share is the raster run of
+    ``jax.devices()`` reshaped to (layers, pr, pc)."""
     ranks, _ = pods(name)
-    for r in ranks:
-        refused = json.loads(str(r["refused"]))
-        assert set(refused) == {"summa3d_spgemm", "mem_efficient_spgemm3d",
-                                "summa3d_bounds", "mcl_dist_layers",
-                                "pod_grid_layers"}
-        for what, msg in refused.items():
-            assert "ROADMAP item 1.8" in msg, (what, msg)
+    nproc, side = SCENARIOS[name]
+    owner = np.arange(2 * side * side).reshape(2, side, side) // (
+        2 * side * side // nproc)
+    for q, r in enumerate(ranks):
+        assert json.loads(str(r["layered_ran"])) == [
+            "pod_grid_layers", "summa3d_bounds", "summa3d_spgemm",
+            "mem_efficient_spgemm3d", "mcl_dist_layers"]
+        (t0, r0, c0), (ll, lr, lc) = r["origin3"], r["local_shape3"]
+        mine = np.argwhere(owner == q)
+        assert mine.min(0).tolist() == [t0, r0, c0]
+        assert (mine.max(0) - mine.min(0) + 1).tolist() == [ll, lr, lc]
+        assert len(mine) == ll * lr * lc
 
+
+#: The 3D stacks of the worker's :func:`layered`.
+_STACKS3 = ("a3", "b3", "c3", "c3sat", "me3", "over4")
+
+
+def _same_share3(ranks, tag, full, exact=True):
+    """Every process's layered ``tag`` stacks equal its (ll, lr, lc) box of
+    ``full`` (a port or JAX ``Dist3DSpMat``, or its numpy fields by name);
+    the nnz table in every process equals ``full``'s."""
+    get = (full.get if isinstance(full, dict)
+           else lambda f: np.asarray(getattr(full, f)))
+    for r in ranks:
+        (t0, r0, c0) = r[f"{tag}_origin3"]
+        ll, lr, lc = r[f"{tag}_row"].shape[:3]
+
+        def box(x):
+            return np.asarray(x)[t0:t0 + ll, r0:r0 + lr, c0:c0 + lc]
+
+        for f in ("row", "col"):
+            np.testing.assert_array_equal(r[f"{tag}_{f}"], box(get(f)),
+                                          err_msg=f"{tag} {f}")
+        np.testing.assert_array_equal(r[f"{tag}_nnz"], get("nnz"),
+                                      err_msg=f"{tag} nnz")
+        want = box(get("val"))
+        if exact:
+            np.testing.assert_array_equal(r[f"{tag}_val"].view(np.uint32),
+                                          want.view(np.uint32))
+        else:
+            np.testing.assert_allclose(r[f"{tag}_val"], want, rtol=1e-5,
+                                       atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_layered(side: int) -> dict:
+    """The worker's :func:`layered` in one process (its grids the one
+    process's): every stack, table and label by tag."""
+    out = {}
+    g = tgrid(side, side)
+    W.layered(g, side, W.inputs(), lambda d: _one(d, side), out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_layered():
+    """JAX's 3D calls of :func:`layered` on its (2, 2, 2) mesh of eight
+    virtual CPU devices: the stacks by tag, the bounds, ``to_local`` and
+    ``to_dist2d`` of the product."""
+    import combblas_tpu.parallel.summa3d as j3
+    inp = W.inputs()
+    g3 = jgrid(2, 2, 2)
+    a3 = j3.Dist3DSpMat.from_dist2d(JCOO.from_dense(inp["a"]), g3, "col")
+    b3 = j3.Dist3DSpMat.from_dist2d(JCOO.from_dense(inp["b"]), g3, "row")
+    fc, oc = j3.summa3d_bounds(a3, b3)
+    c3 = j3.summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=oc)
+    mats = dict(a3=a3, b3=b3, c3=c3, c3sat=j3.summa3d_spgemm(
+        a3, b3, flops_cap=fc, out_capacity=W.SAT_CAP3),
+        me3=j3.mem_efficient_spgemm3d(a3, b3, phases=2,
+                                      phase_hook=W.doubled3))
+    return mats, (fc, oc), c3.to_local(), c3.to_dist2d(jgrid(2, 2))
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_summa3d(pods, name):
+    """The layered grid across processes: ``from_dist2d`` ('col' and
+    'row'), ``summa3d_spgemm`` (also at an output capacity that saturates
+    some fibers, and on a 4-layer 2x2 grid whose fiber (0, 0) alone
+    overflows), ``mem_efficient_spgemm3d(phases=2)`` with a hook: every
+    process's stacks are its box of one process's bit for bit, the nnz
+    tables exact; ``summa3d_bounds``, ``to_local`` and ``to_dist2d`` equal
+    one process's.  On (2, 2, 2) the stacks equal JAX's (integers exactly,
+    sums within rtol 1e-5), and so do the bounds, ``to_local`` and
+    ``to_dist2d``."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    one = _one_layered(side)
+    for tag in _STACKS3:
+        _same_share3(ranks, tag, {f: one[f"{tag}_{f}"] for f in (
+            "row", "col", "val", "nnz")})
+    over = ranks[0]["over4_nnz"].reshape(4, 4)
+    assert (over[:, 0] == W.OVER_CAP4).all()
+    assert (over[:, 1:] < W.OVER_CAP4).all()
+    assert (one["c3sat_nnz"] == W.SAT_CAP3).any()
+    for r in ranks:
+        for k in ("bounds3", "c3_local", "c3_local_val"):
+            np.testing.assert_array_equal(r[k], one[k], err_msg=k)
+    _same_share(ranks, "c3_2d", _one_layered_2d(side))
+    if side == 2:
+        mats, bounds, loc, d2 = _jax_layered()
+        for tag, m in mats.items():
+            _same_share3(ranks, tag, m, exact=tag in ("a3", "b3"))
+        for r in ranks:
+            assert tuple(r["bounds3"]) == bounds
+            k = int(loc.nnz)
+            np.testing.assert_array_equal(r["c3_local"], np.stack(
+                [np.asarray(loc.row)[:k], np.asarray(loc.col)[:k]]))
+            np.testing.assert_allclose(r["c3_local_val"],
+                                       np.asarray(loc.val)[:k], rtol=1e-5,
+                                       atol=0)
+        _same_share(ranks, "c3_2d", d2, exact=False)
+
+
+def _one_layered_2d(side: int):
+    """One process's ``to_dist2d`` of :func:`layered`'s product."""
+    one = _one_layered(side)
+    return tdist.DistSpMat.from_numpy_blocks(
+        one["c3_2d_row"], one["c3_2d_col"], one["c3_2d_val"],
+        one["c3_2d_nnz"], (30, 34), tgrid(side, side))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mcl3():
+    r, c, w, shape = W.rmat7(W.MCL3_SEED)
+    m = jdist.DistSpMat.from_coo_arrays(r, c, w, shape, jgrid(2, 2))
+    return _mcl_run(jmcl, jel, m, phases=2, layers=2, grid3=jgrid(2, 2, 2))
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_pod_mcl_layers(pods, name):
+    """``mcl_dist(layers=2, phases=2)`` of the scale-7 R-MAT of
+    ``test_torch_mcl_dist.py`` (select 8, recover_num 10), its expansion
+    on the layered grid over the processes: the label slices, the
+    iteration count and the final iterate equal one process's bit for
+    bit; on (2, 2, 2) the labels and iterations equal JAX's and the final
+    iterate JAX's compacted (keys exact, values rtol 1e-5)."""
+    ranks, _ = pods(name)
+    side = SCENARIOS[name][1]
+    one = _one_layered(side)
+    _same_vec(_vec_of(ranks, "mcl3_labels"), one["mcl3_labels"])
+    for r in ranks:
+        assert int(r["mcl3_iters"]) == int(one["mcl3_iters"])
+    n = W.rmat7(W.MCL3_SEED)[3][0]
+    final = tdist.DistSpMat.from_numpy_blocks(
+        one["mcl3_final_row"], one["mcl3_final_col"], one["mcl3_final_val"],
+        one["mcl3_final_nnz"], (n, n), tgrid(side, side))
+    _same_share(ranks, "mcl3_final", final)
+    if side == 2:
+        jlabels, jiters, jfinal = _jax_mcl3()
+        _same_vec(_vec_of(ranks, "mcl3_labels"), jlabels)
+        assert int(ranks[0]["mcl3_iters"]) == jiters
+        _same_local(_assemble(ranks, "mcl3_final", 2, final.gshape), jfinal)
 
 
 # ------------------------------------------------------ HipMCL's pod path --
@@ -607,9 +754,9 @@ def _one_mcl(side: int):
     return (prunes, *_mcl_run(tmcl, tel, m))
 
 
-def _mcl_run(mcl_mod, el_mod, m):
-    """``mcl_mod.mcl_dist(m)`` with its final iterate caught where it is
-    transposed."""
+def _mcl_run(mcl_mod, el_mod, m, **kw):
+    """``mcl_mod.mcl_dist(m, **kw)`` with its final iterate caught where it
+    is transposed."""
     seen, orig = {}, el_mod.dist_transpose
 
     def caught(x):
@@ -622,7 +769,7 @@ def _mcl_run(mcl_mod, el_mod, m):
         t.dist_transpose = caught
     try:
         labels, iters = mcl_mod.mcl_dist(
-            m, mcl_mod.MCLParams(**W.MCL_PARAMS))
+            m, mcl_mod.MCLParams(**W.MCL_PARAMS), **kw)
     finally:
         for t in targets:
             t.dist_transpose = orig
