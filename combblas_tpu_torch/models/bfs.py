@@ -47,6 +47,7 @@ from combblas_tpu_torch.parallel.spmv import (
     dist_spmsv_masked,
 )
 from combblas_tpu_torch.semiring import MAX_SECOND, PLUS_TIMES
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["bfs_local", "bfs_dist", "bfs_dir_opt_local", "bfs_dir_opt_dist",
            "bfs_push_local",
@@ -330,16 +331,18 @@ def _bfs_pull_big(prep: dict, roots_s: torch.Tensor, roots: torch.Tensor):
     cols, vals = prep["cols"].t(), prep["vals"].t()
     depth = 0.0
     while True:
-        f = torch.where(levels == depth, ids, 0.0)
-        y = ell_fold(cols, vals, prep["run_start"], prep["run_len"], f,
-                     bs_c=prep["bs_c"], op="max",
-                     pieces=prep["pieces"])[:n_pad]
-        new = (y > 0) & (levels < 0)
-        parents = torch.where(new, y - 1.0, parents)
-        levels = torch.where(new, depth + 1.0, levels)
-        depth += 1.0
-        if not bool(new.any()):
-            break
+        with span("bfs.level"):
+            f = torch.where(levels == depth, ids, 0.0)
+            with span("bfs.fold"):
+                y = ell_fold(cols, vals, prep["run_start"], prep["run_len"],
+                             f, bs_c=prep["bs_c"], op="max",
+                             pieces=prep["pieces"])[:n_pad]
+            new = (y > 0) & (levels < 0)
+            parents = torch.where(new, y - 1.0, parents)
+            levels = torch.where(new, depth + 1.0, levels)
+            depth += 1.0
+            if not bool(new.any()):
+                break
     return (parents[:, :r].to(torch.int32), levels[:, :r].to(torch.int32))
 
 
@@ -352,17 +355,19 @@ def bfs_batch_pull_big(a: SpCOO, roots, prep=None, nb: int = 6):
     if n >= _F32_EXACT:
         raise ValueError(f"vertex ids ride float32 exactly only below 2^24,"
                          f" got n = {n}")
-    if prep is None:
-        prep = ell_blocked_prepare(a, nb, relabel_cols=True, binary=True)
-    roots = torch.as_tensor(np.asarray(roots), dtype=torch.int64,
-                            device=a.device)
-    if roots.shape[0] > 128:
-        raise ValueError("one sweep carries at most 128 root columns")
-    inv = prep["inv"].long()
-    parents_s, levels_s = _bfs_pull_big(prep, inv[roots], roots)
-    rank = inv[:n]
-    return (parents_s[rank].t().contiguous(),
-            levels_s[rank].t().contiguous())
+    with span("bfs.batch", a.row):
+        if prep is None:
+            prep = ell_blocked_prepare(a, nb, relabel_cols=True, binary=True)
+        roots = torch.as_tensor(np.asarray(roots), dtype=torch.int64,
+                                device=a.device)
+        if roots.shape[0] > 128:
+            raise ValueError("one sweep carries at most 128 root columns")
+        inv = prep["inv"].long()
+        parents_s, levels_s = _bfs_pull_big(prep, inv[roots], roots)
+        with span("bfs.unpermute"):
+            rank = inv[:n]
+            return (parents_s[rank].t().contiguous(),
+                    levels_s[rank].t().contiguous())
 
 
 def validate_bfs(a: SpCOO, root: int, parents, levels) -> bool:

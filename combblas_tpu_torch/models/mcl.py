@@ -64,6 +64,7 @@ from combblas_tpu_torch.parallel.indexing import dist_permute
 from combblas_tpu_torch.parallel.memefficient import mem_efficient_spgemm
 from combblas_tpu_torch.parallel.vector import dist_rand_perm
 from combblas_tpu_torch.semiring import MAX_FIRST, PLUS_TIMES
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["MCLParams", "mcl_local", "mcl_dist", "dist_mcl_prune",
            "dist_remove_isolated", "dist_rand_permute",
@@ -161,11 +162,17 @@ def _mcl_iteration(a: SpCOO, p: MCLParams, cap: int, plan: dict):
     """One iteration of :func:`mcl_local`: expansion (``spgemm_auto`` with
     the caller-held ``plan``), prune into ``min(cap, capacity)``, inflation
     and normalisation; the new iterate and its chaos."""
-    a2 = spgemm_auto(a, a, out_capacity=None, plan=plan,
-                     max_flops_cap=EXPANSION_FLOPS_CAP)
-    a2 = _mcl_prune(a2, p, min(cap, a2.capacity))
-    a2 = make_col_stochastic(_inflate(a2, p.inflation))
-    return a2, float(chaos(a2))
+    with span("mcl.iteration", a.row):
+        with span("mcl.expand"):
+            a2 = spgemm_auto(a, a, out_capacity=None, plan=plan,
+                             max_flops_cap=EXPANSION_FLOPS_CAP)
+        with span("mcl.prune"):
+            a2 = _mcl_prune(a2, p, min(cap, a2.capacity))
+        with span("mcl.inflate"):
+            a2 = make_col_stochastic(_inflate(a2, p.inflation))
+        with span("mcl.chaos"):
+            ch = float(chaos(a2))
+    return a2, ch
 
 
 def iterate_capacity(a: SpCOO, p: MCLParams) -> int:
@@ -191,31 +198,34 @@ def mcl_local(a: SpCOO, params: Optional[MCLParams] = None,
     after which the loop stops (from iteration 3 on), labels still taken
     from the current matrix."""
     p = params or MCLParams()
-    n = a.shape[1]
-    if p.add_self_loops:
-        eye = SpCOO.eye(n, dtype=a.val.dtype, device=a.device)
-        a = merge(a, eye, PLUS_TIMES)
-    a = make_col_stochastic(a)
-    cap = iterate_capacity(a, p)
-    it = 0
-    # the plan dict freezes the expansion's route and capacities after the
-    # first call with each operand capacity (iteration 1 sees the input's,
-    # iteration 2 on the pruned one's)
-    exp_plan: dict = {}
-    for it in range(1, p.max_iters + 1):
-        t0 = time.perf_counter()
-        a, ch = _mcl_iteration(a, p, cap, exp_plan)
-        if verbose:
-            print(f"mcl iter {it}: chaos={ch:.5f} nnz={int(a.nnz)}")
-        if on_iter is not None:
-            on_iter(it, ch, time.perf_counter() - t0)
-        if ch < p.eps:
-            break
-        if deadline is not None and it >= 3 \
-                and time.perf_counter() > deadline:
-            break
-    sym = merge(a, a.transpose(), PLUS_TIMES)
-    return fastsv_local(sym), it
+    with span("mcl.clustering", a.row):
+        n = a.shape[1]
+        if p.add_self_loops:
+            eye = SpCOO.eye(n, dtype=a.val.dtype, device=a.device)
+            a = merge(a, eye, PLUS_TIMES)
+        a = make_col_stochastic(a)
+        cap = iterate_capacity(a, p)
+        it = 0
+        # the plan dict freezes the expansion's route and capacities after the
+        # first call with each operand capacity (iteration 1 sees the input's,
+        # iteration 2 on the pruned one's)
+        exp_plan: dict = {}
+        for it in range(1, p.max_iters + 1):
+            t0 = time.perf_counter()
+            a, ch = _mcl_iteration(a, p, cap, exp_plan)
+            if verbose:
+                print(f"mcl iter {it}: chaos={ch:.5f} nnz={int(a.nnz)}")
+            if on_iter is not None:
+                on_iter(it, ch, time.perf_counter() - t0)
+            if ch < p.eps:
+                break
+            if deadline is not None and it >= 3 \
+                    and time.perf_counter() > deadline:
+                break
+        with span("mcl.labels"):
+            sym = merge(a, a.transpose(), PLUS_TIMES)
+            labels = fastsv_local(sym)
+    return labels, it
 
 
 # -- distributed HipMCL ------------------------------------------------------

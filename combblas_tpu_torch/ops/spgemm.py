@@ -43,6 +43,7 @@ from combblas_tpu_torch.ops.kernels.expand import (
     _entry_counts as _products_per_entry,
 )
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["spgemm", "spgemm_flops", "spgemm_bounds", "spgemm_rowchunked",
            "spgemm_dense", "spgemm_pallas", "spgemm_pallas_bounds",
@@ -344,17 +345,20 @@ def _expand_sort(a: SpCOO, b: SpCOO, sr: Semiring, *,
     if b_rp is None:
         b_rp = b.row_ptr()
     args = (a.row, a.col, a.val, a.mask(), b_rp, b.col, b.val, sr)
-    if wide:
-        key, val, _total = expand_chunks_compact_wide(
-            *args, stride=stride, stream_cap=stream_cap, plain=plain)
-    elif stream_cap is not None:
-        key, val, _total = expand_chunks_compact(
-            *args, stride=stride, stream_cap=stream_cap, plain=plain)
-    else:
-        key, val = expand_chunks(*args, stride=stride, chunk_cap=chunk_cap,
-                                 plain=plain)
-    key, order = torch.sort(key, stable=True)
-    return key, val[order], stride
+    with span("spgemm.expand", a.row):
+        if wide:
+            key, val, _total = expand_chunks_compact_wide(
+                *args, stride=stride, stream_cap=stream_cap, plain=plain)
+        elif stream_cap is not None:
+            key, val, _total = expand_chunks_compact(
+                *args, stride=stride, stream_cap=stream_cap, plain=plain)
+        else:
+            key, val = expand_chunks(*args, stride=stride,
+                                     chunk_cap=chunk_cap, plain=plain)
+    with span("spgemm.sort", key):
+        key, order = torch.sort(key, stable=True)
+        val = val[order]
+    return key, val, stride
 
 
 def spgemm_pallas(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
@@ -375,8 +379,9 @@ def spgemm_pallas(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     key, val, stride = _expand_sort(a, b, sr, stream_cap=stream_cap,
                                     chunk_cap=chunk_cap, b_rp=b_rp,
                                     plain=plain)
-    okey, oval, nnz = compress_sorted_packed(
-        key, val, sr, out_capacity=_out_cap(out_capacity), plain=plain)
+    with span("spgemm.compress", key):
+        okey, oval, nnz = compress_sorted_packed(
+            key, val, sr, out_capacity=_out_cap(out_capacity), plain=plain)
     live = torch.arange(okey.shape[0], device=okey.device) < nnz
     return SpCOO(
         row=torch.clamp(okey // stride, max=m).to(torch.int32),
@@ -399,9 +404,10 @@ def spgemm_wide(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     m, n = a.shape[0], b.shape[1]
     key, val, stride = _expand_sort(a, b, sr, stream_cap=stream_cap,
                                     wide=True, b_rp=b_rp, plain=plain)
-    orow, ocol, oval, nnz = compress_sorted_wide(
-        key, val, sr, out_capacity=_out_cap(out_capacity),
-        stride=stride, plain=plain)
+    with span("spgemm.compress", key):
+        orow, ocol, oval, nnz = compress_sorted_wide(
+            key, val, sr, out_capacity=_out_cap(out_capacity),
+            stride=stride, plain=plain)
     # slots past nnz hold INT32_MAX, which the clamps turn into the (m, n)
     # pads; live columns are < n already
     return SpCOO(
@@ -460,36 +466,37 @@ def _pallas_slab_plan(a: SpCOO, b: SpCOO, num_slabs: int,
     ``wide``) and replanned while a slab has 2^30 or more products; uniform
     capacities.  Returns (bounds np.int32 (S+1,), span_cap, slab_nnz_cap,
     chunk_cap, worst_fl)."""
-    m = a.shape[0]
-    n = b.shape[1]
-    span_max = m if wide else max((1 << 31) // (n + 1) - 2, 1)
-    num_slabs = max(1, min(num_slabs, m))
-    for _ in range(8):
-        cut = _equal_flops_bounds(a, b, num_slabs).cpu().numpy()
-        out = [0]
-        for s in range(len(cut) - 1):
-            hi = int(cut[s + 1])
-            while hi - out[-1] > span_max:
-                out.append(out[-1] + span_max)
-            if hi > out[-1]:
-                out.append(hi)
-        bounds = np.asarray(out, np.int32)
-        nnz_s, ch_s, fl_s = _slab_stats(
-            a, b, torch.as_tensor(bounds.astype(np.int64), device=a.device),
-            len(bounds) - 1)
-        if int(fl_s.max(initial=0)) < 1 << 30:
-            break
-        num_slabs = max(num_slabs * 2, len(bounds))
-    worst_nnz = int(nnz_s.max(initial=1))
-    worst_ch = int(ch_s.max(initial=1))
-    worst_fl = int(fl_s.max(initial=1))
-    span = int((bounds[1:] - bounds[:-1]).max(initial=1))
-    span_cap = min(round_capacity_frac(max(span, 8)), m, span_max)
-    span_cap = max(span_cap, span)  # never below the actual max span
-    slab_nnz_cap = round_capacity_frac(max(worst_nnz, 8))
-    chunk_cap = max(-(-round_capacity_frac(max(worst_ch, 256)) // 256) * 256,
-                    256)
-    return bounds, span_cap, slab_nnz_cap, chunk_cap, max(worst_fl, 1)
+    with span("spgemm.plan", a.row):
+        m = a.shape[0]
+        n = b.shape[1]
+        span_max = m if wide else max((1 << 31) // (n + 1) - 2, 1)
+        num_slabs = max(1, min(num_slabs, m))
+        for _ in range(8):
+            cut = _equal_flops_bounds(a, b, num_slabs).cpu().numpy()
+            out = [0]
+            for s in range(len(cut) - 1):
+                hi = int(cut[s + 1])
+                while hi - out[-1] > span_max:
+                    out.append(out[-1] + span_max)
+                if hi > out[-1]:
+                    out.append(hi)
+            bounds = np.asarray(out, np.int32)
+            nnz_s, ch_s, fl_s = _slab_stats(
+                a, b, torch.as_tensor(bounds.astype(np.int64),
+                                      device=a.device), len(bounds) - 1)
+            if int(fl_s.max(initial=0)) < 1 << 30:
+                break
+            num_slabs = max(num_slabs * 2, len(bounds))
+        worst_nnz = int(nnz_s.max(initial=1))
+        worst_ch = int(ch_s.max(initial=1))
+        worst_fl = int(fl_s.max(initial=1))
+        widest = int((bounds[1:] - bounds[:-1]).max(initial=1))
+        span_cap = min(round_capacity_frac(max(widest, 8)), m, span_max)
+        span_cap = max(span_cap, widest)  # never below the actual max span
+        slab_nnz_cap = round_capacity_frac(max(worst_nnz, 8))
+        chunk_cap = max(
+            -(-round_capacity_frac(max(worst_ch, 256)) // 256) * 256, 256)
+        return bounds, span_cap, slab_nnz_cap, chunk_cap, max(worst_fl, 1)
 
 
 def _pallas_slab_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
@@ -507,21 +514,25 @@ def _pallas_slab_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
     m, k = a.shape
     n = b.shape[1]
     dst_row, dst_col, dst_val, total, truncated = state
-    sub, row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
-                                slab_nnz_cap=slab_nnz_cap)
-    if wide:
-        c = spgemm_wide(sub, b, sr, out_capacity=slab_out_cap,
-                        stream_cap=stream_cap, b_rp=b_rp, plain=plain)
-    else:
-        c = spgemm_pallas(sub, b, sr, chunk_cap=chunk_cap,
-                          out_capacity=slab_out_cap, stream_cap=stream_cap,
-                          b_rp=b_rp, plain=plain)
-    live = torch.arange(c.capacity, device=a.device) < c.nnz
-    out = slice(min(int(total), out_capacity),
-                min(int(total), out_capacity) + c.capacity)
-    dst_row[out] = torch.where(live, c.row + row_lo.to(torch.int32), m)
-    dst_col[out] = torch.where(live, c.col, n)
-    dst_val[out] = torch.where(live, c.val, torch.zeros_like(c.val))
+    with span("spgemm.slab", a.row):
+        with span("spgemm.extract"):
+            sub, row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
+                                        slab_nnz_cap=slab_nnz_cap)
+        if wide:
+            c = spgemm_wide(sub, b, sr, out_capacity=slab_out_cap,
+                            stream_cap=stream_cap, b_rp=b_rp, plain=plain)
+        else:
+            c = spgemm_pallas(sub, b, sr, chunk_cap=chunk_cap,
+                              out_capacity=slab_out_cap,
+                              stream_cap=stream_cap, b_rp=b_rp, plain=plain)
+        with span("spgemm.assemble"):
+            live = torch.arange(c.capacity, device=a.device) < c.nnz
+            out = slice(min(int(total), out_capacity),
+                        min(int(total), out_capacity) + c.capacity)
+            dst_row[out] = torch.where(live, c.row + row_lo.to(torch.int32),
+                                       m)
+            dst_col[out] = torch.where(live, c.col, n)
+            dst_val[out] = torch.where(live, c.val, torch.zeros_like(c.val))
     return (dst_row, dst_col, dst_val, total + c.nnz,
             truncated | (c.nnz >= slab_out_cap))
 
@@ -579,16 +590,19 @@ def _slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
     values and nnz, so the keys are never split into (row, col).  All on
     the device."""
     k = a.shape[1]
-    sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
-                                 slab_nnz_cap=slab_nnz_cap)
-    key, val, _stride = _expand_sort(sub, b, sr, stream_cap=stream_cap,
-                                     wide=wide, b_rp=b_rp, plain=plain)
     compress = compress_sorted_wide_keys if wide else compress_sorted_packed
-    _okey, oval, nnz = compress(key, val, sr,
-                                out_capacity=_out_cap(slab_out_cap),
-                                plain=plain)
-    # entries past nnz hold 0, so the plain sum is the live sum
-    cs = oval.sum()
+    with span("spgemm.slab", a.row):
+        with span("spgemm.extract"):
+            sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
+                                         slab_nnz_cap=slab_nnz_cap)
+        key, val, _stride = _expand_sort(sub, b, sr, stream_cap=stream_cap,
+                                         wide=wide, b_rp=b_rp, plain=plain)
+        with span("spgemm.compress"):
+            _okey, oval, nnz = compress(key, val, sr,
+                                        out_capacity=_out_cap(slab_out_cap),
+                                        plain=plain)
+        # entries past nnz hold 0, so the plain sum is the live sum
+        cs = oval.sum()
     nnz_total, checksum, truncated = state
     return (nnz_total + nnz, checksum + cs,
             truncated | (nnz >= slab_out_cap))
@@ -655,38 +669,44 @@ def spgemm_auto(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     reference run)."""
     max_flops_cap = min(max_flops_cap, SORT_ELEM_LIMIT)
     dense_cells = a.shape[0] * b.shape[1]
-    key = (int(a.capacity), int(b.capacity), a.shape, b.shape,
-           out_capacity, id(sr))
-    flops_exact = spgemm_flops(a, b)
-    if not (plan is not None and plan.get("key") == key
-            and flops_exact <= plan["flops_ok"]
-            and flops_exact * 64 >= plan["flops_ok"]):
-        plan = _fresh_plan(a, b, plan, key, flops_exact, max_flops_cap,
-                           out_capacity, nnz_estimate)
-    out_cap = plan["out_cap"]
-    while True:
-        if plan["kind"] == "pallas":
-            c = spgemm_pallas(a, b, sr, chunk_cap=plan["chunk_cap"],
-                              out_capacity=out_cap, stream_cap=plan["scap"],
-                              plain=plain)
-        elif plan["kind"] == "pallas_slabs":
-            c = spgemm_pallas_rowchunked(
-                a, b, sr, num_slabs=plan["num_slabs"], out_capacity=out_cap,
-                wide=plan["wide"], plain=plain)
-        elif plan["kind"] == "sort":
-            check_sort_limit(plan["flops_cap"], "ESC expansion")
-            c = spgemm(a, b, sr, flops_cap=plan["flops_cap"],
-                       out_capacity=out_cap)
-        else:
-            slab_cap, slab_rows = _slab_bounds_host(a, b, plan["num_slabs"])
-            c = spgemm_rowchunked(a, b, sr, num_slabs=plan["num_slabs"],
-                                  slab_rows=slab_rows, flops_cap=slab_cap,
-                                  out_capacity=out_cap)
-        full = int(c.nnz) >= out_cap
-        if not full or out_cap >= min(plan["oc"], max(dense_cells, 8)):
-            return c
-        out_cap = round_capacity_frac(out_cap * 2)
-        plan["out_cap"] = out_cap
+    with span("spgemm.call", a.row):
+        with span("spgemm.plan"):
+            key = (int(a.capacity), int(b.capacity), a.shape, b.shape,
+                   out_capacity, id(sr))
+            flops_exact = spgemm_flops(a, b)
+            if not (plan is not None and plan.get("key") == key
+                    and flops_exact <= plan["flops_ok"]
+                    and flops_exact * 64 >= plan["flops_ok"]):
+                plan = _fresh_plan(a, b, plan, key, flops_exact,
+                                   max_flops_cap, out_capacity, nnz_estimate)
+        out_cap = plan["out_cap"]
+        while True:
+            with span("spgemm.attempt"):
+                if plan["kind"] == "pallas":
+                    c = spgemm_pallas(
+                        a, b, sr, chunk_cap=plan["chunk_cap"],
+                        out_capacity=out_cap, stream_cap=plan["scap"],
+                        plain=plain)
+                elif plan["kind"] == "pallas_slabs":
+                    c = spgemm_pallas_rowchunked(
+                        a, b, sr, num_slabs=plan["num_slabs"],
+                        out_capacity=out_cap, wide=plan["wide"], plain=plain)
+                elif plan["kind"] == "sort":
+                    check_sort_limit(plan["flops_cap"], "ESC expansion")
+                    c = spgemm(a, b, sr, flops_cap=plan["flops_cap"],
+                               out_capacity=out_cap)
+                else:
+                    slab_cap, slab_rows = _slab_bounds_host(
+                        a, b, plan["num_slabs"])
+                    c = spgemm_rowchunked(
+                        a, b, sr, num_slabs=plan["num_slabs"],
+                        slab_rows=slab_rows, flops_cap=slab_cap,
+                        out_capacity=out_cap)
+                full = int(c.nnz) >= out_cap
+            if not full or out_cap >= min(plan["oc"], max(dense_cells, 8)):
+                return c
+            out_cap = round_capacity_frac(out_cap * 2)
+            plan["out_cap"] = out_cap
 
 
 def _fresh_plan(a: SpCOO, b: SpCOO, plan: dict | None, key, flops_exact: int,

@@ -28,6 +28,7 @@ import torch
 
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["ell_blocked_prepare", "spmm_ell_blocked"]
 
@@ -56,86 +57,88 @@ def ell_blocked_prepare(a: SpCOO, nb: int = 6, *, relabel_cols: bool = False,
     m, n = a.shape
     if relabel_cols and m != n:
         raise ValueError(f"relabel_cols needs a square operand, got {a.shape}")
-    dev = a.device
-    nnz = int(a.nnz)
-    i64 = dict(dtype=torch.int64, device=dev)
-    row = a.row[:nnz].long()
-    col = a.col[:nnz].long()
-    val = (torch.ones(nnz, dtype=torch.float32, device=dev) if binary
-           else a.val[:nnz].float())
-    deg = torch.bincount(row, minlength=m)
-    srt = torch.sort(-deg, stable=True)[1]
-    rank0 = torch.empty(m, **i64)
-    rank0[srt] = torch.arange(m, **i64)
+    with span("ell.prepare", a.row):
+        dev = a.device
+        nnz = int(a.nnz)
+        i64 = dict(dtype=torch.int64, device=dev)
+        row = a.row[:nnz].long()
+        col = a.col[:nnz].long()
+        val = (torch.ones(nnz, dtype=torch.float32, device=dev) if binary
+               else a.val[:nnz].float())
+        deg = torch.bincount(row, minlength=m)
+        srt = torch.sort(-deg, stable=True)[1]
+        rank0 = torch.empty(m, **i64)
+        rank0[srt] = torch.arange(m, **i64)
 
-    bs_r = -(-m // (8 * nb)) * 8          # row-block size (multiple of 8)
-    m_pad = bs_r * nb
-    g_rb = bs_r // 8                      # groups per row block
-    rank = (rank0 % nb) * bs_r + rank0 // nb
-    order = torch.full((m_pad,), -1, **i64)   # relabeled id -> original id
-    order[rank] = torch.arange(m, **i64)
-    bs_c = bs_r if relabel_cols else -(-n // (8 * nb)) * 8
-    n_pad = bs_c * nb
+        bs_r = -(-m // (8 * nb)) * 8          # row-block size (multiple of 8)
+        m_pad = bs_r * nb
+        g_rb = bs_r // 8                      # groups per row block
+        rank = (rank0 % nb) * bs_r + rank0 // nb
+        order = torch.full((m_pad,), -1, **i64)   # relabeled id -> original id
+        order[rank] = torch.arange(m, **i64)
+        bs_c = bs_r if relabel_cols else -(-n // (8 * nb)) * 8
+        n_pad = bs_c * nb
 
-    e_r = rank[row]
-    e_c = rank[col] if relabel_cols else col
-    cb_e = e_c // bs_c
-    key = e_r * nb + cb_e
-    ldeg = torch.bincount(key, minlength=m_pad * nb)
-    groups = m_pad // 8
-    lgc = ldeg.reshape(groups, 8, nb).amax(1)              # (G, nb)
-    # segment (rb, cb): groups rb*g_rb .. (rb+1)*g_rb-1 at column block cb
-    lens = lgc.reshape(nb, g_rb, nb).transpose(1, 2).reshape(-1)
-    lens2 = lens.reshape(nb * nb, g_rb)
-    t_seg = max(-(-int(lens2.sum(1).max()) // _TP), 1)
-    seg_cap = t_seg * _TP
-    p_pad = seg_cap * nb * nb
-    if p_pad >= 1 << 31:
-        raise ValueError(f"{p_pad} ELL positions exceed int32")
-    seg_off = torch.arange(nb * nb, **i64) * seg_cap
-    g_start = (seg_off[:, None] + _excl_cumsum(lens2, 1)).reshape(-1)
+        e_r = rank[row]
+        e_c = rank[col] if relabel_cols else col
+        cb_e = e_c // bs_c
+        key = e_r * nb + cb_e
+        ldeg = torch.bincount(key, minlength=m_pad * nb)
+        groups = m_pad // 8
+        lgc = ldeg.reshape(groups, 8, nb).amax(1)              # (G, nb)
+        # segment (rb, cb): groups rb*g_rb .. (rb+1)*g_rb-1 at column block cb
+        lens = lgc.reshape(nb, g_rb, nb).transpose(1, 2).reshape(-1)
+        lens2 = lens.reshape(nb * nb, g_rb)
+        t_seg = max(-(-int(lens2.sum(1).max()) // _TP), 1)
+        seg_cap = t_seg * _TP
+        p_pad = seg_cap * nb * nb
+        if p_pad >= 1 << 31:
+            raise ValueError(f"{p_pad} ELL positions exceed int32")
+        seg_off = torch.arange(nb * nb, **i64) * seg_cap
+        g_start = (seg_off[:, None] + _excl_cumsum(lens2, 1)).reshape(-1)
 
-    # entries sorted by (relabeled row, column block), stable: within-row
-    # order is kept; each entry's step within its run is its rank in its key
-    sort_idx = torch.sort(key, stable=True)[1]
-    key_s = key[sort_idx]
-    within = torch.arange(nnz, **i64) - _excl_cumsum(ldeg)[key_s]
-    er_s = e_r[sort_idx]
-    cb_s = cb_e[sort_idx]
-    g_s = er_s >> 3
-    seg_idx = (g_s // g_rb) * (nb * g_rb) + cb_s * g_rb + g_s % g_rb
-    dest_p = g_start[seg_idx] + within
-    dest_i = er_s & 7
-    cols_pt = torch.zeros((p_pad, 8), dtype=torch.int32, device=dev)
-    vals_pt = torch.zeros((p_pad, 8), dtype=torch.float32, device=dev)
-    cols_pt[dest_p, dest_i] = (e_c[sort_idx] - cb_s * bs_c).to(torch.int32)
-    vals_pt[dest_p, dest_i] = val[sort_idx]
-    # flush at the last position of every (group, column block) run; runs
-    # with no entries drop into the spare slot at p_pad
-    live_seg = lens > 0
-    last_pos = torch.where(live_seg, g_start + lens - 1, p_pad)
-    g_local = torch.arange(nb * nb * g_rb, **i64) % g_rb
-    flush = torch.zeros(p_pad + 1, dtype=torch.int32, device=dev)
-    flush[last_pos] = 1
-    base = torch.zeros(p_pad + 1, dtype=torch.int32, device=dev)
-    base[last_pos] = (g_local * 8).to(torch.int32)
+        # entries sorted by (relabeled row, column block), stable: within-row
+        # order is kept; each entry's step within its run is its rank in its
+        # key
+        sort_idx = torch.sort(key, stable=True)[1]
+        key_s = key[sort_idx]
+        within = torch.arange(nnz, **i64) - _excl_cumsum(ldeg)[key_s]
+        er_s = e_r[sort_idx]
+        cb_s = cb_e[sort_idx]
+        g_s = er_s >> 3
+        seg_idx = (g_s // g_rb) * (nb * g_rb) + cb_s * g_rb + g_s % g_rb
+        dest_p = g_start[seg_idx] + within
+        dest_i = er_s & 7
+        cols_pt = torch.zeros((p_pad, 8), dtype=torch.int32, device=dev)
+        vals_pt = torch.zeros((p_pad, 8), dtype=torch.float32, device=dev)
+        cols_pt[dest_p, dest_i] = (e_c[sort_idx] - cb_s * bs_c).to(torch.int32)
+        vals_pt[dest_p, dest_i] = val[sort_idx]
+        # flush at the last position of every (group, column block) run; runs
+        # with no entries drop into the spare slot at p_pad
+        live_seg = lens > 0
+        last_pos = torch.where(live_seg, g_start + lens - 1, p_pad)
+        g_local = torch.arange(nb * nb * g_rb, **i64) % g_rb
+        flush = torch.zeros(p_pad + 1, dtype=torch.int32, device=dev)
+        flush[last_pos] = 1
+        base = torch.zeros(p_pad + 1, dtype=torch.int32, device=dev)
+        base[last_pos] = (g_local * 8).to(torch.int32)
 
-    # the run table, group-major: (rb, cb, g_local) -> (rb, g_local, cb)
-    def by_group(t):
-        return (t.reshape(nb, nb, g_rb).transpose(1, 2)
-                .reshape(groups, nb).to(torch.int32).contiguous())
+        # the run table, group-major: (rb, cb, g_local) -> (rb, g_local, cb)
+        def by_group(t):
+            return (t.reshape(nb, nb, g_rb).transpose(1, 2)
+                    .reshape(groups, nb).to(torch.int32).contiguous())
 
-    run_start, run_len = by_group(g_start), by_group(lens)
-    return dict(
-        cols=cols_pt.t(), vals=vals_pt.t(),
-        flush=flush[:p_pad], base=base[:p_pad],
-        order=order.to(torch.int32), inv=rank.to(torch.int32),
-        live=deg > 0,
-        run_start=run_start, run_len=run_len,
-        pieces=ell_pieces(run_start, run_len),
-        P=p_pad, t_seg=t_seg, nb=nb, bs_r=bs_r, bs_c=bs_c,
-        m_pad=m_pad, n_pad=n_pad, relabel_cols=relabel_cols,
-    )
+        run_start, run_len = by_group(g_start), by_group(lens)
+        return dict(
+            cols=cols_pt.t(), vals=vals_pt.t(),
+            flush=flush[:p_pad], base=base[:p_pad],
+            order=order.to(torch.int32), inv=rank.to(torch.int32),
+            live=deg > 0,
+            run_start=run_start, run_len=run_len,
+            pieces=ell_pieces(run_start, run_len),
+            P=p_pad, t_seg=t_seg, nb=nb, bs_r=bs_r, bs_c=bs_c,
+            m_pad=m_pad, n_pad=n_pad, relabel_cols=relabel_cols,
+        )
 
 
 def spmm_ell_blocked(a: SpCOO, x: torch.Tensor, prep: dict | None = None, *,
@@ -152,10 +155,13 @@ def spmm_ell_blocked(a: SpCOO, x: torch.Tensor, prep: dict | None = None, *,
     short = prep["n_pad"] - xp.shape[0]
     if prep["relabel_cols"] and short > 0:     # X lives in relabeled space
         xp = torch.cat([xp, xp.new_zeros((short, xp.shape[1]))])
-    y_perm = ell_fold(prep["cols"].t(), prep["vals"].t(), prep["run_start"],
-                      prep["run_len"], xp.contiguous(), bs_c=prep["bs_c"],
-                      op=op, pieces=prep["pieces"])
+    with span("spmm.fold", xp):
+        y_perm = ell_fold(prep["cols"].t(), prep["vals"].t(),
+                          prep["run_start"], prep["run_len"], xp.contiguous(),
+                          bs_c=prep["bs_c"], op=op, pieces=prep["pieces"])
     if prep["relabel_cols"]:
         return y_perm.to(x.dtype)
-    y = torch.where(prep["live"][:, None], y_perm[prep["inv"].long()], 0.0)
-    return y.to(x.dtype)
+    with span("spmm.unpermute", y_perm):
+        y = torch.where(prep["live"][:, None], y_perm[prep["inv"].long()],
+                        0.0)
+        return y.to(x.dtype)

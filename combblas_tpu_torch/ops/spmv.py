@@ -17,6 +17,7 @@ import torch
 from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.spmm_ell import spmm_ell
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["spmv", "spmv_transpose", "spmsv_masked", "spmm"]
 
@@ -99,7 +100,8 @@ def spmm(a: SpCOO, x: torch.Tensor, sr: Semiring = PLUS_TIMES,
     if (use_kernel and sr == PLUS_TIMES and x.dim() == 2
             and x.dtype.is_floating_point and x.dtype != torch.float64
             and not torch.compiler.is_compiling()):
-        return spmm_ell(a, x, prep=prep)
+        with span("spmm.call", x):
+            return spmm_ell(a, x, prep=prep)
     return _spmm_gather(a, x, sr)
 
 

@@ -64,10 +64,13 @@ def interval_union_us(spans) -> float:
 
 
 def device_events(prof):
-    """(name, start_us, end_us) of every device-side event of a profile."""
+    """(name, start_us, end_us) of every device-side event of a profile.
+    The profiler also draws each span (``utils/timers.py``) on the
+    device's timeline; those are no work of the device and are left out."""
     cuda = torch.autograd.DeviceType.CUDA
     return [(e.name, e.time_range.start, e.time_range.end)
-            for e in prof.events() if e.device_type == cuda]
+            for e in prof.events()
+            if e.device_type == cuda and not e.is_user_annotation]
 
 
 #: Stage of a device event, in the profilers' splits: (stage, base names,

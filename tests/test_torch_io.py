@@ -1,6 +1,6 @@
 """The port's I/O (``io/mtx.py``, ``io/binary.py``, ``io/labels.py``,
-``io/parallel.py``) and timers (``utils/timers.py``) vs the JAX package's,
-on files the tests write under ``tmp_path``.
+``io/parallel.py``) vs the JAX package's, on files the tests write under
+``tmp_path``.
 
 Tolerances: every written file equal to JAX's byte for byte (Matrix
 Market, binary matrices and vectors, labelled tuples, and the block-
@@ -30,7 +30,6 @@ from combblas_tpu_torch.io import mtx as tmtx  # noqa: E402
 from combblas_tpu_torch.io import parallel as tpar  # noqa: E402
 from combblas_tpu_torch.ops.coo import SpCOO as TCOO  # noqa: E402
 from combblas_tpu_torch.ops.spvec import SpVec as TVec  # noqa: E402
-from combblas_tpu_torch.utils import timers  # noqa: E402
 from tests.test_coo import rand_sparse  # noqa: E402
 from tests.test_torch_dist import assert_same_blocks, dist_pair  # noqa: E402
 from tests.test_torch_dist import jgrid, tgrid  # noqa: E402
@@ -221,27 +220,3 @@ def test_parallel_read_capacity_matches_jax(tmp_path):
                                   capacity=64)
     assert got.capacity == 64
     assert_same_blocks(got, want, exact=True)
-
-
-def test_phase_timers_and_trace():
-    """The timers count and total each phase; ``sync`` takes tensors and
-    the port's containers; ``trace`` names a profiler region."""
-    pt = timers.PhaseTimers()
-    _, t, _ = mats()
-    for _ in range(3):
-        with pt.phase("a", sync=t):
-            pass
-    with pt.phase("b", sync=[t.row, {"x": torch.ones(2)}]):
-        sum(range(10000))
-    assert pt.counts == {"a": 3, "b": 1}
-    assert pt.totals["a"] >= 0 and pt.totals["b"] > 0
-    rep = pt.report().splitlines()
-    assert len(rep) == 2 and "(3x)" in " ".join(rep)
-    pt.reset()
-    assert not pt.totals and not pt.counts
-    with torch.profiler.profile() as prof:
-        with timers.trace("named_region"):
-            torch.ones(3).sum()
-    assert any(e.name == "named_region" for e in prof.events())
-    assert timers.device_memory_report() == ("" if not torch.cuda.is_available()
-                                             else timers.device_memory_report())

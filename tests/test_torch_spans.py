@@ -1,0 +1,258 @@
+"""The port's spans (``utils/timers.py``) on the CPU.
+
+With no profiler recording, a span records nothing and enters no
+``record_function``.  Under ``torch.profiler`` the spans of small calls
+match the program's own counts (slabs of the plan, attempts of the retry
+loop, MCL's iterations, BFS's levels), nest as the layers do, appear
+among the profiler's events, and leave every output as it was, bit for
+bit.  On the CPU a span's device time is its host time.  The card test
+checks the device events of a span on CUDA tensors.
+"""
+
+import time
+
+import pytest
+import torch
+
+from combblas_tpu_torch.gen.rmat import rmat_matrix
+from combblas_tpu_torch.models.bfs import bfs_batch_pull_big
+from combblas_tpu_torch.models.mcl import MCLParams, mcl_local
+from combblas_tpu_torch.ops import spgemm as tsg
+from combblas_tpu_torch.ops.spmv import spmm
+from combblas_tpu_torch.utils import timers
+
+CPU = [torch.profiler.ProfilerActivity.CPU]
+
+
+@pytest.fixture(autouse=True)
+def empty_record():
+    timers.reset()
+    yield
+    timers.reset()
+
+
+def _graph(scale: int, seed: int = 3):
+    gen = torch.Generator().manual_seed(seed)
+    return rmat_matrix(gen, scale, edgefactor=8, symmetrize=True,
+                       remove_self_loops=True)
+
+
+def _traced(fn):
+    """(fn's output, the spans it recorded, the profiler's event names)."""
+    with torch.profiler.profile(activities=CPU) as prof:
+        out = fn()
+    return out, timers.spans(), {e.name for e in prof.events()}
+
+
+def _count(sp, name: str) -> int:
+    return sum(s.name == name for s in sp)
+
+
+def _children(sp, i: int) -> list:
+    return [s.name for s in sp if s.parent == i]
+
+
+def _a2(a, nnz_estimate=None):
+    return tsg.spgemm_auto(a, a, max_flops_cap=1 << 11,
+                           nnz_estimate=nnz_estimate, plan={})
+
+
+def _bfs(a):
+    deg = torch.bincount(a.row[:int(a.nnz)].long(), minlength=a.shape[0])
+    roots = torch.nonzero(deg > 0).reshape(-1)[:5].numpy()
+    return bfs_batch_pull_big(a, roots)
+
+
+def _spmm(a):
+    x = torch.rand((a.shape[1], 4), generator=torch.Generator().manual_seed(1))
+    return spmm(a, x, use_kernel=True)
+
+
+def _mcl(a):
+    return mcl_local(a, MCLParams(select=32, recover_num=32))
+
+
+CALLS = {"spgemm_auto": (_a2, 7), "mcl_local": (_mcl, 7),
+         "bfs_batch_pull_big": (_bfs, 8), "spmm": (_spmm, 8)}
+
+
+def _flat(out) -> list:
+    """The tensors of a call's output, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    if hasattr(out, "row"):
+        return [out.row, out.col, out.val, out.nnz]
+    return [torch.as_tensor(out)]
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_off_records_nothing(call, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with tracing off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    fn, scale = CALLS[call]
+    fn(_graph(scale))
+    assert timers.spans() == [] and timers.dropped() == 0
+    assert timers.span("x") is timers.span("y")   # the one shared no-op
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_outputs_equal_bit_for_bit(call):
+    fn, scale = CALLS[call]
+    a = _graph(scale)
+    off = _flat(fn(a))
+    on, sp, names = _traced(lambda: fn(a))
+    on = _flat(on)
+    assert sp and {s.name for s in sp} <= names
+    assert len(on) == len(off)
+    for x, y in zip(on, off):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    for s in sp:   # self within total; the CPU's device clock is the host's
+        assert 0 <= s.self_ns <= s.device_ns == s.host_ns
+        assert sp[s.root].parent == -1 and sp[s.root].root == s.root
+
+
+@pytest.mark.parametrize("nnz_estimate", [None, 8])
+def test_spgemm_auto_slabs_and_attempts(nnz_estimate, monkeypatch):
+    a = _graph(7)
+    routes = []
+    real = tsg.spgemm_pallas_rowchunked
+
+    def route(*args, **kwargs):
+        routes.append(kwargs["out_capacity"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tsg, "spgemm_pallas_rowchunked", route)
+    plan = {}
+    with torch.profiler.profile(activities=CPU):
+        c = tsg.spgemm_auto(a, a, max_flops_cap=1 << 11,
+                            nnz_estimate=nnz_estimate, plan=plan)
+    sp = timers.spans()
+    assert plan["kind"] == "pallas_slabs"
+    slabs = len(tsg._pallas_slab_plan(a, a, plan["num_slabs"],
+                                      wide=plan["wide"])[0]) - 1
+    assert slabs > 1
+    attempts = len(routes)
+    assert (attempts > 1) == (nnz_estimate is not None)
+    assert int(c.nnz) < routes[-1]
+    assert _count(sp, "spgemm.call") == 1
+    assert _count(sp, "spgemm.attempt") == attempts
+    # the dispatcher's plan, and the slab plan of every attempt
+    assert _count(sp, "spgemm.plan") == 1 + attempts
+    assert _count(sp, "spgemm.slab") == slabs * attempts
+    for i, s in enumerate(sp):
+        assert s.root == 0
+        if s.name == "spgemm.slab":
+            assert sp[s.parent].name == "spgemm.attempt"
+            assert _children(sp, i) == [
+                "spgemm.extract", "spgemm.expand", "spgemm.sort",
+                "spgemm.compress", "spgemm.assemble"]
+    assert _children(sp, 0) == ["spgemm.plan"] + ["spgemm.attempt"] * attempts
+
+
+def test_mcl_iterations():
+    a = _graph(7)
+    (labels, it), sp, _ = _traced(lambda: _mcl(a))
+    assert it > 1 and labels.shape == (a.shape[0],)
+    assert _count(sp, "mcl.clustering") == _count(sp, "mcl.labels") == 1
+    for name in ("mcl.iteration", "mcl.expand", "mcl.prune", "mcl.inflate",
+                 "mcl.chaos", "spgemm.call"):
+        assert _count(sp, name) == it, name
+    for i, s in enumerate(sp):
+        if s.name == "mcl.iteration":
+            assert _children(sp, i) == ["mcl.expand", "mcl.prune",
+                                        "mcl.inflate", "mcl.chaos"]
+        if s.name == "spgemm.call":
+            assert sp[s.parent].name == "mcl.expand"
+    iters = sum(s.device_ns for s in sp if s.name == "mcl.iteration")
+    parts = sum(s.device_ns for s in sp
+                if s.name in ("mcl.expand", "mcl.prune"))
+    assert parts <= iters <= sp[0].device_ns
+
+
+def test_bfs_levels():
+    a = _graph(8)
+    (parents, levels), sp, _ = _traced(lambda: _bfs(a))
+    depth = int(levels.max()) + 1
+    assert depth > 2
+    assert _count(sp, "bfs.level") == _count(sp, "bfs.fold") == depth
+    assert [s.name for s in sp if s.parent == 0] == (
+        ["ell.prepare"] + ["bfs.level"] * depth + ["bfs.unpermute"])
+    for i, s in enumerate(sp):
+        if s.name == "bfs.level":
+            assert _children(sp, i) == ["bfs.fold"]
+            assert s.self_ns == s.device_ns - sp[i + 1].device_ns
+
+
+def test_spmm_fold_and_unpermute():
+    _y, sp, _ = _traced(lambda: _spmm(_graph(8)))
+    assert [s.name for s in sp] == ["spmm.call", "ell.prepare", "spmm.fold",
+                                    "spmm.unpermute"]
+    assert all(s.parent == 0 for s in sp[1:])
+
+
+def test_self_time_is_what_children_leave():
+    with torch.profiler.profile(activities=CPU):
+        with timers.span("outer"):
+            time.sleep(0.002)
+            for _ in range(2):
+                with timers.span("inner"):
+                    time.sleep(0.002)
+    sp = timers.spans()
+    outer, inner = sp[0], sp[1:]
+    assert [s.name for s in inner] == ["inner", "inner"]
+    assert outer.self_ns == outer.device_ns - sum(s.device_ns for s in inner)
+    assert outer.self_ns >= 2_000_000 and all(
+        s.self_ns == s.device_ns >= 2_000_000 for s in inner)
+    rep = timers.report().splitlines()
+    assert rep[1].split()[:2] == ["outer", "1"]
+    assert rep[2].split()[:2] == ["inner", "2"]
+
+
+def test_open_call_waits_and_cap_counts_what_it_drops(monkeypatch):
+    monkeypatch.setattr(timers, "CAP", 3)
+    with torch.profiler.profile(activities=CPU):
+        with timers.span("first"):
+            pass
+        with timers.span("open"):
+            assert [s.name for s in timers.spans()] == ["first"]
+            for _ in range(3):
+                with timers.span("past the cap"):
+                    pass
+    assert [s.name for s in timers.spans()] == ["first", "open",
+                                                "past the cap"]
+    assert timers.dropped() == 2
+    assert "2 spans dropped" in timers.report()
+    timers.reset()
+    assert timers.spans() == [] and timers.dropped() == 0
+
+
+def test_device_memory_report():
+    rep = timers.device_memory_report()
+    if not torch.cuda.is_available():
+        assert rep == ""
+    else:
+        assert rep.count("cuda:") == torch.cuda.device_count()
+
+
+@pytest.mark.gpu
+def test_spans_time_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.rand((2048, 2048), device="cuda")
+    acts = CPU + [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        with timers.span("outer", x):
+            y = x @ x
+            with timers.span("inner"):
+                for _ in range(4):
+                    y = y @ x
+    outer, inner = timers.spans()
+    assert inner.parent == 0 and outer.root == inner.root == 0
+    assert 0 < inner.device_ns < outer.device_ns
+    assert abs(outer.self_ns - (outer.device_ns - inner.device_ns)) <= 1000
+    assert inner.self_ns == inner.device_ns and outer.host_ns > 0
