@@ -9,10 +9,10 @@ The loops run on the host (capacities change between iterations).
   needs no more slabs than the memory plan, else the wide pair (K3, K4).
   At scale 17 (``bench_mcl``'s graph) the plan takes two wide slabs, K3
   and K4; smaller plans (scale 12) run K1 and K2.  The prune is one
-  sorted pass of the rule (``MCLPruneRecoverySelect``): entries below
-  ``cutoff`` drop, a column keeps at most its ``select`` largest, and a
-  column left with too few takes its ``recover_num`` largest of the
-  unpruned column instead.
+  sorted pass of the rule (``MCLPruneRecoverySelect``) over the
+  expansion's live prefix: entries below ``cutoff`` drop, a column keeps
+  at most its ``select`` largest, and a column left with too few takes
+  its ``recover_num`` largest of the unpruned column instead.
 - :func:`mcl_dist` (HipMCL proper): on a block grid, the expansion is
   ``mem_efficient_spgemm`` (phased SUMMA) with :func:`dist_mcl_prune`, the
   threshold form of the rule, run inside every phase.  Its blocks take the
@@ -68,7 +68,8 @@ from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["MCLParams", "mcl_local", "mcl_dist", "dist_mcl_prune",
            "dist_remove_isolated", "dist_rand_permute",
-           "make_col_stochastic", "chaos"]
+           "make_col_stochastic", "chaos", "PRUNE_SLOTS",
+           "reset_prune_slots"]
 
 #: The seed of ``mcl_dist``'s permutation when no generator is given (the
 #: JAX package defaults to ``PRNGKey(17)``).
@@ -77,6 +78,11 @@ PREPROCESS_SEED = 17
 #: ``spgemm_auto``'s slab budget in MCL: the default 2^24 would cut the
 #: expansion into many more row slabs at bench scales.
 EXPANSION_FLOPS_CAP = 1 << 28
+
+#: ``_mcl_prune``'s calls, the slots it sorted (its inputs' live prefixes)
+#: and the slots its inputs held; ``live / slots`` is the share of the
+#: expansion's buffers that the prune reads.
+PRUNE_SLOTS = {"calls": 0, "live": 0, "slots": 0}
 
 
 @dataclasses.dataclass
@@ -119,35 +125,48 @@ def _inflate(a: SpCOO, power: float) -> SpCOO:
     return dataclasses.replace(a, val=val)
 
 
+def reset_prune_slots() -> None:
+    for name in PRUNE_SLOTS:
+        PRUNE_SLOTS[name] = 0
+
+
 def _mcl_prune(a: SpCOO, p: MCLParams, out_capacity: int) -> SpCOO:
     """Threshold, select and recovery (``MCLPruneRecoverySelect``) in one
     sorted pass: one stable sort by (col, |v| descending) ranks every
     entry in its column; the three rules are then rank masks, scattered
-    back to entry order, and the survivors compact once."""
+    back to entry order, and the survivors compact once.
+
+    Every pass runs on the live prefix, the first ``nnz`` slots: by
+    ``SpCOO``'s contract the rest are pads, which would sort after every
+    live entry and never be kept, so the output equals the JAX package's,
+    which sorts the whole capacity."""
     n = a.shape[1]
-    cap = a.capacity
-    live = a.mask()
-    av = torch.where(live, a.val.abs(), -1.0)
-    col = torch.where(live, a.col, n)
-    eid_s = col_desc_order(col, av)
-    col_s = col[eid_s]
+    live = min(int(a.nnz), a.capacity)
+    PRUNE_SLOTS["calls"] += 1
+    PRUNE_SLOTS["live"] += live
+    PRUNE_SLOTS["slots"] += a.capacity
+    a = dataclasses.replace(a, row=a.row[:live], col=a.col[:live],
+                            val=a.val[:live])
+    av = a.val.abs()
+    eid_s = col_desc_order(a.col, av)
+    col_s = a.col[eid_s]
     col_start = torch.searchsorted(
         col_s, torch.arange(n + 1, dtype=col_s.dtype, device=a.device))
-    pos = torch.arange(cap, device=a.device) - col_start[col_s.long()]
+    pos = torch.arange(live, device=a.device) - col_start[col_s.long()]
     # entries >= cutoff form a per-column prefix of this order, so the
     # kept count per column is a difference of a cumulative sum
     cut_s = av[eid_s] >= p.cutoff
-    c0 = torch.zeros(cap + 1, dtype=torch.int64, device=a.device)
+    c0 = torch.zeros(live + 1, dtype=torch.int64, device=a.device)
     c0[1:] = torch.cumsum(cut_s, 0)
     kept = torch.clamp(c0[col_start[1:]] - c0[col_start[:-1]],
                        max=p.select)
     # recovery: columns whose post-select count fell below the floor take
     # their top recover_num of the unpruned column
     need_rec = kept < int(p.recover_pct * min(p.recover_num, p.select))
-    rec_s = need_rec[col_s.clamp(max=n - 1).long()]
+    rec_s = need_rec[col_s.long()]
     final_s = torch.where(rec_s, pos < p.recover_num,
-                          cut_s & (pos < p.select)) & (col_s < n)
-    keep = torch.empty(cap, dtype=torch.bool, device=a.device)
+                          cut_s & (pos < p.select))
+    keep = torch.empty(live, dtype=torch.bool, device=a.device)
     keep[eid_s] = final_s
     return _compact(a, keep, out_capacity)
 

@@ -740,6 +740,34 @@ def test_mcl_card_matches_cpu(cuda):
         assert out["launches"][name] >= out["iters"]
 
 
+def test_mcl_prune_pad_heavy_on_card_matches_cpu(cuda):
+    """``_mcl_prune`` on a CUDA input whose buffer holds 40 slots a live
+    entry (the expansion's share in the benchmark's MCL), values in steps
+    of 1/256 so that ties straddle the select and recovery ranks, equals
+    the same call on CPU tensors: keys and values exact, nnz counted past
+    the output's capacity."""
+    from combblas_tpu_torch.models import mcl
+    from combblas_tpu_torch.ops.coo import SpCOO
+
+    rng = np.random.default_rng(23)
+    n = 3000
+    d = rng.random((n, n)) < 0.02
+    r, c = np.nonzero(d)
+    v = np.round(rng.random(r.size) * 256) / 256
+    p = mcl.MCLParams(select=12, recover_num=16, cutoff=0.85)
+    for out_cap in (1 << 16, 20000):
+        got, want = (mcl._mcl_prune(SpCOO.from_arrays(
+            r, c, v.astype(np.float32), (n, n), capacity=40 * r.size,
+            device=dev), p, out_cap) for dev in (cuda, "cpu"))
+        assert got.device.type == "cuda"
+        assert int(got.nnz) == int(want.nnz) > 0
+        assert torch.equal(got.row.cpu(), want.row)
+        assert torch.equal(got.col.cpu(), want.col)
+        assert torch.equal(got.val.cpu().view(torch.int32),
+                           want.val.view(torch.int32))
+    assert int(want.nnz) > 20000
+
+
 def test_dist_graph_phase_on_card(cuda):
     """chip_smoke's phase 17 at scale 12: on a 4x4 block grid of the card,
     ``dist_spmv`` against ``torch.sparse.mm`` and ``spmv``, both

@@ -135,24 +135,149 @@ def test_inflate(power):
     _same(tmcl._inflate(ta, power), jmcl._inflate(ja, power))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cutoff=1e-3, select=6, recover_num=9, recover_pct=0.9),
-    dict(cutoff=2e-2, select=5, recover_num=7, recover_pct=0.9),
-    dict(cutoff=2e-3, select=3, recover_num=4, recover_pct=1.0),
-    dict(cutoff=1.5e-2, select=10, recover_num=2, recover_pct=0.5),
-], ids=["select", "recover", "tight", "floor_below_select"])
-@pytest.mark.parametrize("out_cap", [None, 300])
-def test_mcl_prune(kw, out_cap):
-    j2, t2 = _expanded(4)
+PRUNE_RULES = {
+    "select": dict(cutoff=1e-3, select=6, recover_num=9, recover_pct=0.9),
+    "recover": dict(cutoff=2e-2, select=5, recover_num=7, recover_pct=0.9),
+    "tight": dict(cutoff=2e-3, select=3, recover_num=4, recover_pct=1.0),
+    "floor_below_select": dict(cutoff=1.5e-2, select=10, recover_num=2,
+                               recover_pct=0.5),
+}
+
+#: The expansion's pad share in the benchmark's MCL: its buffer holds
+#: about 40 slots for each live entry.
+PAD_RATIO = 40
+
+
+def _prune_input(name):
+    """(JAX, port) input of ``test_mcl_prune``: ``expanded`` is A² as
+    ``spgemm_auto`` leaves it; ``pad40`` the same in ``PAD_RATIO`` times
+    its nnz; ``nopads`` with capacity == nnz; ``empty`` no live entry;
+    ``ties`` ``pad40`` with values rounded to multiples of 1/256, so
+    that equal values straddle the select and recovery ranks."""
+    j2, _ = _expanded(4)
+    nnz = int(j2.nnz)
+    if name == "pad40":
+        j2 = j2.with_capacity(PAD_RATIO * nnz)
+    elif name == "nopads":
+        j2 = j2.with_capacity(nnz)
+    elif name == "empty":
+        j2 = JCOO.empty(j2.shape, PAD_RATIO * 64)
+    elif name == "ties":
+        j2 = j2.with_capacity(PAD_RATIO * nnz)
+        j2 = dataclasses.replace(
+            j2, val=jax.numpy.round(j2.val * 256) / 256)
+    return j2, _port(j2)
+
+
+def _straddles(a, k):
+    """Some column's k-th and (k+1)-th largest live values are equal."""
+    nnz = int(a.nnz)
+    col = np.asarray(a.col)[:nnz]
+    val = np.abs(np.asarray(a.val)[:nnz])
+    for c in np.unique(col):
+        v = np.sort(val[col == c])[::-1]
+        if v.size > k and v[k - 1] == v[k]:
+            return True
+    return False
+
+
+# (out_cap, rules, input): None is the input's capacity
+PRUNE_CASES = [(o, r, "expanded") for o in (None, 300) for r in PRUNE_RULES]
+PRUNE_CASES += [(None, "select", "pad40"), (None, "recover", "pad40"),
+                (300, "select", "pad40"), (None, "select", "nopads"),
+                (None, "recover", "nopads"), (None, "select", "empty"),
+                (None, "select", "ties"), (None, "recover", "ties"),
+                (None, "tight", "ties")]
+
+
+@pytest.mark.parametrize(
+    "out_cap, rules, inp", PRUNE_CASES,
+    ids=[f"{o}-{r}" if i == "expanded" else f"{o}-{r}-{i}"
+         for o, r, i in PRUNE_CASES])
+def test_mcl_prune(out_cap, rules, inp):
+    kw = PRUNE_RULES[rules]
+    j2, t2 = _prune_input(inp)
     jp, tp = _params(**kw)
     cap = j2.capacity if out_cap is None else out_cap
     jo = jmcl._mcl_prune(j2, jp, cap)
     to = tmcl._mcl_prune(t2, tp, cap)
     _same(to, jo, rtol=0)
+    np.testing.assert_array_equal(to.val.numpy().view(np.int32),
+                                  np.asarray(jo.val).view(np.int32))
+    live = np.asarray(j2.val)[:int(j2.nnz)]
+    if inp == "empty":
+        assert int(to.nnz) == 0
+        return
     # the cases exercise all three rules: some entries under the cutoff
     # drop, some columns are cut to `select`, some recover
-    live = np.asarray(j2.val)[:int(j2.nnz)]
     assert (live < kw["cutoff"]).any() and (live >= kw["cutoff"]).any()
+    if inp == "pad40":
+        assert j2.capacity == PAD_RATIO * int(j2.nnz)
+    if inp == "nopads":
+        assert j2.capacity == int(j2.nnz)
+    if out_cap is not None and inp == "pad40":
+        # nnz counts the kept entries past the output's capacity
+        assert int(to.nnz) > out_cap == to.capacity
+    if inp == "ties":
+        assert _straddles(j2, kw["select"])
+        if rules == "recover":
+            assert _straddles(j2, kw["recover_num"])
+
+
+def test_mcl_prune_reads_only_the_live_prefix():
+    """Slots past nnz are pads by ``SpCOO``'s contract: poisoned with
+    in-range coordinates, large values and NaNs there, the prune's output
+    equals that of the same input with ``(m, n, 0)`` pads."""
+    _, t2 = _prune_input("pad40")
+    m, n = t2.shape
+    nnz, cap = int(t2.nnz), t2.capacity
+    g = torch.Generator().manual_seed(3)
+    row, col, val = t2.row.clone(), t2.col.clone(), t2.val.clone()
+    row[nnz:] = torch.randint(0, m, (cap - nnz,), generator=g,
+                              dtype=torch.int32)
+    col[nnz:] = torch.randint(0, n, (cap - nnz,), generator=g,
+                              dtype=torch.int32)
+    val[nnz:] = torch.where(torch.rand(cap - nnz, generator=g) < 0.5,
+                            float("nan"), 1e30)
+    poisoned = dataclasses.replace(t2, row=row, col=col, val=val)
+    assert (t2.row[nnz:] == m).all() and (t2.val[nnz:] == 0).all()
+    for kw in PRUNE_RULES.values():
+        p = tmcl.MCLParams(**kw)
+        want = tmcl._mcl_prune(t2, p, 1000)
+        got = tmcl._mcl_prune(poisoned, p, 1000)
+        assert int(got.nnz) == int(want.nnz) > 0
+        assert torch.equal(got.row, want.row)
+        assert torch.equal(got.col, want.col)
+        assert torch.equal(got.val.view(torch.int32),
+                          want.val.view(torch.int32))
+
+
+def test_prune_slots_counts_the_live_prefix(monkeypatch):
+    """``PRUNE_SLOTS`` after a small ``mcl_local``: one call an iteration,
+    ``live`` the summed nnz of the expansion's outputs, ``slots`` their
+    summed capacities; the reset zeroes it."""
+    d = _planted(11)
+    r, c = np.nonzero(d)
+    a = TCOO.from_arrays(r, c, d[r, c], d.shape, device="cpu")
+    expanded = []
+    spgemm = tmcl.spgemm_auto
+
+    def watched(*args, **kw):
+        out = spgemm(*args, **kw)
+        expanded.append((int(out.nnz), out.capacity))
+        return out
+
+    monkeypatch.setattr(tmcl, "spgemm_auto", watched)
+    tmcl.reset_prune_slots()
+    _, iters = tmcl.mcl_local(a, tmcl.MCLParams(select=8, recover_num=12,
+                                                cutoff=1e-3))
+    assert iters == len(expanded) > 1
+    assert tmcl.PRUNE_SLOTS == {
+        "calls": iters, "live": sum(n for n, _ in expanded),
+        "slots": sum(c for _, c in expanded)}
+    assert all(n < c for n, c in expanded)
+    tmcl.reset_prune_slots()
+    assert tmcl.PRUNE_SLOTS == {"calls": 0, "live": 0, "slots": 0}
 
 
 def test_mcl_prune_rules_fire():
