@@ -43,6 +43,7 @@ from combblas_tpu_torch.ops.kernels.expand import (
 )
 from combblas_tpu_torch.ops.spgemm import (
     SORT_ELEM_LIMIT,
+    _out_cap,
     _pallas_slab_plan,
     _slab_digest_step,
     _slab_extract,
@@ -51,6 +52,7 @@ from combblas_tpu_torch.ops.spgemm import (
     stream_capacity,
 )
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
+from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["seg_zero_state", "seg_plan", "seg_prepare", "seg_step",
            "spgemm_streamed_seg", "seg2_plan", "seg2_prepare", "seg2_step",
@@ -83,12 +85,17 @@ def _row_flops_exact(a: SpCOO, b_rp: torch.Tensor, span_cap: int):
 
 
 def seg_zero_state(device=None):
-    """Digest state (nnz int64, checksum f32, truncated bool), zeroed, on
-    ``device`` (the card when it is None)."""
+    """Digest state (nnz int64, checksum f32, truncated bool, signed f32),
+    zeroed, on ``device`` (the card when it is None).  ``signed`` sums C's
+    values with the sign of their column's parity (odd columns negated),
+    so it moves when a value lands under another column, which nnz and the
+    checksum cannot see; the classed route folds it, seg2 carries it
+    through at zero."""
     device = resolve_device(device)
     return (torch.zeros((), dtype=torch.int64, device=device),
             torch.zeros((), dtype=torch.float32, device=device),
-            torch.zeros((), dtype=torch.bool, device=device))
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((), dtype=torch.float32, device=device))
 
 
 # -- seg: row-classed slabs ---------------------------------------------
@@ -119,29 +126,31 @@ def seg_plan(a: SpCOO, b: SpCOO, num_slabs: int) -> dict:
     m, k = a.shape
     bounds, span_cap, slab_nnz_cap, chunk_cap, worst_fl = _pallas_slab_plan(
         a, b, num_slabs, wide=True)
-    # exact per-row flops over the whole matrix, classed on the host
-    b_rp = b.row_ptr().cpu().numpy().astype(np.int64)
-    nnz = int(a.nnz)
-    arow = a.row[:nnz].cpu().numpy()
-    acol = np.minimum(a.col[:nnz].cpu().numpy(), k - 1)
-    cnt = b_rp[acol + 1] - b_rp[acol]
-    rowfl = np.bincount(arow, weights=cnt, minlength=m).astype(np.int64)
-    widths = _widths_upto(int(rowfl.max(initial=1)))
-    nz = rowfl > 0
-    # class of a row = first width strictly greater than its flops
-    cls = np.searchsorted(np.asarray(widths, np.int64), rowfl, side="right")
-    S = len(bounds) - 1
-    s_caps = []
-    for i, w in enumerate(widths):
-        per_slab = np.zeros((S,), np.int64)
-        sel_rows = np.flatnonzero(nz & (cls == i))
-        if sel_rows.size:
-            sid = np.searchsorted(bounds, sel_rows, side="right") - 1
-            per_slab = np.bincount(sid, minlength=S)
-        cap = int(per_slab.max(initial=0))
-        gran = _width_gran(w)
-        s_caps.append(max(-(-max(cap, 1) // gran) * gran, gran))
-    stream_cap = stream_capacity(worst_fl + widths[-1])
+    with span("spgemm.plan", a.row):
+        # exact per-row flops over the whole matrix, classed on the host
+        b_rp = b.row_ptr().cpu().numpy().astype(np.int64)
+        nnz = int(a.nnz)
+        arow = a.row[:nnz].cpu().numpy()
+        acol = np.minimum(a.col[:nnz].cpu().numpy(), k - 1)
+        cnt = b_rp[acol + 1] - b_rp[acol]
+        rowfl = np.bincount(arow, weights=cnt, minlength=m).astype(np.int64)
+        widths = _widths_upto(int(rowfl.max(initial=1)))
+        nz = rowfl > 0
+        # class of a row = first width strictly greater than its flops
+        cls = np.searchsorted(np.asarray(widths, np.int64), rowfl,
+                              side="right")
+        S = len(bounds) - 1
+        s_caps = []
+        for i, w in enumerate(widths):
+            per_slab = np.zeros((S,), np.int64)
+            sel_rows = np.flatnonzero(nz & (cls == i))
+            if sel_rows.size:
+                sid = np.searchsorted(bounds, sel_rows, side="right") - 1
+                per_slab = np.bincount(sid, minlength=S)
+            cap = int(per_slab.max(initial=0))
+            gran = _width_gran(w)
+            s_caps.append(max(-(-max(cap, 1) // gran) * gran, gran))
+        stream_cap = stream_capacity(worst_fl + widths[-1])
     # JAX builds the class key cls * (span_cap + 1) + row in int32 with cls
     # up to len(widths) + 1; the port's key is int64, but refuses the same
     # plans
@@ -210,58 +219,83 @@ def _seg_slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
     ``plain=True`` runs the kernels' plain versions."""
     k = a.shape[1]
     dev = a.device
-    sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
-                                 slab_nnz_cap=slab_nnz_cap)
-    colstream, valstream, _total = expand_chunks_compact(
-        sub.row, sub.col, sub.val, sub.mask(), b_rp, b.col, b.val, sr,
-        stride=0, stream_cap=stream_cap, plain=plain)
-    rowfl, row_start = _row_flops_exact(sub, b_rp, span_cap)
-    wins = _class_windows(colstream, valstream, rowfl, row_start,
-                          classes=classes, s_caps=s_caps, span_cap=span_cap)
-    del colstream
-    padded = sum(sc * w for sc, w in zip(s_caps, classes))
-    cat_k = torch.empty(padded, dtype=torch.int32, device=dev)
-    cat_v = torch.empty(padded, dtype=valstream.dtype, device=dev)
-    del valstream
-    off = 0
-    for i, (S_c, L) in enumerate(zip(s_caps, classes)):
-        # each class sorts straight into its slice of the buffer; its
-        # windows and permutation go before the next class's sort
-        col2d, val2d, _rows, _lens = wins[i]
-        wins[i] = None
-        n = S_c * L
-        perm = torch.empty((S_c, L), dtype=torch.int64, device=dev)
-        torch.sort(col2d, dim=1, stable=True,
-                   out=(cat_k[off:off + n].view(S_c, L), perm))
-        del col2d
-        torch.gather(val2d, 1, perm, out=cat_v[off:off + n].view(S_c, L))
-        del val2d, perm
-        off += n
-    okey, oval, nnz = compress_sorted_packed(
-        cat_k, cat_v, sr, out_capacity=slab_out_cap, plain=plain)
-    cs = oval.sum()  # entries past nnz hold 0
-    nnz_total, checksum, truncated = state
-    return (nnz_total + nnz, checksum + cs,
-            truncated | (nnz >= slab_out_cap))
+    with span("seg.slab", a.row):
+        with span("seg.extract"):
+            sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
+                                         slab_nnz_cap=slab_nnz_cap)
+        with span("seg.expand"):
+            colstream, valstream, _total = expand_chunks_compact(
+                sub.row, sub.col, sub.val, sub.mask(), b_rp, b.col, b.val, sr,
+                stride=0, stream_cap=stream_cap, plain=plain)
+        with span("seg.windows"):
+            rowfl, row_start = _row_flops_exact(sub, b_rp, span_cap)
+            wins = _class_windows(colstream, valstream, rowfl, row_start,
+                                  classes=classes, s_caps=s_caps,
+                                  span_cap=span_cap)
+        del colstream
+        with span("seg.sort"):
+            padded = sum(sc * w for sc, w in zip(s_caps, classes))
+            cat_k = torch.empty(padded, dtype=torch.int32, device=dev)
+            cat_v = torch.empty(padded, dtype=valstream.dtype, device=dev)
+            del valstream
+            off = 0
+            for i, (S_c, L) in enumerate(zip(s_caps, classes)):
+                # each class sorts straight into its slice of the buffer;
+                # its windows and permutation go before the next class's
+                col2d, val2d, _rows, _lens = wins[i]
+                wins[i] = None
+                n = S_c * L
+                perm = torch.empty((S_c, L), dtype=torch.int64, device=dev)
+                torch.sort(col2d, dim=1, stable=True,
+                           out=(cat_k[off:off + n].view(S_c, L), perm))
+                del col2d
+                torch.gather(val2d, 1, perm,
+                             out=cat_v[off:off + n].view(S_c, L))
+                del val2d, perm
+                off += n
+        with span("seg.compress"):
+            okey, oval, nnz = compress_sorted_packed(
+                cat_k, cat_v, sr, out_capacity=slab_out_cap, plain=plain)
+        with span("seg.fold"):
+            # entries past nnz hold 0, so plain sums are the live sums
+            cs = oval.sum()
+            # odd columns' values negated: the key's low bit shifted onto
+            # the float32 value's sign bit
+            sg = (oval.view(torch.int32) ^ (okey << 31)).view(
+                torch.float32).sum()
+            nnz_total, checksum, truncated, signed = state
+            state = (nnz_total + nnz, checksum + cs,
+                     truncated | (nnz >= slab_out_cap), signed + sg)
+    return state
 
 
 def seg_prepare(a: SpCOO, b: SpCOO, num_slabs: int,
                 slab_out_cap: int | None = None):
     """Hoistable state for the classed digest: (plan, b_rp, None,
     bounds_dev, slab_out_cap).  The ``None`` holds the place of JAX's B lane
-    tables, which the CUDA expansion does not need."""
+    tables, which the CUDA expansion does not need.  It depends on A's and
+    B's structure only, so a caller may build it once and hand it to every
+    :func:`spgemm_streamed_seg` of the same operands.
+
+    Raises :class:`SpGEMMSortLimitError` where a class sort (``s_caps[i]``
+    windows of ``classes[i]``) or the slab stream passes
+    :data:`SORT_ELEM_LIMIT`, as the other slab routes do: raise
+    ``num_slabs``."""
     plan = seg_plan(a, b, num_slabs)
     if plan["worst_fl"] + plan["classes"][-1] > plan["stream_cap"]:
         raise ValueError(
             f"windows of width {plan['classes'][-1]} would read past the "
             f"{plan['stream_cap']}-element stream of a slab of "
             f"{plan['worst_fl']} products")
+    check_sort_limit(plan["stream_cap"], "seg slab stream", SORT_ELEM_LIMIT)
+    for S_c, L in zip(plan["s_caps"], plan["classes"]):
+        check_sort_limit(S_c * L, f"seg class sort ({S_c} windows of {L})",
+                         SORT_ELEM_LIMIT)
     if slab_out_cap is None:
         slab_out_cap = round_capacity_frac(max(plan["worst_fl"], 2048))
-    slab_out_cap = max(-(-slab_out_cap // 128) * 128, 2048)
     bounds_dev = torch.as_tensor(plan["bounds"].astype(np.int64),
                                  device=a.device)
-    return plan, b.row_ptr(), None, bounds_dev, slab_out_cap
+    return plan, b.row_ptr(), None, bounds_dev, _out_cap(slab_out_cap)
 
 
 def seg_step(a: SpCOO, b: SpCOO, prep, s: int, state,
@@ -278,16 +312,31 @@ def seg_step(a: SpCOO, b: SpCOO, prep, s: int, state,
 
 
 def spgemm_streamed_seg(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
-                        num_slabs: int, slab_out_cap: int | None = None):
+                        num_slabs: int | None = None,
+                        slab_out_cap: int | None = None, prep=None):
     """Slab-streamed digest SpGEMM via the classed pipeline: every product
     formed, every duplicate merged, each slab folded into the digest.
-    Returns (nnz_total int, checksum float, truncated bool)."""
-    prep = seg_prepare(a, b, num_slabs, slab_out_cap)
-    state = seg_zero_state(a.device)
-    for s in range(len(prep[0]["bounds"]) - 1):
-        state = seg_step(a, b, prep, s, state, sr)
-    nnz, checksum, truncated = state
-    return int(nnz), float(checksum), bool(truncated)
+    Returns (nnz_total int, checksum float, truncated bool, signed float);
+    ``signed`` as in :func:`seg_zero_state`.
+
+    ``prep``: a :func:`seg_prepare` of these operands, held by the caller
+    (as :func:`ops.spmv.spmm` takes its ELL plan); the call then runs only
+    the pass, with the same result bit for bit, and takes no
+    ``num_slabs`` or ``slab_out_cap``.  Without ``prep`` the plan is built
+    from ``num_slabs``."""
+    if prep is None and num_slabs is None:
+        raise ValueError("spgemm_streamed_seg needs num_slabs or prep")
+    if prep is not None and (num_slabs, slab_out_cap) != (None, None):
+        raise ValueError("a held prep fixes num_slabs and slab_out_cap: "
+                         "pass neither")
+    with span("seg.call", a.row):
+        if prep is None:
+            prep = seg_prepare(a, b, num_slabs, slab_out_cap)
+        state = seg_zero_state(a.device)
+        for s in range(len(prep[0]["bounds"]) - 1):
+            state = seg_step(a, b, prep, s, state, sr)
+        nnz, checksum, truncated, signed = state
+        return int(nnz), float(checksum), bool(truncated), float(signed)
 
 
 # -- seg2: sorted-row uniform-width slabs ---------------------------------
@@ -553,9 +602,9 @@ def _seg2_slab_digest_step(a2: SpCOO, b: SpCOO, b_rp, bounds, s: int,
         col2d.reshape(-1), val2d.reshape(-1), sr, out_capacity=slab_out_cap,
         plain=plain)
     cs = oval.sum()  # entries past nnz hold 0
-    nnz_total, checksum, truncated = state
+    nnz_total, checksum, truncated, signed = state
     return (nnz_total + nnz, checksum + cs,
-            truncated | (nnz >= slab_out_cap))
+            truncated | (nnz >= slab_out_cap), signed)
 
 
 def seg2_prepare(a: SpCOO, b: SpCOO, *, flops_cap: int = 1 << 28,
@@ -581,10 +630,10 @@ def seg2_step(b: SpCOO, prep, s: int, state, sr: Semiring = PLUS_TIMES, *,
     sl = cfg["slabs"][s]
     if sl["flat"]:
         return _slab_digest_step(
-            a2, b, b_rp, bounds_dev, s, state, sr,
+            a2, b, b_rp, bounds_dev, s, state[:3], sr,
             span_cap=sl["s_pad"], slab_nnz_cap=sl["nnz_cap"],
             slab_out_cap=slab_out_cap, stream_cap=sl["flat_stream_cap"],
-            wide=True, plain=plain)
+            wide=True, plain=plain) + state[3:]
     if sl["flops"] + sl["w"] > cfg["stream_cap"]:
         raise ValueError(f"slab {s}: windows of width {sl['w']} would read "
                          f"past the {cfg['stream_cap']}-element stream")
@@ -607,5 +656,5 @@ def spgemm_streamed_seg2(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,
     state = seg_zero_state(a.device)
     for s in range(len(prep[1]["slabs"])):
         state = seg2_step(b, prep, s, state, sr)
-    nnz, checksum, truncated = state
+    nnz, checksum, truncated, _signed = state
     return int(nnz), float(checksum), bool(truncated)

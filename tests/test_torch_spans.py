@@ -18,6 +18,7 @@ from combblas_tpu_torch.gen.rmat import rmat_matrix
 from combblas_tpu_torch.models.bfs import bfs_batch_pull_big
 from combblas_tpu_torch.models.mcl import MCLParams, mcl_local
 from combblas_tpu_torch.ops import spgemm as tsg
+from combblas_tpu_torch.ops import spgemm_seg as tseg
 from combblas_tpu_torch.ops.spmv import spmm
 from combblas_tpu_torch.utils import timers
 
@@ -72,8 +73,13 @@ def _mcl(a):
     return mcl_local(a, MCLParams(select=32, recover_num=32))
 
 
+def _seg(a):
+    return tseg.spgemm_streamed_seg(a, a, num_slabs=5)
+
+
 CALLS = {"spgemm_auto": (_a2, 7), "mcl_local": (_mcl, 7),
-         "bfs_batch_pull_big": (_bfs, 8), "spmm": (_spmm, 8)}
+         "bfs_batch_pull_big": (_bfs, 8), "spmm": (_spmm, 8),
+         "spgemm_streamed_seg": (_seg, 8)}
 
 
 def _flat(out) -> list:
@@ -152,6 +158,30 @@ def test_spgemm_auto_slabs_and_attempts(nnz_estimate, monkeypatch):
                 "spgemm.extract", "spgemm.expand", "spgemm.sort",
                 "spgemm.compress", "spgemm.assemble"]
     assert _children(sp, 0) == ["spgemm.plan"] + ["spgemm.attempt"] * attempts
+
+
+@pytest.mark.parametrize("held", [True, False])
+def test_streamed_seg_slabs(held):
+    """One ``seg.call`` a call; ``seg.slab`` and each of its steps once a
+    slab of the plan; a call that builds its plan does so inside
+    ``seg.call``, in ``spgemm.plan`` spans (the slab plan, the classes)."""
+    a = _graph(8)
+    prep = tseg.seg_prepare(a, a, 5)
+    slabs = len(prep[0]["bounds"]) - 1
+    assert slabs == 5
+    kw = {"prep": prep} if held else {"num_slabs": 5}
+    out, sp, _ = _traced(lambda: tseg.spgemm_streamed_seg(a, a, **kw))
+    assert out == tseg.spgemm_streamed_seg(a, a, prep=prep)
+    steps = ["seg.extract", "seg.expand", "seg.windows", "seg.sort",
+             "seg.compress", "seg.fold"]
+    assert _count(sp, "seg.call") == 1 and sp[0].name == "seg.call"
+    for name in ["seg.slab"] + steps:
+        assert _count(sp, name) == slabs, name
+    assert _children(sp, 0) == ([] if held else ["spgemm.plan"] * 2) + \
+        ["seg.slab"] * slabs
+    for i, s in enumerate(sp):
+        if s.name == "seg.slab":
+            assert _children(sp, i) == steps
 
 
 def test_mcl_iterations():
@@ -256,3 +286,28 @@ def test_spans_time_the_card():
     assert 0 < inner.device_ns < outer.device_ns
     assert abs(outer.self_ns - (outer.device_ns - inner.device_ns)) <= 1000
     assert inner.self_ns == inner.device_ns and outer.host_ns > 0
+
+
+@pytest.mark.gpu
+def test_seg_spans_on_the_card():
+    """On the card (K1/K2 launched): one ``seg.slab`` and one of each step
+    a slab of the held plan, each timed on the device, and the digest the
+    same bit for bit with tracing on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = rmat_matrix(gen, 14, edgefactor=8, symmetrize=True,
+                    remove_self_loops=True)
+    prep = tseg.seg_prepare(a, a, 6)
+    slabs = len(prep[0]["bounds"]) - 1
+    off = tseg.spgemm_streamed_seg(a, a, prep=prep)
+    acts = CPU + [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        on = tseg.spgemm_streamed_seg(a, a, prep=prep)
+    sp = timers.spans()
+    assert on == off
+    assert _count(sp, "seg.call") == 1
+    for name in ("seg.slab", "seg.extract", "seg.expand", "seg.windows",
+                 "seg.sort", "seg.compress", "seg.fold"):
+        assert _count(sp, name) == slabs, name
+    assert all(s.device_ns > 0 for s in sp if s.name == "seg.sort")

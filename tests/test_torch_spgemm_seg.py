@@ -144,9 +144,9 @@ def test_seg_digest_matches_jax_every_slab(num_slabs, sr_name):
         np.testing.assert_allclose(float(tstate[1]), float(jstate[2]),
                                    rtol=1e-5)
         assert bool(tstate[2]) == bool(jstate[3]) is False
-    nnz, cks, trunc = tseg.spgemm_streamed_seg(ta, tb, t_sr,
-                                               num_slabs=num_slabs)
-    assert (nnz, cks, trunc) == (int(tstate[0]), float(tstate[1]), False)
+    got = tseg.spgemm_streamed_seg(ta, tb, t_sr, num_slabs=num_slabs)
+    assert got == (int(tstate[0]), float(tstate[1]), False,
+                   float(tstate[3]))
 
 
 @pytest.mark.parametrize("case", ["dense-0-0.04", "dense-1-0.15", "skewed"])
@@ -164,7 +164,8 @@ def test_seg_equals_seg2_and_dense(case):
               * rng.random((80, 64))).astype(np.float32)
     a = TCOO.from_dense(ad, device="cpu")
     b = TCOO.from_dense(bd, device="cpu")
-    nnz, cks, trunc = tseg.spgemm_streamed_seg(a, b, T_PT, num_slabs=3)
+    nnz, cks, trunc, signed = tseg.spgemm_streamed_seg(a, b, T_PT,
+                                                       num_slabs=3)
     nnz2, cks2, trunc2 = tseg.spgemm_streamed_seg2(
         a, b, T_PT, flops_cap=1 << 12, pad_cap=1 << 16)
     ref = ad.astype(np.float64) @ bd.astype(np.float64)
@@ -172,6 +173,9 @@ def test_seg_equals_seg2_and_dense(case):
     assert nnz == nnz2 == int((ref != 0).sum())
     np.testing.assert_allclose(cks, cks2, rtol=1e-5)
     np.testing.assert_allclose(cks, ref.sum(), rtol=1e-5)
+    # odd columns negated
+    sign = 1 - 2 * (np.arange(ref.shape[1]) % 2)
+    assert abs(signed - (ref * sign).sum()) <= 1e-5 * np.linalg.norm(ref)
 
 
 def _span_cap_patched(monkeypatch, module, span_cap):
@@ -227,8 +231,9 @@ def test_seg_truncation_flag():
     a = TCOO.from_dense(d, device="cpu")
     full = int(((d @ d) != 0).sum())
     assert full > 2048
-    nnz, _cks, trunc = tseg.spgemm_streamed_seg(a, a, T_PT, num_slabs=1)
+    nnz, _cks, trunc, _sg = tseg.spgemm_streamed_seg(a, a, T_PT,
+                                                     num_slabs=1)
     assert not trunc and nnz == full
-    nnz, _cks, trunc = tseg.spgemm_streamed_seg(a, a, T_PT, num_slabs=1,
-                                                slab_out_cap=2048)
+    nnz, _cks, trunc, _sg = tseg.spgemm_streamed_seg(a, a, T_PT, num_slabs=1,
+                                                     slab_out_cap=2048)
     assert trunc and nnz == 2048
