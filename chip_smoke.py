@@ -161,9 +161,16 @@ Phases, each raising on failure:
  25. (run right after phase 5, on its matrix) the row-classed seg digest
      of the scale-22 A² through ``seg_prepare`` / ``seg_step`` in slabs of
      2^28 products, one sync a slab: nnz equal to phase 5's, checksum
-     within 1e-5 relative, not truncated, K1 and K2 launched once a slab
-     and nothing else; the heaviest, middle and last slabs again against
-     the plain versions; the scale-16 classed digest against scipy; the
+     within 1e-5 relative, not truncated, K1, K2 and the window sort's
+     (K10) wide sort launched once a slab, its narrow kernel once a slab
+     and width range, and nothing else; the whole pass again with the
+     window sort's plain version in K10's place, the digest (signed sum
+     included) equal bit for bit; on the heaviest slab K10's class buffer
+     equal to the plain version's slot for slot, both timed (the
+     ``kernels`` line's K10 rows); the heaviest, middle and last slabs
+     again with the plain window sort (bit for bit) and with every plain
+     version (nnz exact, checksum and signed sum within 1e-5 of the
+     checksum); the scale-16 classed digest against scipy; the
      one-process ``initialize_multihost`` / ``is_coordinator`` /
      ``pod_grid``;
  26. the pod on the one card: block grids spread over several processes
@@ -245,10 +252,12 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -269,6 +278,7 @@ from combblas_tpu_torch.models.bfs import (
     bfs_push_local,
     validate_bfs,
 )
+from combblas_tpu_torch.ops import spgemm_seg
 from combblas_tpu_torch.ops.kernels import (
     LAUNCHES,
     _build,
@@ -279,8 +289,16 @@ from combblas_tpu_torch.ops.kernels import compress as kc
 from combblas_tpu_torch.ops.kernels import expand as ke
 from combblas_tpu_torch.ops.kernels.ell import ell_fold, ell_pieces
 from combblas_tpu_torch.ops.kernels.ring import ring_shift
+from combblas_tpu_torch.ops.kernels.winsort import (
+    NARROW_MAX,
+    key_bits,
+    regimes,
+    window_sort,
+    window_sort_plain,
+)
 from combblas_tpu_torch.ops.spgemm import (
     _pallas_slab_plan,
+    _slab_extract,
     _slab_stats,
     round_capacity_frac,
     spgemm_auto,
@@ -290,6 +308,8 @@ from combblas_tpu_torch.ops.spgemm import (
     stream_capacity,
 )
 from combblas_tpu_torch.ops.spgemm_seg import (
+    _row_flops_exact,
+    _window_table,
     seg2_prepare,
     seg2_step,
     seg_prepare,
@@ -344,6 +364,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                    "combblas_tpu/parallel/rma.py:47"),
     "ring_shift_pod": ("combblas_tpu_torch/csrc/ring.cu",
                        "combblas_tpu/parallel/rma.py:47"),
+    # K10 replaces no TPU kernel: the JAX package sorts the classed
+    # digest's windows with XLA's sort
+    "winsort_narrow": ("combblas_tpu_torch/csrc/winsort.cu", None),
+    "winsort_wide": ("combblas_tpu_torch/csrc/winsort.cu", None),
 }
 #: The forced small piece length of phase 6's second check (positions of
 #: an ELL piece, entries of a K8 range).
@@ -815,10 +839,94 @@ SEG_SLAB_FLOPS = 1 << 28
 SEG_CHECK_SLAB_FLOPS = 1 << 20
 
 
+def _plain_window_sort(col, val, table, *, key_bits, plain, **kw):
+    """The window sort's plain version in K10's place, K1 and K2 kept."""
+    return window_sort_plain(col, val, table, **kw)
+
+
+def _state_bits(state) -> list:
+    """A digest state as ints: nnz, the checksum's bits, truncated, the
+    signed sum's bits (one sync)."""
+    nnz, cks, trunc, signed = state
+    return [int(nnz), int(cks.reshape(1).view(torch.int32)), bool(trunc),
+            int(signed.reshape(1).view(torch.int32))]
+
+
+def k10_slab(a, prep, s: int) -> dict:
+    """K10 on slab ``s`` of phase 25's plan: its class buffer against the
+    window sort's plain version (the seg step's ``torch.sort(dim=1)``
+    route) on the same K1 stream and window table, slot for slot and value
+    bits included; both timed with CUDA events (K10 on a fresh copy of the
+    stream each call, which it overwrites, the copy outside the timing)."""
+    plan, b_rp, class_table, bounds, _cap = prep
+    sub, _ = _slab_extract(a, a.shape[1], bounds, s,
+                           span_cap=plan["span_cap"],
+                           slab_nnz_cap=plan["slab_nnz_cap"])
+    col, val, _total = ke.expand_chunks_compact(
+        sub.row, sub.col, sub.val, sub.mask(), b_rp, a.col, a.val,
+        PLUS_TIMES, stride=0, stream_cap=plan["stream_cap"])
+    rowfl, row_start = _row_flops_exact(sub, b_rp, plan["span_cap"])
+    table = _window_table(rowfl, row_start, class_table,
+                          windows=sum(plan["s_caps"]),
+                          span_cap=plan["span_cap"])
+    del sub, rowfl, row_start
+    kw = dict(classes=plan["classes"], s_caps=plan["s_caps"])
+    bits = key_bits(a.shape[1])
+
+    def timed(fn, reps):
+        out, ms = None, []
+        for _ in range(reps):
+            args = (col.clone(), val.clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            del args
+        return out, ms
+
+    want, plain_ms = timed(
+        lambda c, v: window_sort_plain(c, v, table, **kw), 3)
+    before = dict(LAUNCHES)
+    got, ms = timed(
+        lambda c, v: window_sort(c, v, table, key_bits=bits, **kw), 5)
+    launches = {k: (v - before[k]) // 5 for k, v in LAUNCHES.items()
+                if v != before[k]}
+    bad = (int((got[0] != want[0]).sum())
+           + int((got[1].view(torch.int32) != want[1].view(torch.int32))
+                 .sum()))
+    live = int(table[1].sum())
+    del got, want, col, val, table
+    narrow = [(L, S) for L, S in zip(plan["classes"], plan["s_caps"])
+              if L <= NARROW_MAX]
+    # bytes: a product read (key and value), a slot written (key and value)
+    line = dict(slab=s, products=live, padded=plan["padded"],
+                windows=sum(plan["s_caps"]),
+                narrow_windows=sum(S for _L, S in narrow),
+                narrow_padded=sum(S * L for L, S in narrow),
+                key_bits=bits, passes=-(-bits // 8), mismatched_slots=bad,
+                max_abs_err=0.0 if bad == 0 else None,
+                ms=statistics.median(ms), ms_each=ms,
+                plain_ms=statistics.median(plain_ms), plain_ms_each=plain_ms,
+                library_ms=statistics.median(plain_ms),
+                launches_per_call=launches,
+                **bound(8 * live + 8 * plan["padded"], 0))
+    line["bound_share"] = line["bound_ms"] / line["ms"]
+    log(json.dumps({"k10": line}))
+    if bad:
+        raise AssertionError(f"slab {s}: K10's class buffer differs from the "
+                             f"plain version's in {bad} slots")
+    return line
+
+
 def seg_full(a, want: dict, dev, details: dict) -> dict:
     """Phase 25: the classed seg digest of phase 5's A² (``want`` is phase
-    5's line), every slab with one scalar sync, then three slabs again with
-    the kernels and their plain versions."""
+    5's line), every slab with one scalar sync; the pass again with the
+    plain window sort in K10's place; K10 alone on the heaviest slab; then
+    three slabs again with the kernels and their plain versions."""
     flops = want["flops"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -837,8 +945,8 @@ def seg_full(a, want: dict, dev, details: dict) -> dict:
     state, per_nnz, per_secs = run_slabs(step, S, dev, sync_each=True)
     secs = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    nnz_c, checksum, truncated = (int(state[0]), float(state[1]),
-                                  bool(state[2]))
+    nnz_c, checksum, truncated, signed = (int(state[0]), float(state[1]),
+                                          bool(state[2]), float(state[3]))
     rel = abs(checksum - want["checksum"]) / abs(want["checksum"])
     _nnz_s, _ch_s, fl_s = _slab_stats(a, a, prep[3], S)
     line = dict(
@@ -847,7 +955,7 @@ def seg_full(a, want: dict, dev, details: dict) -> dict:
         span_cap=plan["span_cap"], stream_cap=plan["stream_cap"],
         slab_out_cap=prep[4], plan_secs=plan_secs, secs=secs,
         products_per_s=flops / secs, nnz_c=nnz_c, checksum=checksum,
-        checksum_rel_vs_phase5=rel, truncated=truncated,
+        checksum_rel_vs_phase5=rel, truncated=truncated, signed=signed,
         launches={k: v for k, v in launches.items() if v},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     log(json.dumps(line))
@@ -860,25 +968,50 @@ def seg_full(a, want: dict, dev, details: dict) -> dict:
             f"{want['checksum']!r})")
     want_launches = dict.fromkeys(LAUNCHES, 0)
     want_launches.update(expand_i32=S, compress_i32=S)
+    for cap, w0, w1 in regimes(plan["classes"], plan["s_caps"]):
+        if w1 > w0:
+            want_launches["winsort_narrow" if cap else "winsort_wide"] += S
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches}")
-    # the heaviest, the middle and the last slab again, kernels and plain
-    # versions, each from a zero state
+    # the pass again with the plain window sort: the signed sum is the part
+    # of the digest that sees a value under another column
+    with mock.patch.object(spgemm_seg, "window_sort", _plain_window_sort):
+        twin, _, _ = run_slabs(step, S, dev, sync_each=False)
+    got_bits, twin_bits = _state_bits(state), _state_bits(twin)
+    log(f"  the pass with the plain window sort: digest bits {twin_bits} "
+        f"vs K10's {got_bits}")
+    if got_bits != twin_bits:
+        raise AssertionError("the plain window sort's pass gives another "
+                             "digest than K10's")
+    line["k10"] = k10_slab(a, prep, int(np.argmax(fl_s)))
+    # the heaviest, the middle and the last slab again, from a zero state:
+    # with the plain window sort in K10's place (bit for bit) and with every
+    # plain version (K2's plain sums run in another order)
     for s in dict.fromkeys([int(np.argmax(fl_s)), S // 2, S - 1]):
         got = step(s, seg_zero_state(dev))
+        with mock.patch.object(spgemm_seg, "window_sort",
+                               _plain_window_sort):
+            mid = step(s, seg_zero_state(dev))
         ref = step(s, seg_zero_state(dev), plain=True)
         g_nnz, r_nnz = int(got[0]), int(ref[0])
         g_cks, r_cks = float(got[1]), float(ref[1])
+        g_sgn, r_sgn = float(got[3]), float(ref[3])
         s_rel = abs(g_cks - r_cks) / max(abs(r_cks), 1e-30)
+        sgn_rel = abs(g_sgn - r_sgn) / max(abs(r_cks), 1e-30)
+        same = _state_bits(got) == _state_bits(mid)
         log(f"  slab {s} ({int(fl_s[s])} products): nnz {g_nnz} kernels vs "
             f"{r_nnz} plain (main pass {per_nnz[s]}), checksum rel "
-            f"{s_rel:.2e}")
+            f"{s_rel:.2e}, signed sum {g_sgn!r} vs {r_sgn!r} ({sgn_rel:.2e} "
+            f"of the checksum); with the plain window sort bit for bit: "
+            f"{same}")
         if not (g_nnz == r_nnz == per_nnz[s]) or not s_rel <= 1e-5:
             raise AssertionError(f"slab {s}: kernels and plain versions "
                                  "disagree")
+        if not sgn_rel <= 1e-5 or not same:
+            raise AssertionError(f"slab {s}: the signed sums disagree")
         if bool(got[2]) or bool(ref[2]):
             raise AssertionError(f"slab {s}: truncated")
-    del prep, got, ref
+    del prep, got, mid, ref, twin
     torch.cuda.empty_cache()
     return line
 
@@ -6537,10 +6670,16 @@ def main() -> int:
                     ring_shift=ring_line["summa_spgemm_rma 4x4"][
                         "launches"]["ring_shift"],
                     ring_shift_pod=pod_line["launches"]["rma_4x4"][
-                        "ring_shift_pod"])
+                        "ring_shift_pod"],
+                    winsort_narrow=seg_line["launches"].get(
+                        "winsort_narrow", 0),
+                    winsort_wide=seg_line["launches"].get("winsort_wide", 0))
+    # K10's two regimes run in one call: both rows carry that call's times
     measured = dict(k3, expand_chunks_i32=k9, ring_shift=k12["phase14"],
                     ring_shift_pod=dict(pod_line["k9"]["main"],
-                                        library_ms=None))
+                                        library_ms=None),
+                    winsort_narrow=seg_line["k10"],
+                    winsort_wide=seg_line["k10"])
     for name, rows in k6.items():
         measured[name] = dict(rows[0], max_abs_err=max(
             r["max_abs_err"] for r in rows))

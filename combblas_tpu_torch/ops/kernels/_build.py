@@ -71,6 +71,16 @@ _SIGNATURES = {
     "cbt_ipc_close": [_I32, _P],
     "cbt_ipc_free": [_I32, _P],
     "cbt_copy": [_P, _P, _I64, _P],
+    # col, val, start, len, dest, width (each offset to the first window),
+    # windows, cap, bits, out_key, out_val, stream (csrc/winsort.cu)
+    "cbt_winsort_narrow": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P,
+                           _P],
+    # col, val, start, len, dest, width, windows, bits, scratch_key,
+    # scratch_val, tile_cum, tail_cum, tile_win, tail_win, max_tiles,
+    # max_chunks, hist, state (zeroed), max_scan_tiles, out_key, out_val,
+    # stream
+    "cbt_winsort_wide": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P, _P, _P, _P,
+                         _P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _P],
 }
 
 _lib = None
@@ -151,13 +161,21 @@ def library() -> ctypes.CDLL:
     lib.cbt_ipc_handle_bytes.argtypes = []
     lib.cbt_ipc_handle_bytes.restype = ctypes.c_int64
     # the wrappers size their scratch by the kernels' tiles (imported here:
-    # both wrapper modules import this one)
+    # the wrapper modules import this one)
     from combblas_tpu_torch.ops.kernels.compress import COMPRESS_TILE
     from combblas_tpu_torch.ops.kernels.expand import (EXPAND_CHUNKS_TILE,
                                                        EXPAND_TILE)
+    from combblas_tpu_torch.ops.kernels.winsort import (NARROW_MAX,
+                                                        SCAN_TILE,
+                                                        TAIL_CHUNK,
+                                                        WINSORT_TILE)
     for name, tile in (("cbt_expand_tile", EXPAND_TILE),
                        ("cbt_expand_chunks_tile", EXPAND_CHUNKS_TILE),
-                       ("cbt_compress_tile", COMPRESS_TILE)):
+                       ("cbt_compress_tile", COMPRESS_TILE),
+                       ("cbt_winsort_tile", WINSORT_TILE),
+                       ("cbt_winsort_tail_chunk", TAIL_CHUNK),
+                       ("cbt_winsort_scan_tile", SCAN_TILE),
+                       ("cbt_winsort_narrow_max", NARROW_MAX)):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int64

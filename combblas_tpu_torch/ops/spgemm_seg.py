@@ -24,7 +24,11 @@ of the half-octave ladder 128, 192, 256, 384, ... above its product count;
 every slab sorts every class at the largest row count any slab has in it
 (:func:`seg_plan`), and the classes are laid end to end, in class order,
 into one buffer for K2.  That layout is JAX's, and it is kept: K2's float
-sums depend on where a run falls in the stream.
+sums depend on where a run falls in the stream.  The buffer is formed from
+the stream and a window table (:func:`_window_table`) by one window sort
+kernel (K10, :mod:`ops.kernels.winsort`), or in its plain version by
+per-class ``torch.sort(dim=1)`` calls; :func:`_class_windows` keeps JAX's
+per-class window gather, which the tests hold the table to.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from combblas_tpu_torch.ops.kernels.expand import (
     KEY_SENTINEL,
     expand_chunks_compact,
 )
+from combblas_tpu_torch.ops.kernels.winsort import key_bits, window_sort
 from combblas_tpu_torch.ops.spgemm import (
     SORT_ELEM_LIMIT,
     _out_cap,
@@ -209,16 +214,57 @@ def _class_windows(colstream, valstream, rowfl, row_start, *,
     return out
 
 
+def _class_table(classes: tuple, s_caps: tuple, device) -> torch.Tensor:
+    """The plan's classes on ``device``, int64 (4, classes): widths, window
+    counts, each class's first window and its offset in the class buffer
+    (classes end to end)."""
+    w = np.asarray(classes, np.int64)
+    sc = np.asarray(s_caps, np.int64)
+    return torch.as_tensor(np.stack([w, sc, np.cumsum(sc) - sc,
+                                     np.cumsum(sc * w) - sc * w]),
+                           device=device)
+
+
+def _window_table(rowfl, row_start, class_table, *, windows: int,
+                  span_cap: int):
+    """The slab's windows as :func:`_class_windows` lays them out, one entry
+    each, in class order: (start, lens, dest, width), int64 of
+    ``windows``: the row's first product in the stream (0 for a dead
+    window), its product count (0), the window's offset in the class buffer
+    and its class width.  ``class_table`` is :func:`_class_table` of the
+    plan.  A fixed number of launches, whatever the classes, and no host
+    sync."""
+    dev = rowfl.device
+    R = span_cap + 1
+    ncls = class_table.shape[1]
+    widths, caps, win_off, elem_off = class_table
+    cls = torch.searchsorted(widths, rowfl, right=True)
+    cls = torch.where(rowfl > 0, cls, ncls + 1)  # empty rows sort last
+    skey = torch.sort(cls * R + torch.arange(R, device=dev)).values
+    cstarts = torch.searchsorted(skey, torch.arange(ncls + 1, device=dev) * R)
+    wcls = torch.repeat_interleave(torch.arange(ncls, device=dev), caps,
+                                   output_size=windows)
+    t = torch.arange(windows, device=dev) - win_off[wcls]
+    live = t < (cstarts[1:] - cstarts[:-1])[wcls]
+    rows = torch.where(live,
+                       skey[torch.clamp(cstarts[wcls] + t, max=R - 1)] % R,
+                       span_cap)
+    width = widths[wcls]
+    return (torch.where(live, row_start[rows], 0),
+            torch.where(live, rowfl[rows], 0),
+            elem_off[wcls] + t * width, width)
+
+
 def _seg_slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
                           sr: Semiring, *, span_cap: int, slab_nnz_cap: int,
                           slab_out_cap: int, stream_cap: int, classes: tuple,
-                          s_caps: tuple, plain: bool = False):
+                          s_caps: tuple, class_table: torch.Tensor,
+                          plain: bool = False):
     """One slab of the classed digest: expand with int32 column keys (K1,
-    stride 0), per-class batched within-row sorts into one buffer laid out
-    class after class, one compress (K2), digest fold.  All on the device;
+    stride 0), within-row sorts into one buffer laid out class after class
+    (K10), one compress (K2), digest fold.  All on the device;
     ``plain=True`` runs the kernels' plain versions."""
     k = a.shape[1]
-    dev = a.device
     with span("seg.slab", a.row):
         with span("seg.extract"):
             sub, _row_lo = _slab_extract(a, k, bounds, s, span_cap=span_cap,
@@ -229,30 +275,13 @@ def _seg_slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
                 stride=0, stream_cap=stream_cap, plain=plain)
         with span("seg.windows"):
             rowfl, row_start = _row_flops_exact(sub, b_rp, span_cap)
-            wins = _class_windows(colstream, valstream, rowfl, row_start,
-                                  classes=classes, s_caps=s_caps,
-                                  span_cap=span_cap)
-        del colstream
+            table = _window_table(rowfl, row_start, class_table,
+                                  windows=sum(s_caps), span_cap=span_cap)
         with span("seg.sort"):
-            padded = sum(sc * w for sc, w in zip(s_caps, classes))
-            cat_k = torch.empty(padded, dtype=torch.int32, device=dev)
-            cat_v = torch.empty(padded, dtype=valstream.dtype, device=dev)
-            del valstream
-            off = 0
-            for i, (S_c, L) in enumerate(zip(s_caps, classes)):
-                # each class sorts straight into its slice of the buffer;
-                # its windows and permutation go before the next class's
-                col2d, val2d, _rows, _lens = wins[i]
-                wins[i] = None
-                n = S_c * L
-                perm = torch.empty((S_c, L), dtype=torch.int64, device=dev)
-                torch.sort(col2d, dim=1, stable=True,
-                           out=(cat_k[off:off + n].view(S_c, L), perm))
-                del col2d
-                torch.gather(val2d, 1, perm,
-                             out=cat_v[off:off + n].view(S_c, L))
-                del val2d, perm
-                off += n
+            cat_k, cat_v = window_sort(
+                colstream, valstream, table, classes=classes, s_caps=s_caps,
+                key_bits=key_bits(b.shape[1]), plain=plain)
+        del colstream, valstream, table
         with span("seg.compress"):
             okey, oval, nnz = compress_sorted_packed(
                 cat_k, cat_v, sr, out_capacity=slab_out_cap, plain=plain)
@@ -271,11 +300,12 @@ def _seg_slab_digest_step(a: SpCOO, b: SpCOO, b_rp, bounds, s: int, state,
 
 def seg_prepare(a: SpCOO, b: SpCOO, num_slabs: int,
                 slab_out_cap: int | None = None):
-    """Hoistable state for the classed digest: (plan, b_rp, None,
-    bounds_dev, slab_out_cap).  The ``None`` holds the place of JAX's B lane
-    tables, which the CUDA expansion does not need.  It depends on A's and
-    B's structure only, so a caller may build it once and hand it to every
-    :func:`spgemm_streamed_seg` of the same operands.
+    """Hoistable state for the classed digest: (plan, b_rp, class_table,
+    bounds_dev, slab_out_cap).  ``class_table`` (:func:`_class_table`, the
+    plan's classes on the device, read by the window table) takes the place
+    of JAX's B lane tables, which the CUDA expansion does not need.  It
+    depends on A's and B's structure only, so a caller may build it once
+    and hand it to every :func:`spgemm_streamed_seg` of the same operands.
 
     Raises :class:`SpGEMMSortLimitError` where a class sort (``s_caps[i]``
     windows of ``classes[i]``) or the slab stream passes
@@ -295,7 +325,9 @@ def seg_prepare(a: SpCOO, b: SpCOO, num_slabs: int,
         slab_out_cap = round_capacity_frac(max(plan["worst_fl"], 2048))
     bounds_dev = torch.as_tensor(plan["bounds"].astype(np.int64),
                                  device=a.device)
-    return plan, b.row_ptr(), None, bounds_dev, _out_cap(slab_out_cap)
+    return (plan, b.row_ptr(),
+            _class_table(plan["classes"], plan["s_caps"], a.device),
+            bounds_dev, _out_cap(slab_out_cap))
 
 
 def seg_step(a: SpCOO, b: SpCOO, prep, s: int, state,
@@ -303,12 +335,12 @@ def seg_step(a: SpCOO, b: SpCOO, prep, s: int, state,
     """One slab step of the classed digest on hoisted ``prep`` state (the
     host loop drives ``s``).  Returns the new digest state; nothing syncs
     with the host."""
-    plan, b_rp, _tables, bounds_dev, slab_out_cap = prep
+    plan, b_rp, class_table, bounds_dev, slab_out_cap = prep
     return _seg_slab_digest_step(
         a, b, b_rp, bounds_dev, s, state, sr, span_cap=plan["span_cap"],
         slab_nnz_cap=plan["slab_nnz_cap"], slab_out_cap=slab_out_cap,
         stream_cap=plan["stream_cap"], classes=plan["classes"],
-        s_caps=plan["s_caps"], plain=plain)
+        s_caps=plan["s_caps"], class_table=class_table, plain=plain)
 
 
 def spgemm_streamed_seg(a: SpCOO, b: SpCOO, sr: Semiring = PLUS_TIMES, *,

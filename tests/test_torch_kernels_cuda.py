@@ -291,6 +291,216 @@ def test_seg_slice_kernels_match_plain(cuda):
         assert abs(float(g[1]) - float(w[1])) <= 1e-5 * abs(float(w[1])), s
 
 
+# K10, the window sort of the classed digest: poisoned outputs and scratch,
+# compared slot for slot with its plain version (the value bits included)
+
+
+def _poison_winsort(padded, stream_len, dev, wide=True):
+    """Poisoned blocks for the window sort's class buffer and, with
+    ``wide``, the stream-sized scratch of its passes."""
+    sizes = [4 * padded, 4 * padded]
+    poison_allocator(sizes + ([4 * stream_len] * 2 if wide else []), dev)
+
+
+def _same_buffers(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+def _winsort_slab_inputs(a, prep, s, dev):
+    """Slab ``s`` of ``a``'s classed A²: its K1 stream and window table."""
+    from combblas_tpu_torch.ops import spgemm_seg as tseg
+    from combblas_tpu_torch.ops.spgemm import _slab_extract
+
+    plan, b_rp, class_table, bounds, _cap = prep
+    sub, _ = _slab_extract(a, a.shape[1], bounds, s,
+                           span_cap=plan["span_cap"],
+                           slab_nnz_cap=plan["slab_nnz_cap"])
+    col, val, _total = texp.expand_chunks_compact(
+        sub.row, sub.col, sub.val, sub.mask(), b_rp, a.col, a.val,
+        tsr.PLUS_TIMES, stride=0, stream_cap=plan["stream_cap"])
+    rowfl, row_start = tseg._row_flops_exact(sub, b_rp, plan["span_cap"])
+    table = tseg._window_table(rowfl, row_start, class_table,
+                               windows=sum(plan["s_caps"]),
+                               span_cap=plan["span_cap"])
+    return col, val, rowfl, row_start, table
+
+
+@pytest.mark.parametrize("graph", ["ssca10", "ssca12", "ssca14", "ragged"])
+def test_winsort_matches_plain_on_slabs(cuda, graph):
+    """K10 on every slab of a classed A² (SSCA R-MATs at scales 10-14, and
+    a power-law matrix with a hub row): the class buffer equals the plain
+    version's and the seg step's own class sorts, slot for slot."""
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.ops import spgemm_seg as tseg
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    if graph == "ragged":
+        a = _ragged_coo(3, 4096, 4096, cuda)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        a = rmat_matrix(gen, int(graph[4:]), 8, symmetrize=True,
+                        remove_self_loops=True, probs=SSCA_PROBS)
+    prep = tseg.seg_prepare(a, a, num_slabs=4)
+    plan = prep[0]
+    kw = dict(classes=plan["classes"], s_caps=plan["s_caps"])
+    bits = twin.key_bits(a.shape[1])
+    for s in range(len(plan["bounds"]) - 1):
+        col, val, rowfl, row_start, table = _winsort_slab_inputs(a, prep, s,
+                                                                 cuda)
+        want = twin.window_sort_plain(col, val, table, **kw)
+        wins = tseg._class_windows(col, val, rowfl, row_start,
+                                   span_cap=plan["span_cap"], **kw)
+        steps = [torch.sort(w[0], dim=1, stable=True) for w in wins]
+        _same_buffers(want, (
+            torch.cat([k.reshape(-1) for k, _p in steps]),
+            torch.cat([torch.gather(w[1], 1, p).reshape(-1)
+                       for w, (_k, p) in zip(wins, steps)])))
+        col, val = col.clone(), val.clone()  # K10 overwrites the stream
+        _poison_winsort(plan["padded"], col.shape[0], cuda)
+        got = twin.window_sort(col, val, table, key_bits=bits, **kw)
+        torch.cuda.synchronize()
+        _same_buffers(got, want)
+
+
+def _synthetic_windows(dev, windows, key_hi, seed):
+    """A stream holding each window's products (row order shuffled, gaps
+    between rows) and its table: ``windows`` is [(width, live), ...] with
+    the widths ascending; keys below ``key_hi`` (a few values when it is
+    small, so runs of equal keys cross tiles), values distinct."""
+    rng = np.random.default_rng(seed)
+    classes = sorted({w for w, _n in windows})
+    s_caps = tuple(sum(1 for w, _n in windows if w == L) for L in classes)
+    lens = np.array([n for _w, n in windows], np.int64)
+    width = np.array([w for w, _n in windows], np.int64)
+    start = np.zeros(len(windows), np.int64)
+    pos = 0
+    for i in rng.permutation(len(windows)):
+        pos += int(rng.integers(0, 5))
+        start[i] = pos if lens[i] else 0
+        pos += int(lens[i])
+    col = rng.integers(0, key_hi, pos + 7).astype(np.int32)
+    val = (np.arange(pos + 7) + 0.5).astype(np.float32)
+    dest = np.concatenate([[0], np.cumsum(width)[:-1]])
+    table = tuple(torch.as_tensor(x, device=dev)
+                  for x in (start, lens, dest, width))
+    return (torch.as_tensor(col, device=dev), torch.as_tensor(val, device=dev),
+            table, tuple(classes), s_caps)
+
+
+_WINSORT_CASES = {
+    # live counts on both sides of the narrow limit and at it
+    "narrow_limit": [(12288, 12287), (16384, 16383), (16384, 9000),
+                     (24576, 16384), (24576, 16385), (24576, 24575)],
+    # dead windows in narrow and wide classes, and a dead wide class
+    "dead": [(128, 0), (128, 5), (128, 0), (4096, 0), (4096, 3000),
+             (32768, 0), (32768, 20000), (49152, 0)],
+    # a class of one window, among others
+    "one_window": [(192, 100), (192, 7), (1536, 1200), (2097152, 2000000),
+                   (3145728, 0)],
+    # many equal keys from different A entries, a run crossing the tiles
+    "equal_keys": [(256, 200), (16384, 16000), (262144, 250000)],
+    # live counts that are whole tiles (WINSORT_TILE = 16384) and not
+    "tile_multiple": [(512, 1), (24576, 16384), (24576, 20000),
+                      (49152, 32768), (65536, 49152), (65536, 49153)],
+}
+
+
+@pytest.mark.parametrize("key_bits", [7, 12, 22, 31])
+@pytest.mark.parametrize("case", sorted(_WINSORT_CASES))
+def test_winsort_cases_match_plain(cuda, case, key_bits):
+    """K10 on hand-made windows, at 1, 2, 3 and 4 passes of the wide
+    sort: the class buffer equals the plain version's slot for slot (the
+    equal keys keep their stream order: the values tell them apart)."""
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    key_hi = 3 if case == "equal_keys" else (1 << key_bits) - 1
+    col, val, table, classes, s_caps = _synthetic_windows(
+        cuda, _WINSORT_CASES[case], key_hi, seed=key_bits)
+    kw = dict(classes=classes, s_caps=s_caps)
+    before = dict(LAUNCHES)  # the plain run launches nothing
+    want = twin.window_sort(col, val, table, key_bits=key_bits, plain=True,
+                            **kw)
+    _same_buffers(want, twin.window_sort_plain(col, val, table, **kw))
+    padded = sum(S * L for S, L in zip(s_caps, classes))
+    col, val = col.clone(), val.clone()  # K10 overwrites the stream
+    _poison_winsort(padded, col.shape[0], cuda)
+    got = twin.window_sort(col, val, table, key_bits=key_bits, **kw)
+    torch.cuda.synchronize()
+    _same_buffers(got, want)
+    groups = twin.regimes(classes, s_caps)
+    assert LAUNCHES["winsort_wide"] - before["winsort_wide"] == sum(
+        cap is None for cap, _w0, _w1 in groups)
+    # one narrow launch per width range of NARROW_CAPS that holds windows
+    assert LAUNCHES["winsort_narrow"] - before["winsort_narrow"] == sum(
+        cap is not None for cap, _w0, _w1 in groups)
+
+
+def test_winsort_refuses_what_it_cannot_sort(cuda):
+    """8-byte values and key widths outside [1, 31] are refused on the
+    card."""
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    col, val, table, classes, s_caps = _synthetic_windows(
+        cuda, [(128, 10)], 100, seed=1)
+    kw = dict(classes=classes, s_caps=s_caps)
+    with pytest.raises(TypeError, match="4 bytes"):
+        twin.window_sort(col, val.double(), table, key_bits=7, **kw)
+    for bits in (0, 32):
+        with pytest.raises(ValueError, match="key_bits"):
+            twin.window_sort(col, val, table, key_bits=bits, **kw)
+
+
+def test_seg_step_takes_the_window_sort_kernel(cuda, monkeypatch):
+    """A scale-12 classed digest on the card (its hub rows take windows
+    past the narrow limit): each slab launches K10's narrow kernel once per
+    width range and its wide sort once, calls no ``torch.sort(dim=1)``, and
+    gives the digest of the same step with the window sort's plain version
+    in K10's place, bit for bit."""
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.ops import spgemm_seg as tseg
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = rmat_matrix(gen, 12, 8, symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    prep = tseg.seg_prepare(a, a, num_slabs=4)
+    plan = prep[0]
+    S = len(plan["bounds"]) - 1
+    assert plan["classes"][0] <= twin.NARROW_MAX < plan["classes"][-1]
+    real_sort = torch.sort
+    row_sorts = []
+
+    def sort(x, *args, **kwargs):
+        if x.dim() > 1:  # a sort along dim 1
+            row_sorts.append(tuple(x.shape))
+        return real_sort(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "sort", sort)
+    before = dict(LAUNCHES)
+    got = [tseg.seg_step(a, a, prep, s, tseg.seg_zero_state(cuda))
+           for s in range(S)]
+    torch.cuda.synchronize()
+    assert row_sorts == []
+    narrow = sum(cap is not None for cap, _w0, _w1 in twin.regimes(
+        plan["classes"], plan["s_caps"]))
+    assert narrow >= 1
+    assert LAUNCHES["winsort_narrow"] - before["winsort_narrow"] == S * narrow
+    assert LAUNCHES["winsort_wide"] - before["winsort_wide"] == S
+    monkeypatch.setattr(torch, "sort", real_sort)
+    monkeypatch.setattr(
+        tseg, "window_sort",
+        lambda col, val, table, *, key_bits, plain, **kw:
+            twin.window_sort_plain(col, val, table, **kw))
+    for s, g in enumerate(got):
+        want = tseg.seg_step(a, a, prep, s, tseg.seg_zero_state(cuda))
+        assert int(g[0]) == int(want[0]) > 0, s
+        for i in (1, 3):
+            assert torch.equal(g[i].view(torch.int32),
+                               want[i].view(torch.int32)), (s, i)
+        assert bool(g[2]) == bool(want[2]) is False
+
+
 def _ragged_coo(seed, m, n, dev):
     """A sparse (m, n) with power-law row degrees, one hub row, and a third
     of the rows empty (so degree-sorted groups at the tail are empty)."""

@@ -22,6 +22,10 @@ from combblas_tpu_torch.ops.coo import SpCOO as TCOO  # noqa: E402
 from combblas_tpu_torch.ops.kernels.expand import (  # noqa: E402
     expand_chunks_compact,
 )
+from combblas_tpu_torch.ops.kernels.winsort import (  # noqa: E402
+    key_bits,
+    window_sort,
+)
 from combblas_tpu_torch.ops.spgemm import _slab_extract  # noqa: E402
 from combblas_tpu_torch.semiring import MIN_PLUS as T_MP  # noqa: E402
 from combblas_tpu_torch.semiring import PLUS_TIMES as T_PT  # noqa: E402
@@ -123,6 +127,67 @@ def test_class_windows_identical(case, num_slabs):
         ta, b_rp, ta.shape[0])[0][:-1] > 0).sum())
 
 
+def _slab_streams(case, num_slabs):
+    """(plan, each slab's (K1 plain stream, rowfl, row_start)) of a case's
+    A x B."""
+    _ja, _jb, ta, tb = _pair(case)
+    plan = tseg.seg_plan(ta, tb, num_slabs)
+    b_rp = tb.row_ptr()
+    bounds = torch.as_tensor(plan["bounds"].astype(np.int64))
+    out = []
+    for s in range(len(plan["bounds"]) - 1):
+        sub, _ = _slab_extract(ta, ta.shape[1], bounds, s,
+                               span_cap=plan["span_cap"],
+                               slab_nnz_cap=plan["slab_nnz_cap"])
+        col, val, _total = expand_chunks_compact(
+            sub.row, sub.col, sub.val, sub.mask(), b_rp, tb.col, tb.val,
+            T_PT, stride=0, stream_cap=plan["stream_cap"])
+        out.append((col, val) + tseg._row_flops_exact(sub, b_rp,
+                                                      plan["span_cap"]))
+    return plan, tb.shape[1], out
+
+
+@pytest.mark.parametrize("case", ["skewed200", "rmat8"])
+def test_window_table_matches_class_windows(case):
+    """The window table gives each of ``_class_windows``' windows, in its
+    order, the row's stream start (0 when dead), its live length, its
+    offset in the class buffer (classes end to end) and its width; the
+    window sort's plain version on it gives the seg step's class buffer
+    bit for bit."""
+    plan, n_cols, slabs = _slab_streams(case, 3)
+    kw = dict(classes=plan["classes"], s_caps=plan["s_caps"])
+    assert len(slabs) == 3
+    for col, val, rowfl, row_start in slabs:
+        start, lens, dest, width = tseg._window_table(
+            rowfl, row_start,
+            tseg._class_table(plan["classes"], plan["s_caps"], "cpu"),
+            windows=sum(plan["s_caps"]), span_cap=plan["span_cap"])
+        wins = tseg._class_windows(col, val, rowfl, row_start,
+                                   span_cap=plan["span_cap"], **kw)
+        w0 = off = 0
+        sorted_k, sorted_v = [], []
+        for (col2d, val2d, rows_c, lens_c), L in zip(wins, plan["classes"]):
+            S = col2d.shape[0]
+            win = slice(w0, w0 + S)
+            live = lens_c > 0
+            assert torch.equal(lens[win], lens_c)
+            assert torch.equal(start[win],
+                               torch.where(live, row_start[rows_c], 0))
+            assert torch.equal(dest[win], off + L * torch.arange(S))
+            assert torch.equal(width[win], torch.full((S,), L))
+            k, perm = torch.sort(col2d, dim=1, stable=True)
+            sorted_k.append(k.reshape(-1))
+            sorted_v.append(torch.gather(val2d, 1, perm).reshape(-1))
+            w0 += S
+            off += S * L
+        assert w0 == start.shape[0] and off == plan["padded"]
+        cat_k, cat_v = window_sort(col, val, (start, lens, dest, width),
+                                   key_bits=key_bits(n_cols), **kw)
+        assert torch.equal(cat_k, torch.cat(sorted_k))
+        assert torch.equal(cat_v.view(torch.int32),
+                           torch.cat(sorted_v).view(torch.int32))
+
+
 @pytest.mark.parametrize("sr_name", sorted(SEMIRINGS))
 @pytest.mark.parametrize("num_slabs", [1, 3, 4])
 def test_seg_digest_matches_jax_every_slab(num_slabs, sr_name):
@@ -130,7 +195,11 @@ def test_seg_digest_matches_jax_every_slab(num_slabs, sr_name):
     ja, jb, ta, tb = _pair("skewed200")
     jprep = jseg.seg_prepare(ja, jb, num_slabs)
     tprep = tseg.seg_prepare(ta, tb, num_slabs)
-    assert tprep[2] is None and tprep[4] == jprep[4]  # slab_out_cap
+    assert tprep[4] == jprep[4]  # slab_out_cap
+    # the port's class table in the place of JAX's B lane tables
+    widths, caps, _w0, _e0 = tprep[2].tolist()
+    assert (tuple(widths), tuple(caps)) == (jprep[0]["classes"],
+                                            jprep[0]["s_caps"])
     jstate = jseg.seg_zero_state()
     tstate = tseg.seg_zero_state("cpu")
     S = len(tprep[0]["bounds"]) - 1
