@@ -201,9 +201,9 @@ Phases, each raising on failure:
      item 1.8's step 4, the layered grid: ``summa3d_spgemm`` of the
      scale-16 A² on (2, 2, 2) over the 4 processes (a layer's block row
      each; phase 14's case, cut from scale 17 so that four workers fit the
-     card), its caps from ``layer_bounds`` over the processes, every block
-     equal to a one-process call of this run (the compress kernel twice a
-     block of a layer, summed over the processes).
+     card), its caps from ``summa3d_layer_bounds`` over the processes,
+     every block equal to a one-process call of this run (the compress
+     kernel twice a block of a layer, summed over the processes).
      Four processes of their own: HipMCL's pod path, ``mcl_dist`` of phase
      18's matrix on the 4x4 grid, ``phases=1`` (K1/K2 at least once each
      an iteration, summed over the processes): phase 18's iteration count
@@ -262,14 +262,17 @@ from unittest import mock
 import numpy as np
 import torch
 
-from combblas_tpu_torch.gen.graph500 import (
+from card_inputs import (
     AUTO_FLOPS_CAP,
     AUTO_SCALE,
+    EDGEFACTOR,
     GRAPH_SCALE,
+    GRID3D,
     NARROW_SCALE,
     a2_matrix,
     bfs_frontier,
     bfs_roots,
+    grid_cells,
     spmm_bfs_graphs,
 )
 from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
@@ -334,7 +337,6 @@ from combblas_tpu_torch.parallel.multihost import (
     is_coordinator,
     pod_grid,
 )
-from combblas_tpu_torch.profile_summa import grid_cells
 from combblas_tpu_torch.semiring import (
     MAX_SECOND,
     MAX_TIMES,
@@ -1141,7 +1143,7 @@ def check_spmm_coo(label: str, a, x, csr) -> dict:
 
 def build_graphs(seed: int, scale: int, dev) -> dict:
     """The SpMM graph (G500 R-MAT, edgefactor 16), its symmetrized
-    loop-free twin for BFS and X (``gen/graph500.py``), and the plans;
+    loop-free twin for BFS and X (``card_inputs.py``), and the plans;
     with their set-up seconds."""
     t = time.perf_counter()
     g = spmm_bfs_graphs(seed, dev, scale)
@@ -1674,7 +1676,7 @@ def summa3d_launches(grid, block_shape) -> dict:
 
 
 def grid_phase(cells, ref, flops: int) -> dict:
-    """Phases 13 and 14: each grid product of ``profile_summa.grid_cells``
+    """Phases 13 and 14: each grid product of ``card_inputs.grid_cells``
     timed (:func:`_grid_call`), its C equal to phase 11's, and its launches
     those of its route: ``summa_spgemm_auto`` the expansion and compress
     once a block an attempt, the staged SUMMA once a block a stage, the
@@ -4206,7 +4208,6 @@ def check_matching(keys, row, col, n: int, mr, mc, maximal: bool) -> int:
 def weighted_rmat(seed: int, dev, scale: int):
     """Phase 22's bipartite graph: a G500 ef-16 R-MAT with seeded uniform
     weights in (0, 1] on its entries."""
-    from combblas_tpu_torch.gen.graph500 import EDGEFACTOR
     from combblas_tpu_torch.ops.coo import SpCOO
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -5011,15 +5012,16 @@ POD_3D_SCALE = 16
 
 def _summa3d_call(a, g3):
     """The (2, 2, 2) ``summa3d_spgemm`` of A² on ``g3`` (one process, or
-    over the processes), its caps from ``layer_bounds``: (call, caps)."""
+    over the processes), its caps from ``summa3d_layer_bounds``: (call,
+    caps)."""
     from combblas_tpu_torch.parallel.summa3d import (
         Dist3DSpMat,
+        summa3d_layer_bounds,
         summa3d_spgemm,
     )
-    from combblas_tpu_torch.profile_summa import layer_bounds
     a3 = Dist3DSpMat.from_dist2d(a, g3, "col")
     b3 = Dist3DSpMat.from_dist2d(a, g3, "row")
-    fc, oc = layer_bounds(a3, b3)
+    fc, oc = summa3d_layer_bounds(a3, b3)
     return (lambda: summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=oc),
             (fc, oc))
 
@@ -5028,7 +5030,6 @@ def summa3d_one(seed: int, dev) -> dict:
     """Phase 26's one-process reference of the layered A²: the
     scale-``POD_3D_SCALE`` (2, 2, 2) product timed (a warm call, then the
     best of two), its blocks digested, its caps and peak."""
-    from combblas_tpu_torch.profile_summa import GRID3D
     a = a2_matrix(seed, dev, POD_3D_SCALE)
     call, caps = _summa3d_call(a, ProcGrid.make(GRID3D[1], GRID3D[2],
                                                 GRID3D[0], device=dev))
@@ -5054,11 +5055,10 @@ def summa3d_one(seed: int, dev) -> dict:
 
 def _pod_summa3d(a, dev) -> dict:
     """The layered A² on a (2, 2, 2) grid over the processes (a layer's
-    block row each over 4), its caps from ``layer_bounds`` over the
+    block row each over 4), its caps from ``summa3d_layer_bounds`` over the
     processes: the call timed between two rendezvous, its blocks digested,
     the caps and the peak memory."""
     from combblas_tpu_torch.parallel.multihost import pod_grid
-    from combblas_tpu_torch.profile_summa import GRID3D
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     call, caps = _summa3d_call(a, pod_grid(

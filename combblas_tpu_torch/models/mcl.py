@@ -68,8 +68,7 @@ from combblas_tpu_torch.utils.timers import span
 
 __all__ = ["MCLParams", "mcl_local", "mcl_dist", "dist_mcl_prune",
            "dist_remove_isolated", "dist_rand_permute",
-           "make_col_stochastic", "chaos", "PRUNE_SLOTS",
-           "reset_prune_slots"]
+           "make_col_stochastic", "chaos"]
 
 #: The seed of ``mcl_dist``'s permutation when no generator is given (the
 #: JAX package defaults to ``PRNGKey(17)``).
@@ -78,11 +77,6 @@ PREPROCESS_SEED = 17
 #: ``spgemm_auto``'s slab budget in MCL: the default 2^24 would cut the
 #: expansion into many more row slabs at bench scales.
 EXPANSION_FLOPS_CAP = 1 << 28
-
-#: ``_mcl_prune``'s calls, the slots it sorted (its inputs' live prefixes)
-#: and the slots its inputs held; ``live / slots`` is the share of the
-#: expansion's buffers that the prune reads.
-PRUNE_SLOTS = {"calls": 0, "live": 0, "slots": 0}
 
 
 @dataclasses.dataclass
@@ -125,11 +119,6 @@ def _inflate(a: SpCOO, power: float) -> SpCOO:
     return dataclasses.replace(a, val=val)
 
 
-def reset_prune_slots() -> None:
-    for name in PRUNE_SLOTS:
-        PRUNE_SLOTS[name] = 0
-
-
 def _mcl_prune(a: SpCOO, p: MCLParams, out_capacity: int) -> SpCOO:
     """Threshold, select and recovery (``MCLPruneRecoverySelect``) in one
     sorted pass: one stable sort by (col, |v| descending) ranks every
@@ -142,9 +131,6 @@ def _mcl_prune(a: SpCOO, p: MCLParams, out_capacity: int) -> SpCOO:
     which sorts the whole capacity."""
     n = a.shape[1]
     live = min(int(a.nnz), a.capacity)
-    PRUNE_SLOTS["calls"] += 1
-    PRUNE_SLOTS["live"] += live
-    PRUNE_SLOTS["slots"] += a.capacity
     a = dataclasses.replace(a, row=a.row[:live], col=a.col[:live],
                             val=a.val[:live])
     av = a.val.abs()

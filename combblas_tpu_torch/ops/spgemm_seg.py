@@ -608,35 +608,44 @@ def _seg2_slab_digest_step(a2: SpCOO, b: SpCOO, b_rp, bounds, s: int,
     All on the device; ``plain=True`` runs the kernels' plain versions."""
     k = a2.shape[1]
     dev = a2.device
-    sub, _row_lo = _slab_extract(a2, k, bounds, s, span_cap=s_pad,
-                                 slab_nnz_cap=nnz_cap)
-    colstream, valstream, _total = expand_chunks_compact(
-        sub.row, sub.col, sub.val, sub.mask(), b_rp, b.col, b.val, sr,
-        stride=0, stream_cap=stream_cap, plain=plain)
-    rowfl, row_start = _row_flops_exact(sub, b_rp, s_pad)
-    live = torch.arange(s_pad, device=dev) < cnt
-    lens = torch.where(live, rowfl[:s_pad], 0)
-    starts = torch.where(live, row_start[:s_pad], 0)
-    # window gather: every start + w stays inside the stream by the plan's
-    # slack (stream_cap >= slab flops + w, checked in seg2_step)
-    j = torch.arange(w, device=dev)
-    idx = starts[:, None] + j[None, :]
-    keep = j[None, :] < lens[:, None]
-    col2d = torch.where(keep, colstream[idx], _SENT)
-    val2d = torch.where(keep, valstream[idx], 0.0)
-    # release each (s_pad, w) temporary as soon as it is consumed: the sort
-    # and the compress allocate several more of that size
-    del idx, keep
-    col2d, perm = torch.sort(col2d, dim=1, stable=True)
-    val2d = torch.gather(val2d, 1, perm)
-    del perm
-    okey, oval, nnz = compress_sorted_packed(
-        col2d.reshape(-1), val2d.reshape(-1), sr, out_capacity=slab_out_cap,
-        plain=plain)
-    cs = oval.sum()  # entries past nnz hold 0
-    nnz_total, checksum, truncated, signed = state
-    return (nnz_total + nnz, checksum + cs,
-            truncated | (nnz >= slab_out_cap), signed)
+    with span("seg2.slab", a2.row):
+        with span("seg2.extract"):
+            sub, _row_lo = _slab_extract(a2, k, bounds, s, span_cap=s_pad,
+                                         slab_nnz_cap=nnz_cap)
+        with span("seg2.expand"):
+            colstream, valstream, _total = expand_chunks_compact(
+                sub.row, sub.col, sub.val, sub.mask(), b_rp, b.col, b.val, sr,
+                stride=0, stream_cap=stream_cap, plain=plain)
+        with span("seg2.windows"):
+            rowfl, row_start = _row_flops_exact(sub, b_rp, s_pad)
+            live = torch.arange(s_pad, device=dev) < cnt
+            lens = torch.where(live, rowfl[:s_pad], 0)
+            starts = torch.where(live, row_start[:s_pad], 0)
+            # window gather: every start + w stays inside the stream by the
+            # plan's slack (stream_cap >= slab flops + w, checked in
+            # seg2_step)
+            j = torch.arange(w, device=dev)
+            idx = starts[:, None] + j[None, :]
+            keep = j[None, :] < lens[:, None]
+            col2d = torch.where(keep, colstream[idx], _SENT)
+            val2d = torch.where(keep, valstream[idx], 0.0)
+            # release each (s_pad, w) temporary as soon as it is consumed:
+            # the sort and the compress allocate several more of that size
+            del idx, keep
+        with span("seg2.sort"):
+            col2d, perm = torch.sort(col2d, dim=1, stable=True)
+            val2d = torch.gather(val2d, 1, perm)
+            del perm
+        with span("seg2.compress"):
+            okey, oval, nnz = compress_sorted_packed(
+                col2d.reshape(-1), val2d.reshape(-1), sr,
+                out_capacity=slab_out_cap, plain=plain)
+        with span("seg2.fold"):
+            cs = oval.sum()  # entries past nnz hold 0
+            nnz_total, checksum, truncated, signed = state
+            state = (nnz_total + nnz, checksum + cs,
+                     truncated | (nnz >= slab_out_cap), signed)
+    return state
 
 
 def seg2_prepare(a: SpCOO, b: SpCOO, *, flops_cap: int = 1 << 28,

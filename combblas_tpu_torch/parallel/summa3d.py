@@ -51,7 +51,12 @@ from combblas_tpu_torch.ops.kernels.compress import (
     compress_sorted_wide_keys,
 )
 from combblas_tpu_torch.ops.kernels.expand import KEY_SENTINEL
-from combblas_tpu_torch.ops.spgemm import _expand, spgemm_flops
+from combblas_tpu_torch.ops.spgemm import (
+    _entry_counts,
+    _expand,
+    round_capacity_frac,
+    spgemm_flops,
+)
 from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
@@ -66,7 +71,7 @@ from combblas_tpu_torch.parallel.summa import _layer, _panel_stacks, _panels
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 
 __all__ = ["Dist3DSpMat", "summa3d_spgemm", "summa3d_bounds",
-           "mem_efficient_spgemm3d"]
+           "summa3d_layer_bounds", "mem_efficient_spgemm3d"]
 
 
 def _nnz_table(local: torch.Tensor, grid: ProcGrid) -> torch.Tensor:
@@ -476,4 +481,22 @@ def summa3d_bounds(a: Dist3DSpMat, b: Dist3DSpMat) -> Tuple[int, int]:
     process."""
     total = spgemm_flops(a.to_local(), b.to_local())
     cap = max(64, 1 << int(np.ceil(np.log2(max(total, 1)))))
+    return cap, cap
+
+
+def summa3d_layer_bounds(a: Dist3DSpMat,
+                         b: Dist3DSpMat) -> Tuple[int, int]:
+    """(flops_cap, out_capacity) of :func:`summa3d_spgemm` from each
+    block's exact layer-panel count, rounded as ``summa_bounds`` rounds;
+    :func:`summa3d_bounds` takes the whole product's count, which at scale
+    17 would not fit the card.  On a pod each process counts its own
+    blocks' panels and the largest count is taken over the processes, so
+    that every process gets the same caps."""
+    stacks = _panel_stacks(a, b)
+    worst = 0
+    for t, i, j in itertools.product(*map(range, a.grid.local_shape3())):
+        pa, pb = _panels(a, b, i, j, _layer(stacks, t))
+        worst = max(worst, int(_entry_counts(pa, pb.row_ptr()).sum()))
+    worst = int(exchange.max_proc(torch.tensor(worst), a.grid))
+    cap = round_capacity_frac(worst)
     return cap, cap

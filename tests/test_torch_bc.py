@@ -114,7 +114,7 @@ def test_betweenness_centrality_small_scores_keep_precision(where,
     score (atol 0), on a scale-12 G500 R-MAT from 64 roots whose least
     score is about 4e-4: the dependencies are kept as delta, not 1 +
     delta, so a delta far below 1 keeps its own precision."""
-    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+    from card_inputs import bfs_roots, spmm_bfs_graphs
 
     s = spmm_bfs_graphs(1, "cpu", 12)["s"]
     s64 = TCOO(**{**{f: getattr(s, f) for f in s.__dataclass_fields__},

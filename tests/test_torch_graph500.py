@@ -1,17 +1,21 @@
-"""The shared data of the SpMM/BFS runs (``gen/graph500.py``) at a small
-scale on the CPU: the same seed gives the same graphs, frontier and roots;
-the BFS graph is symmetric and loop-free; every root has an edge."""
+"""The inputs of the card runs (``card_inputs.py``) at a small scale on
+the CPU: the same seed gives the same graphs, frontier and roots; the BFS
+graph is symmetric and loop-free; every root has an edge; every grid
+product of A² equals the single-device product."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from combblas_tpu_torch.gen.graph500 import (  # noqa: E402
+from card_inputs import (  # noqa: E402
+    a2_matrix,
     bfs_frontier,
     bfs_roots,
+    grid_cells,
     spmm_bfs_graphs,
 )
+from combblas_tpu_torch.ops.spgemm import spgemm_auto  # noqa: E402
 
 CPU = torch.device("cpu")
 SCALE = 8
@@ -73,8 +77,6 @@ def test_bfs_roots(k):
 def test_a2_matrix():
     """The A² runs' matrix: G500 ef 16 from its own seed, summed duplicate
     counts as values, the same draw as the SpMM graph of that seed."""
-    from combblas_tpu_torch.gen.graph500 import a2_matrix
-
     a = a2_matrix(42, CPU, SCALE)
     d = _dense(a)
     np.testing.assert_array_equal(d, _dense(a2_matrix(42, CPU, SCALE)))
@@ -82,3 +84,24 @@ def test_a2_matrix():
     assert np.array_equal(d, d.round()) and d.max() > 1
     np.testing.assert_array_equal(d, _dense(spmm_bfs_graphs(42, CPU,
                                                             SCALE)["a"]))
+
+
+def test_grid_cells_equal_the_single_device_product():
+    """The grid products that ``chip_smoke.py`` phases 13-14 time, on a
+    small A² on the CPU: each equals the single-device ``spgemm_auto``
+    product."""
+    a = a2_matrix(3, CPU, SCALE)
+    want = spgemm_auto(a, a)
+    nnz = int(want.nnz)
+    cells = grid_cells(a, CPU)
+    assert [label for label, _call, _info in cells] == [
+        "summa_spgemm_auto 2x2", "summa_spgemm_auto 4x4",
+        "summa_spgemm_staged 4x4", "summa_spgemm_rma 4x4",
+        "summa3d_spgemm 2x2x2"]
+    for label, call, info in cells:
+        got = call().to_local()
+        assert int(got.nnz) == nnz, label
+        assert torch.equal(got.row[:nnz], want.row[:nnz]), label
+        assert torch.equal(got.col[:nnz], want.col[:nnz]), label
+        assert torch.equal(got.val[:nnz], want.val[:nnz]), label
+        assert info["impl"] in ("xla", "pallas", "wide")

@@ -71,7 +71,7 @@ def test_port_imports_no_jax():
     # vector/indexing/ordering/BC and matching/multigrid/I/O/CLI slices was
     # imported
     lines = out.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 60
+    assert int(lines[-1]) >= 59
     names = set(lines[-2].split())
     for mod in DIST_SLICE:
         assert f"combblas_tpu_torch.{mod}" in names, mod

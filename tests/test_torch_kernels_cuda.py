@@ -985,7 +985,7 @@ def test_dist_graph_phase_on_card(cuda):
     ``fastsv_dist`` and ``lacc_dist`` against ``fastsv_local`` and scipy,
     and a valid ``luby_mis_dist`` (the call holds each)."""
     import chip_smoke
-    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+    from card_inputs import bfs_roots, spmm_bfs_graphs
     from combblas_tpu_torch.models.bfs import bfs_local
 
     s = spmm_bfs_graphs(3, cuda, 12)["s"]
@@ -1052,7 +1052,7 @@ def test_dist_permute_is_deterministic_on_card(cuda, fold):
     sums of duplicates) repeats bit for bit and equals the CPU's stacks,
     values within 1e-6."""
     import chip_smoke
-    from combblas_tpu_torch.gen.graph500 import spmm_bfs_graphs
+    from card_inputs import spmm_bfs_graphs
     from combblas_tpu_torch.parallel.dist import DistSpMat
     from combblas_tpu_torch.parallel.grid import ProcGrid
     from combblas_tpu_torch.parallel.indexing import dist_permute
@@ -1108,7 +1108,7 @@ def test_orderings_and_bc_phase_on_card(cuda):
     ``md_order_dist`` equals ``md_order`` on a 10x10 stencil; BC local
     and distributed agree on a scale-12 graph, and the card the CPU."""
     import chip_smoke
-    from combblas_tpu_torch.gen.graph500 import spmm_bfs_graphs
+    from card_inputs import spmm_bfs_graphs
 
     out = chip_smoke.rcm_full(3, cuda, k=16)
     assert out["bandwidth"]["rcm_order_dist"] <= 3 * 16 ** 2
@@ -1176,7 +1176,7 @@ def test_semantic_io_cli_phase_on_card(cuda, monkeypatch, tmp_path):
     scale 12 and every CLI line against its library call (the call holds
     each; files under ``tmp_path``)."""
     import chip_smoke
-    from combblas_tpu_torch.gen.graph500 import bfs_roots, spmm_bfs_graphs
+    from card_inputs import bfs_roots, spmm_bfs_graphs
 
     monkeypatch.setattr(chip_smoke, "IO_SCALE", 12)
     monkeypatch.setattr(chip_smoke, "CLI_MCL_SCALE", 9)

@@ -252,34 +252,6 @@ def test_mcl_prune_reads_only_the_live_prefix():
                           want.val.view(torch.int32))
 
 
-def test_prune_slots_counts_the_live_prefix(monkeypatch):
-    """``PRUNE_SLOTS`` after a small ``mcl_local``: one call an iteration,
-    ``live`` the summed nnz of the expansion's outputs, ``slots`` their
-    summed capacities; the reset zeroes it."""
-    d = _planted(11)
-    r, c = np.nonzero(d)
-    a = TCOO.from_arrays(r, c, d[r, c], d.shape, device="cpu")
-    expanded = []
-    spgemm = tmcl.spgemm_auto
-
-    def watched(*args, **kw):
-        out = spgemm(*args, **kw)
-        expanded.append((int(out.nnz), out.capacity))
-        return out
-
-    monkeypatch.setattr(tmcl, "spgemm_auto", watched)
-    tmcl.reset_prune_slots()
-    _, iters = tmcl.mcl_local(a, tmcl.MCLParams(select=8, recover_num=12,
-                                                cutoff=1e-3))
-    assert iters == len(expanded) > 1
-    assert tmcl.PRUNE_SLOTS == {
-        "calls": iters, "live": sum(n for n, _ in expanded),
-        "slots": sum(c for _, c in expanded)}
-    assert all(n < c for n, c in expanded)
-    tmcl.reset_prune_slots()
-    assert tmcl.PRUNE_SLOTS == {"calls": 0, "live": 0, "slots": 0}
-
-
 def test_mcl_prune_rules_fire():
     """The 'recover' case: recovery fires in some columns and select cuts
     others, so the one-sort prune is held on all of its branches."""

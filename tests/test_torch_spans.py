@@ -3,14 +3,16 @@
 With no profiler recording, a span records nothing and enters no
 ``record_function``.  Under ``torch.profiler`` the spans of small calls
 match the program's own counts (slabs of the plan, attempts of the retry
-loop, MCL's iterations, BFS's levels), nest as the layers do, appear
-among the profiler's events, and leave every output as it was, bit for
-bit.  On the CPU a span's device time is its host time.  The card test
+loop, MCL's iterations, BFS's levels, the grid products' local products),
+name every stage of each path, nest as the layers do, appear among the
+profiler's events, and leave every output as it was, bit for bit.  On
+the CPU a span's device time is its host time.  The card test
 checks the device events of a span on CUDA tensors.
 """
 
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,7 +21,11 @@ from combblas_tpu_torch.models.bfs import bfs_batch_pull_big
 from combblas_tpu_torch.models.mcl import MCLParams, mcl_local
 from combblas_tpu_torch.ops import spgemm as tsg
 from combblas_tpu_torch.ops import spgemm_seg as tseg
+from combblas_tpu_torch.ops.coo import SpCOO
 from combblas_tpu_torch.ops.spmv import spmm
+from combblas_tpu_torch.parallel import memefficient, summa
+from combblas_tpu_torch.parallel.dist import DistSpMat
+from combblas_tpu_torch.parallel.grid import ProcGrid
 from combblas_tpu_torch.utils import timers
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -77,9 +83,33 @@ def _seg(a):
     return tseg.spgemm_streamed_seg(a, a, num_slabs=5)
 
 
+def _seg2(a):
+    return tseg.spgemm_streamed_seg2(a, a)
+
+
+def _summa(side: int, staged: bool = False):
+    """A² on a side x side block grid: ``summa_spgemm_auto``, or
+    ``summa_spgemm_staged`` sized as ``chip_smoke.py`` phase 13 sizes it;
+    float32 values, so the local products take the kernel routes."""
+    def run(a):
+        d = DistSpMat.from_local(a, ProcGrid.make(side, side, device="cpu"))
+        if not staged:
+            return summa.summa_spgemm_auto(d, d)
+        fc, oc = summa.summa_bounds(d, d)
+        return memefficient.summa_spgemm_staged(
+            d, d, stage_flops_cap=fc, out_capacity=oc,
+            impl=summa.summa_impl_auto(d, d),
+            chunk_cap=summa.summa_chunk_bound(d, d, fc))
+    return run
+
+
 CALLS = {"spgemm_auto": (_a2, 7), "mcl_local": (_mcl, 7),
          "bfs_batch_pull_big": (_bfs, 8), "spmm": (_spmm, 8),
-         "spgemm_streamed_seg": (_seg, 8)}
+         "spgemm_streamed_seg": (_seg, 8),
+         "spgemm_streamed_seg2": (_seg2, 8),
+         "summa_spgemm_auto_2x2": (_summa(2), 7),
+         "summa_spgemm_auto_4x4": (_summa(4), 7),
+         "summa_spgemm_staged_4x4": (_summa(4, staged=True), 7)}
 
 
 def _flat(out) -> list:
@@ -182,6 +212,86 @@ def test_streamed_seg_slabs(held):
     for i, s in enumerate(sp):
         if s.name == "seg.slab":
             assert _children(sp, i) == steps
+
+
+def _esc(sp, prefix: str, n: int) -> None:
+    """The ESC stages under ``prefix``: expand, sort and compress, each
+    recorded ``n`` times."""
+    for stage in ("expand", "sort", "compress"):
+        assert _count(sp, f"{prefix}.{stage}") == n, stage
+
+
+@pytest.mark.parametrize("path", [
+    "spgemm_streamed_seg2", "spgemm_auto", "spmm", "bfs_batch_pull_big",
+    "summa_spgemm_auto_2x2", "summa_spgemm_auto_4x4",
+    "summa_spgemm_staged_4x4"])
+def test_stages_of_each_path(path, monkeypatch):
+    """Every stage of a path is a span: each slab's or local product's
+    expansion, sort and compress; seg2's window gather; the BFS level and
+    its fold; the SpMM fold and its unpermute."""
+    products = []   # the grid routes' local products
+    for mod in (summa, memefficient):
+        def counted(*args, real=mod._local_multiply, **kwargs):
+            products.append(kwargs["impl"])
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(mod, "_local_multiply", counted)
+    fn, scale = CALLS[path]
+    a = _graph(scale)
+    out, sp, _ = _traced(lambda: fn(a))
+    if path == "spgemm_streamed_seg2":
+        slabs = tseg.seg2_prepare(a, a)[1]["slabs"]
+        windowed = sum(not s["flat"] for s in slabs)
+        assert 0 < windowed < len(slabs)
+        _esc(sp, "seg2", windowed)
+        assert _count(sp, "seg2.windows") == windowed
+        _esc(sp, "spgemm", len(slabs) - windowed)
+    elif path == "spgemm_auto":
+        slabs = _count(sp, "spgemm.slab")
+        assert slabs > 1
+        _esc(sp, "spgemm", slabs)
+    elif path == "spmm":
+        assert _count(sp, "spmm.fold") == _count(sp, "spmm.unpermute") == 1
+    elif path == "bfs_batch_pull_big":
+        depth = int(out[1].max()) + 1
+        assert _count(sp, "bfs.level") == _count(sp, "bfs.fold") == depth
+    else:
+        side = 2 if path.endswith("2x2") else 4
+        stages = side if "staged" in path else 1
+        assert products and set(products) <= {"pallas", "wide"}
+        assert len(products) % (side * side * stages) == 0
+        _esc(sp, "spgemm", len(products))
+
+
+def _dense_ones(n: int) -> SpCOO:
+    d = np.ones((n, n), np.float32)
+    return SpCOO.from_dense(torch.from_numpy(d), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["mixed", "flat", "windowed"])
+def test_seg2_spans(case):
+    """One ``seg2.slab`` a windowed slab of the plan and one
+    ``spgemm.slab`` a flat one, in the plan's order, each with its steps:
+    a scale-8 graph has both kinds, a scale-6 one only flat slabs, a
+    dense 40 x 40 block (1,600 products a row) only windowed ones."""
+    a = {"mixed": lambda: _graph(8), "flat": lambda: _graph(6),
+         "windowed": lambda: _dense_ones(40)}[case]()
+    slabs = tseg.seg2_prepare(a, a)[1]["slabs"]
+    kinds = ["spgemm.slab" if s["flat"] else "seg2.slab" for s in slabs]
+    assert {"mixed": {"spgemm.slab", "seg2.slab"}, "flat": {"spgemm.slab"},
+            "windowed": {"seg2.slab"}}[case] == set(kinds)
+    out, sp, _ = _traced(lambda: _seg2(a))
+    assert out == _seg2(a)
+    assert [s.name for s in sp if s.parent == -1] == kinds
+    for i, s in enumerate(sp):
+        if s.name == "seg2.slab":
+            assert _children(sp, i) == [
+                "seg2.extract", "seg2.expand", "seg2.windows", "seg2.sort",
+                "seg2.compress", "seg2.fold"]
+        if s.name == "spgemm.slab":
+            assert _children(sp, i) == [
+                "spgemm.extract", "spgemm.expand", "spgemm.sort",
+                "spgemm.compress"]
 
 
 def test_mcl_iterations():

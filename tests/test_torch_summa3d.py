@@ -13,7 +13,13 @@ from combblas_tpu import SpCOO as JCOO  # noqa: E402
 from combblas_tpu import semiring as jsr  # noqa: E402
 from combblas_tpu.parallel import summa3d as j3  # noqa: E402
 from combblas_tpu_torch import semiring as tsr  # noqa: E402
+from combblas_tpu_torch.gen.rmat import rmat_matrix  # noqa: E402
 from combblas_tpu_torch.ops.coo import SpCOO as TCOO  # noqa: E402
+from combblas_tpu_torch.ops.spgemm import (  # noqa: E402
+    round_capacity_frac,
+    spgemm_auto,
+    spgemm_flops,
+)
 from combblas_tpu_torch.parallel import summa3d as t3  # noqa: E402
 from tests.test_coo import rand_sparse  # noqa: E402
 from tests.test_torch_dist import (  # noqa: E402
@@ -110,3 +116,77 @@ def test_mem_efficient_spgemm3d_matches_jax(phases):
     assert_same_blocks(tc, jc)
     np.testing.assert_allclose(tc.to_local().to_dense().numpy(), da @ db,
                                rtol=1e-4, atol=1e-6)
+
+
+def _layer_panel_counts(a3, b3) -> np.ndarray:
+    """(l, pr, pc) products of each block's layer panels, from the blocks'
+    entries: A's block (t, i, s) and B's block (t, s, j) meet on layer t's
+    inner index s * kb + (A's column, B's row)."""
+    l, pr, pc = a3.nnz.shape
+    kb = a3.block_shape()[1]
+    assert b3.block_shape()[0] == kb
+    out = np.zeros((l, pr, pc), np.int64)
+    for t in range(l):
+        cnt_a = np.zeros((pr, pc * kb), np.int64)
+        cnt_b = np.zeros((pc, pr * kb), np.int64)
+        for i, s in np.ndindex(pr, pc):
+            k = int(a3.nnz[t, i, s])
+            np.add.at(cnt_a[i], s * kb + a3.col[t, i, s, :k].numpy(), 1)
+        for s, j in np.ndindex(pr, pc):
+            k = int(b3.nnz[t, s, j])
+            np.add.at(cnt_b[j], s * kb + b3.row[t, s, j, :k].numpy(), 1)
+        out[t] = cnt_a @ cnt_b.T
+    return out
+
+
+def _banded(n: int) -> np.ndarray:
+    i, j = np.indices((n, n))
+    return np.where(abs(i - j) <= 2, (i + 2 * j) % 5 + 1, 0).astype(
+        np.float32)
+
+
+def _empty_block_row(n: int) -> np.ndarray:
+    """Rows n/2 .. n-1 empty, so that the last block row of each grid of
+    the test holds no entry."""
+    rng = np.random.default_rng(87)
+    d = np.where(rng.random((n, n)) < 0.15,
+                 rng.integers(1, 4, (n, n)), 0).astype(np.float32)
+    d[n // 2:] = 0
+    return d
+
+
+def _rmat(n: int):
+    gen = torch.Generator().manual_seed(88)
+    a = rmat_matrix(gen, int(np.log2(n)), edgefactor=4)
+    return a.to_dense().numpy()
+
+
+@pytest.mark.parametrize("matrix", ["rmat", "banded", "empty_block_row"])
+@pytest.mark.parametrize("layers, pr, pc", [(2, 2, 2), (4, 2, 2), (2, 3, 3),
+                                            (2, 4, 4), (4, 4, 4)])
+def test_summa3d_layer_bounds(matrix, layers, pr, pc):
+    """The 3D SUMMA's caps from each block's layer panels: the largest
+    block's exact count rounded as ``summa_bounds`` rounds, within the
+    whole-product bound, and enough for the product: C equals
+    ``spgemm_auto``'s slot for slot, no fiber saturated."""
+    n = 64
+    d = {"rmat": _rmat, "banded": _banded,
+         "empty_block_row": _empty_block_row}[matrix](n)
+    a = TCOO.from_dense(torch.from_numpy(d), device="cpu")
+    g = tgrid(pr, pc, layers)
+    a3 = t3.Dist3DSpMat.from_dist2d(a, g, "col")
+    b3 = t3.Dist3DSpMat.from_dist2d(a, g, "row")
+    if matrix == "empty_block_row":
+        assert int(a3.nnz[:, -1].sum()) == 0
+    counts = _layer_panel_counts(a3, b3)
+    assert counts.sum() == spgemm_flops(a, a)
+    fc, oc = t3.summa3d_layer_bounds(a3, b3)
+    assert fc == oc == round_capacity_frac(int(counts.max()))
+    assert fc <= t3.summa3d_bounds(a3, b3)[0]
+    c = t3.summa3d_spgemm(a3, b3, flops_cap=fc, out_capacity=oc)
+    assert int(c.nnz.max()) < oc
+    got, want = c.to_local(), spgemm_auto(a, a)
+    nnz = int(want.nnz)
+    assert int(got.nnz) == nnz > 0
+    for f in ("row", "col", "val"):
+        assert torch.equal(getattr(got, f)[:nnz], getattr(want, f)[:nnz]), f
