@@ -40,6 +40,10 @@ Phases, each raising on failure:
      first call with estimate and retry, a timed call with the output sized
      to nnz, checked against ``scipy.sparse``; its C stays on the card (as
      sorted int64 keys row*n+col and values) as the reference of 13 and 14;
+     then K10 keyed by row alone on the heaviest slab's expansion stream
+     against ``torch.sort`` and the value gather, slot for slot, both timed
+     with CUDA events, with its bound (the ``kernels`` line's
+     ``winsort_rows`` row, a ``{"k10_rows": ...}`` line);
  12. the ring push K9 against its plain version, bit for bit: the 4x4 block
      stacks of that A along both axes, phase 14's one launch that moves both
      operands, and a 2^26-element stack, with kernel, plain and
@@ -296,6 +300,7 @@ from combblas_tpu_torch.ops.kernels.winsort import (
     NARROW_MAX,
     key_bits,
     regimes,
+    row_window_sort,
     window_sort,
     window_sort_plain,
 )
@@ -370,6 +375,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     # digest's windows with XLA's sort
     "winsort_narrow": ("combblas_tpu_torch/csrc/winsort.cu", None),
     "winsort_wide": ("combblas_tpu_torch/csrc/winsort.cu", None),
+    # K10 keyed by row replaces none either: the JAX package sorts the
+    # expansion stream with lax.sort
+    "winsort_rows": ("combblas_tpu_torch/csrc/winsort.cu", None),
 }
 #: The forced small piece length of phase 6's second check (positions of
 #: an ELL piece, entries of a K8 range).
@@ -801,7 +809,8 @@ def main_path(seed: int, scale: int, dev, details: dict):
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(expand_i32=n_win, compress_i32=n_win,
                 expand_i64=len(slabs) - n_win,
-                compress_i64=len(slabs) - n_win)
+                compress_i64=len(slabs) - n_win,
+                winsort_rows=len(slabs) - n_win)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     # three slabs again, kernels and plain versions, each from a zero state
@@ -1428,13 +1437,14 @@ def _best_secs(fn, reps: int = 3):
 
 def narrow_full(a) -> dict:
     """Phase 10: A² through ``spgemm_pallas`` without ``stream_cap`` (K5
-    -> sort -> K2) and with it (K1 -> sort -> K2); the launch counts of one
-    call of each route, read around that call alone."""
+    -> ``torch.sort`` -> K2) and with it (K1 -> K10 keyed by row -> K2);
+    the launch counts of one call of each route, read around that call
+    alone."""
     flops = spgemm_flops(a, a)
     chunk_cap, out_cap = spgemm_pallas_bounds(a, a)
     routes = {"k5": dict(), "k1": dict(stream_cap=stream_capacity(flops))}
     want = {"k5": {"expand_chunks_i32": 1, "compress_i32": 1},
-            "k1": {"expand_i32": 1, "compress_i32": 1}}
+            "k1": {"expand_i32": 1, "compress_i32": 1, "winsort_rows": 1}}
     out, cs = dict(nnz_a=int(a.nnz), flops=flops, chunk_cap=chunk_cap,
                    out_capacity=out_cap), {}
     for name, kw in routes.items():
@@ -1499,7 +1509,8 @@ def auto_full(a) -> dict:
                            out_capacity=tight)
 
     run()                                                   # warm
-    want = {f"expand_{tag}": slabs, f"compress_{tag}": slabs}
+    want = {f"expand_{tag}": slabs, f"compress_{tag}": slabs,
+            "winsort_rows": slabs}
     times, c = [], None
     for _ in range(2):
         c = None                      # release the last C before the next
@@ -1522,13 +1533,14 @@ def auto_full(a) -> dict:
     check_against_scipy(c, ref, "spgemm_auto")
     c_ref = c_keys(c)
     del c
+    k10 = k10_rows_slab(a, plan)
     out = dict(nnz_a=int(a.nnz), flops=flops, nnz_c=nnz, kind=plan["kind"],
                num_slabs=plan["num_slabs"], slabs=slabs, wide=plan["wide"],
                first_call_attempts=calls, retries=calls - 1,
                first_secs=first_secs, first_launches=first,
                out_capacity=tight, secs=secs, times=times,
                products_per_s=flops / secs, launches=launches,
-               peak_mem_gb=peak / 2**30, scipy_secs=sp_secs)
+               peak_mem_gb=peak / 2**30, scipy_secs=sp_secs, k10_rows=k10)
     log(f"  plan {plan['kind']}: {plan['num_slabs']} slabs asked, {slabs} "
         f"run (wide {plan['wide']}); first call {first_secs:.2f} s with "
         f"{calls - 1} retries; timed {times} s -> {flops / secs:.4g} "
@@ -1536,6 +1548,81 @@ def auto_full(a) -> dict:
         f"peak {peak / 2**30:.2f} GiB; launches {launches}; equals scipy "
         f"(scipy took {sp_secs:.1f} s)")
     return out, c_ref
+
+
+def k10_rows_slab(a, plan: dict) -> dict:
+    """K10 keyed by row alone on the heaviest slab of phase 11's plan: the
+    slab's compacted expansion stream (K3's int64 keys when the plan is
+    wide, else K1's packed int32 keys), sorted by ``row_window_sort``
+    against ``torch.sort(stable=True)`` and the value gather on copies of
+    the same stream, slot for slot and value bits included; both timed
+    with CUDA events (the copy outside the timing)."""
+    wide = plan["wide"]
+    bounds, span_cap, slab_nnz_cap, _ch, worst_fl = _pallas_slab_plan(
+        a, a, plan["num_slabs"], wide=wide)
+    bounds = torch.as_tensor(bounds.astype(np.int64), device=a.device)
+    fl_s = _slab_stats(a, a, bounds, bounds.shape[0] - 1)[2]
+    s = int(np.argmax(fl_s))
+    sub, _ = _slab_extract(a, a.shape[1], bounds, s, span_cap=span_cap,
+                           slab_nnz_cap=slab_nnz_cap)
+    n = a.shape[1]
+    expand = (ke.expand_chunks_compact_wide if wide
+              else ke.expand_chunks_compact)
+    key, val, total = expand(sub.row, sub.col, sub.val, sub.mask(),
+                             a.row_ptr(), a.col, a.val, PLUS_TIMES,
+                             stride=n + 1,
+                             stream_cap=stream_capacity(worst_fl))
+    live = int(total)
+    del sub
+    bits = key_bits(n)
+
+    def library(k, v):
+        k, order = torch.sort(k, stable=True)
+        return k, v[order]
+
+    def timed(fn, reps):
+        out, ms = None, []
+        for _ in range(reps):
+            args = (key.clone(), val.clone())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = fn(*args)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            del args
+        return out, ms
+
+    want, lib_ms = timed(library, 3)
+    before = dict(LAUNCHES)
+    got, ms = timed(lambda k, v: row_window_sort(
+        k, v, rows=span_cap, stride=n + 1, key_bits=bits), 5)
+    launches = {k: (v - before[k]) // 5 for k, v in LAUNCHES.items()
+                if v != before[k]}
+    bad = (int((got[0] != want[0]).sum())
+           + int((got[1].view(torch.int32) != want[1].view(torch.int32))
+                 .sum()))
+    del got, want, key, val
+    # bytes: a product's key and value read once and written once
+    per = 2 * ((8 if wide else 4) + 4)
+    line = dict(slab=s, slabs=bounds.shape[0] - 1, products=live,
+                stream_slots=stream_capacity(worst_fl), rows=span_cap,
+                key="int64" if wide else "int32", key_bits=bits,
+                mismatched_slots=bad, max_abs_err=0.0 if bad == 0 else None,
+                ms=statistics.median(ms), ms_each=ms,
+                plain_ms=statistics.median(lib_ms), plain_ms_each=lib_ms,
+                library_ms=statistics.median(lib_ms),
+                launches_per_call=launches, **bound(per * live, 0))
+    line["bound_share"] = line["bound_ms"] / line["ms"]
+    log(json.dumps({"k10_rows": line}))
+    if bad:
+        raise AssertionError(f"slab {s}: K10 keyed by row differs from the "
+                             f"library sort in {bad} slots")
+    if launches != {"winsort_rows": 1}:
+        raise AssertionError(f"row_window_sort launched {launches}")
+    return line
 
 
 # ---------------------------------------------------------- phases 12-14 --
@@ -1692,11 +1779,11 @@ def grid_phase(cells, ref, flops: int) -> dict:
         if kind == "summa_spgemm_auto":
             line["attempts"] = got.get(f"expand_{tag}", 0) // blocks
             line["retries"] = line["attempts"] - 1
-            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}"),
-                                 blocks * line["attempts"])
+            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}",
+                                  "winsort_rows"), blocks * line["attempts"])
         elif kind == "summa_spgemm_staged":
-            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}"),
-                                 blocks * side)
+            want = dict.fromkeys((f"expand_{tag}", f"compress_{tag}",
+                                  "winsort_rows"), blocks * side)
         elif kind == "summa_spgemm_rma":
             want = {"ring_shift": side - 1}
         else:
@@ -6679,7 +6766,8 @@ def main() -> int:
                     ring_shift_pod=dict(pod_line["k9"]["main"],
                                         library_ms=None),
                     winsort_narrow=seg_line["k10"],
-                    winsort_wide=seg_line["k10"])
+                    winsort_wide=seg_line["k10"],
+                    winsort_rows=auto_line["k10_rows"])
     for name, rows in k6.items():
         measured[name] = dict(rows[0], max_abs_err=max(
             r["max_abs_err"] for r in rows))

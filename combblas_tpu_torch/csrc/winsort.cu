@@ -45,6 +45,27 @@
 //     sentinel tails (and dead windows) in fixed chunks over all SMs.
 // Every slot of the class buffer is written once, so the wrapper allocates
 // it with torch.empty; nothing syncs with the host.
+//
+// Keyed by row (cbt_winsort_rows): the same sort for the kernel routes'
+// compacted expansion streams (K1's packed int32 keys, K3's int64 keys,
+// row * stride + column), which the port sorted with one library sort of
+// the whole stream: 8-bit digit passes over all 64 key bits, each moving
+// the key and an int64 permutation, then a value gather, ~5x the bytes the
+// order needs.  Each row's products lie together in the stream, rows
+// ascending, so a stable sort of each row's window by key - row * stride
+// (the column, `bits` of it) is the whole stream's stable sort.  The
+// wrapper finds the windows in the stream itself (a binary search for each
+// row's first key, row * stride); they stay in place, one a row:
+// row_part_kernel lists the rows of 2 to 16384 products by width range and
+// the wider ones as a window table (warp-aggregated atomics, no host
+// sync); row_narrow_kernel sorts each listed row in shared memory (one
+// read and one write of its slots), its blocks taking a range's windows in
+// turn, as many as fit the card at once; the wide rows take the tiled
+// passes above, at least two, the first reading the stream's keys less the
+// row's base and the last writing base + column back in place, the scratch
+// between them 4-byte columns and values.  Rows of one product and the
+// sentinel tail are not touched.  The launch shapes are bounds from the
+// stream's and the table's sizes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -79,9 +100,8 @@ __host__ __device__ inline int num_passes(int bits) {
   return (bits + kMaxDigitBits - 1) / kMaxDigitBits;
 }
 
-__host__ __device__ inline void pass_digit(int bits, int p, int* shift,
-                                           int* nbits) {
-  const int passes = num_passes(bits);
+__host__ __device__ inline void pass_digit(int bits, int passes, int p,
+                                           int* shift, int* nbits) {
   const int base = bits / passes;
   const int extra = bits % passes;
   *shift = p * base + (p < extra ? p : extra);
@@ -204,6 +224,34 @@ constexpr size_t narrow_smem() {
          (sizeof(int32_t) + sizeof(uint32_t)) * WARPS * 32 * R;
 }
 
+// Every pass of a narrow window over the block's items (as rank_scatter
+// holds them); leaves them sorted in skey / sval [0, n).
+template <int WARPS, int R>
+__device__ __forceinline__ void smem_passes(int32_t (&k)[R], uint32_t (&v)[R],
+                                            int n, int rd, int bits,
+                                            int* cnt, int* tot,
+                                            int32_t* skey, uint32_t* sval) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int passes = num_passes(bits);
+  for (int p = 0; p < passes; ++p) {
+    int shift, nbits;
+    pass_digit(bits, passes, p, &shift, &nbits);
+    rank_scatter<WARPS, R>(k, v, n, rd, shift, nbits, cnt, tot, skey, sval);
+    if (p + 1 < passes) {
+      #pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int pos = (warp * rd + r) * 32 + lane;
+        if (r < rd && pos < n) {
+          k[r] = skey[pos];
+          v[r] = sval[pos];
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // One block a window of at most WARPS * 32 * R slots (pointers offset to the
 // launch's first window).
 template <int WARPS, int R>
@@ -248,27 +296,101 @@ narrow_kernel(const int32_t* __restrict__ col,
     k[r] = live ? col[s + pos] : 0;
     v[r] = live ? val[s + pos] : 0u;
   }
-  const int passes = num_passes(bits);
-  for (int p = 0; p < passes; ++p) {
-    int shift, nbits;
-    pass_digit(bits, p, &shift, &nbits);
-    rank_scatter<WARPS, R>(k, v, n, rd, shift, nbits, cnt, tot, skey, sval);
-    if (p + 1 < passes) {
-      #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int pos = (warp * rd + r) * 32 + lane;
-        if (r < rd && pos < n) {
-          k[r] = skey[pos];
-          v[r] = sval[pos];
-        }
-      }
-      __syncthreads();
-    }
-  }
+  smem_passes<WARPS, R>(k, v, n, rd, bits, cnt, tot, skey, sval);
   for (int i = threadIdx.x; i < L; i += kThreads) {
     const bool live = i < n;
     out_k[d + i] = live ? skey[i] : kSent;
     out_v[d + i] = live ? sval[i] : 0u;
+  }
+}
+
+// Keyed by row: each listed row's window of the stream sorted in place by
+// key - row * stride (its column), WARPS * 32 * R slots at most; the
+// blocks take the list's count windows in turn.
+template <int WARPS, int R, typename K>
+__global__ void __launch_bounds__(WARPS * 32)
+row_narrow_kernel(K* key, uint32_t* val, const int64_t* __restrict__ bounds,
+                  const int32_t* __restrict__ rows,
+                  const unsigned long long* __restrict__ count,
+                  int64_t stride, int bits) {
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kCap = kThreads * R;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* cnt = reinterpret_cast<int*>(smem_raw);
+  int* tot = cnt + WARPS * kMaxBins;
+  int32_t* skey = reinterpret_cast<int32_t*>(tot + kMaxBins);
+  uint32_t* sval = reinterpret_cast<uint32_t*>(skey + kCap);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t windows = static_cast<int64_t>(*count);
+  for (int64_t w = blockIdx.x; w < windows; w += gridDim.x) {
+    const int64_t row = rows[w];
+    const int64_t s = bounds[row];
+    const int n = static_cast<int>(bounds[row + 1] - s);
+    const K base = static_cast<K>(row * stride);
+    const int rd = (n + kThreads - 1) / kThreads;
+    int32_t k[R];
+    uint32_t v[R];
+    #pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int pos = (warp * rd + r) * 32 + lane;
+      const bool live = r < rd && pos < n;
+      k[r] = live ? static_cast<int32_t>(key[s + pos] - base) : 0;
+      v[r] = live ? val[s + pos] : 0u;
+    }
+    smem_passes<WARPS, R>(k, v, n, rd, bits, cnt, tot, skey, sval);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      key[s + i] = base + static_cast<K>(skey[i]);
+      val[s + i] = sval[i];
+    }
+    __syncthreads();
+  }
+}
+
+// Keyed by row: rows of 2 to 16384 products (row r's at [bounds[r],
+// bounds[r + 1]) of the stream) listed by width range (rows[g * n_rows +
+// i], counts[g], g < 3: up to 512, 4096, 16384), the wider ones as a
+// window table (wstart, wlen, wbase: the row's first slot, products and
+// row * stride) of counts[3] windows.  Warp-aggregated atomics: the order
+// within a list is arbitrary, the sort's result is not.
+__global__ void __launch_bounds__(256)
+row_part_kernel(const int64_t* __restrict__ bounds, int64_t n_rows,
+                int64_t stride, unsigned long long* __restrict__ counts,
+                int32_t* __restrict__ rows, int64_t* __restrict__ wstart,
+                int64_t* __restrict__ wlen, int64_t* __restrict__ wbase) {
+  const int lane = threadIdx.x & 31;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+       b < n_rows; b += step) {
+    const int64_t r = b + threadIdx.x;
+    int64_t n = 0;
+    int g = -1;
+    if (r < n_rows) {
+      n = bounds[r + 1] - bounds[r];
+      g = n <= 1 ? -1 : n <= 512 ? 0 : n <= 4096 ? 1 : n <= kNarrowMax ? 2 : 3;
+    }
+    #pragma unroll
+    for (int gg = 0; gg < 4; ++gg) {
+      const unsigned m = __ballot_sync(kFull, g == gg);
+      if (m == 0) continue;
+      const int leader = __ffs(m) - 1;
+      unsigned long long first = 0;
+      if (lane == leader) {
+        first = atomicAdd(&counts[gg],
+                          static_cast<unsigned long long>(__popc(m)));
+      }
+      first = __shfl_sync(kFull, first, leader);
+      if (g != gg) continue;
+      const int64_t at = static_cast<int64_t>(first) +
+                         __popc(m & ((1u << lane) - 1u));
+      if (gg < 3) {
+        rows[gg * n_rows + at] = static_cast<int32_t>(r);
+      } else {
+        wstart[at] = bounds[r];
+        wlen[at] = n;
+        wbase[at] = r * stride;
+      }
+    }
   }
 }
 
@@ -412,12 +534,28 @@ __device__ __forceinline__ TileAt tile_at(int64_t g,
   return t;
 }
 
+// A window's sort key: the source key, less the window's base when the
+// source holds keys by row (kRebase).
+template <bool kRebase, typename KS>
+__device__ __forceinline__ int32_t sort_key(KS key,
+                                            const int64_t* __restrict__ base,
+                                            int w) {
+  if constexpr (kRebase) {
+    return static_cast<int32_t>(key - static_cast<KS>(base[w]));
+  } else {
+    return static_cast<int32_t>(key);
+  }
+}
+
 // Each tile's digit counts into hist, laid out window by window, then digit
 // by digit, then tile by tile: entry (w, d, j) at tile_cum[w] * nb + d *
-// (tiles of w) + j.
+// (tiles of w) + j.  KS / kRebase: the source's key type, and whether its
+// keys are row * stride + column, window w's base[w] subtracted.
+template <typename KS, bool kRebase>
 __global__ void __launch_bounds__(kHistThreads)
-hist_kernel(const int32_t* __restrict__ src_k,
+hist_kernel(const KS* __restrict__ src_k,
             const int64_t* __restrict__ start,
+            const int64_t* __restrict__ base,
             const int64_t* __restrict__ len, int64_t n_wide,
             const int64_t* __restrict__ tile_cum,
             const int32_t* __restrict__ tile_win, int shift, int nbits,
@@ -430,9 +568,10 @@ hist_kernel(const int32_t* __restrict__ src_k,
     for (int i = threadIdx.x; i < nb; i += kHistThreads) h[i] = 0;
     __syncthreads();
     const TileAt t = tile_at(g, len, tile_cum, tile_win);
-    const int32_t* src = src_k + start[t.w] + t.lo;
+    const KS* src = src_k + start[t.w] + t.lo;
     for (int i = threadIdx.x; i < t.nt; i += kHistThreads) {
-      atomicAdd(&h[digit_of(src[i], shift, mask)], 1);
+      atomicAdd(&h[digit_of(sort_key<kRebase>(src[i], base, t.w), shift,
+                            mask)], 1);
     }
     __syncthreads();
     int32_t* out = hist + t.t0 * nb + t.j;
@@ -552,17 +691,21 @@ constexpr size_t scatter_smem() {
 
 // Each tile ranked by its digit in shared memory, then each digit's run
 // written to its offset from the scanned hist: dst_base[w] plus the run's
-// place in the window.
+// place in the window.  KS, KD / kRebaseIn, kRebaseOut: the source's and
+// the destination's key types, and whether each holds row * stride +
+// column (window w's base[w] subtracted on the read, added on the write).
+template <typename KS, typename KD, bool kRebaseIn, bool kRebaseOut>
 __global__ void __launch_bounds__(kWideWarps * 32)
-scatter_kernel(const int32_t* __restrict__ src_k,
+scatter_kernel(const KS* __restrict__ src_k,
                const uint32_t* __restrict__ src_v,
                const int64_t* __restrict__ start,
+               const int64_t* __restrict__ base,
                const int64_t* __restrict__ len,
                const int64_t* __restrict__ dst_base, int64_t n_wide,
                const int64_t* __restrict__ tile_cum,
                const int32_t* __restrict__ tile_win, int shift, int nbits,
                const int32_t* __restrict__ scanned,
-               int32_t* __restrict__ dst_k, uint32_t* __restrict__ dst_v) {
+               KD* __restrict__ dst_k, uint32_t* __restrict__ dst_v) {
   constexpr int kThreads = kWideWarps * 32;
   constexpr int R = kWideRounds;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -586,7 +729,7 @@ scatter_kernel(const int32_t* __restrict__ src_k,
     for (int r = 0; r < R; ++r) {
       const int pos = (warp * rd + r) * 32 + lane;
       const bool live = r < rd && pos < t.nt;
-      k[r] = live ? src_k[s + pos] : 0;
+      k[r] = live ? sort_key<kRebaseIn>(src_k[s + pos], base, t.w) : 0;
       v[r] = live ? src_v[s + pos] : 0u;
     }
     rank_scatter<kWideWarps, R>(k, v, t.nt, rd, shift, nbits, cnt, tot, skey,
@@ -602,7 +745,11 @@ scatter_kernel(const int32_t* __restrict__ src_k,
     for (int i = threadIdx.x; i < t.nt; i += kThreads) {
       const int32_t key = skey[i];
       const int64_t o = gbase[digit_of(key, shift, mask)] + i;
-      dst_k[o] = key;
+      if constexpr (kRebaseOut) {
+        dst_k[o] = static_cast<KD>(base[t.w]) + static_cast<KD>(key);
+      } else {
+        dst_k[o] = key;
+      }
       dst_v[o] = sval[i];
     }
     __syncthreads();
@@ -631,6 +778,68 @@ int launch_narrow(const int32_t* col, const uint32_t* val,
   narrow_kernel<WARPS, R><<<static_cast<unsigned>(n_win), WARPS * 32, smem,
                             s>>>(col, val, start, len, dest, width, bits,
                                  out_k, out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WARPS, int R, typename K>
+int launch_row_narrow(K* key, uint32_t* val, const int64_t* bounds,
+                      const int32_t* rows, const unsigned long long* count,
+                      int64_t bound, int64_t stride, int bits, int sms,
+                      cudaStream_t s) {
+  if (bound <= 0) return 0;
+  constexpr size_t smem = narrow_smem<WARPS, R>();
+  auto* kernel = row_narrow_kernel<WARPS, R, K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      WARPS * 32, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  const int64_t grid = bound < resident ? bound : resident;
+  kernel<<<static_cast<unsigned>(grid), WARPS * 32, smem, s>>>(
+      key, val, bounds, rows, count, stride, bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One pass of the wide sort: the tiles' digit counts, their scan, the
+// scatter from (sk, sv) to (dk, dv).
+template <typename KS, typename KD, bool kRebaseIn, bool kRebaseOut>
+int wide_pass(const KS* sk, const uint32_t* sv, KD* dk, uint32_t* dv,
+              const int64_t* st, const int64_t* base, const int64_t* ln,
+              const int64_t* dst_base, int64_t n_wide, const int64_t* tcum,
+              const int32_t* twin, int shift, int nbits, int32_t* h,
+              unsigned long long* state, int64_t max_tiles,
+              int64_t max_scan_tiles, int sms, cudaStream_t s) {
+  constexpr size_t smem = scatter_smem();
+  auto* scatter = scatter_kernel<KS, KD, kRebaseIn, kRebaseOut>;
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, scatter, kWideWarps * 32, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t scatter_cap = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) *
+                              sms;
+  const int64_t scatter_grid =
+      max_tiles < scatter_cap ? max_tiles : scatter_cap;
+  const int64_t hist_grid = max_tiles < 8LL * sms ? max_tiles : 8LL * sms;
+  hist_kernel<KS, kRebaseIn>
+      <<<static_cast<unsigned>(hist_grid), kHistThreads, 0, s>>>(
+          sk, st, base, ln, n_wide, tcum, twin, shift, nbits, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_kernel<<<static_cast<unsigned>(max_scan_tiles), kScanThreads, 0, s>>>(
+      h, tcum, n_wide, 1 << nbits, state);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scatter<<<static_cast<unsigned>(scatter_grid), kWideWarps * 32, smem, s>>>(
+      sk, sv, st, base, ln, dst_base, n_wide, tcum, twin, shift, nbits, h, dk,
+      dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,21 +927,6 @@ extern "C" int cbt_winsort_wide(
   }
   if (max_tiles <= 0) return 0;
 
-  constexpr size_t smem = scatter_smem();
-  err = cudaFuncSetAttribute(scatter_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scatter_kernel, kWideWarps * 32, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t scatter_cap = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) *
-                              sms;
-  const int64_t scatter_grid =
-      max_tiles < scatter_cap ? max_tiles : scatter_cap;
-  const int64_t hist_grid = max_tiles < 8LL * sms ? max_tiles : 8LL * sms;
-
   int32_t* buf_k[2] = {static_cast<int32_t*>(col),
                        static_cast<int32_t*>(scratch_k)};
   uint32_t* buf_v[2] = {static_cast<uint32_t*>(val),
@@ -740,27 +934,135 @@ extern "C" int cbt_winsort_wide(
   const int passes = num_passes(bits);
   for (int p = 0; p < passes; ++p) {
     int shift, nbits;
-    pass_digit(bits, p, &shift, &nbits);
+    pass_digit(bits, passes, p, &shift, &nbits);
     const bool last = p + 1 == passes;
-    int32_t* sk = buf_k[p % 2];
-    uint32_t* sv = buf_v[p % 2];
-    int32_t* dk = last ? ok : buf_k[(p + 1) % 2];
-    uint32_t* dv = last ? ov : buf_v[(p + 1) % 2];
-    hist_kernel<<<static_cast<unsigned>(hist_grid), kHistThreads, 0, s>>>(
-        sk, st, ln, n_wide, tcum, twin, shift, nbits, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    scan_kernel<<<static_cast<unsigned>(max_scan_tiles), kScanThreads, 0,
-                  s>>>(h, tcum, n_wide, 1 << nbits,
-                       static_cast<unsigned long long*>(state) +
-                           p * (1 + max_scan_tiles));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    scatter_kernel<<<static_cast<unsigned>(scatter_grid), kWideWarps * 32,
-                     smem, s>>>(sk, sv, st, ln, last ? de : st, n_wide, tcum,
-                                twin, shift, nbits, h, dk, dv);
-    err = cudaGetLastError();
+    err = static_cast<cudaError_t>(wide_pass<int32_t, int32_t, false, false>(
+        buf_k[p % 2], buf_v[p % 2], last ? ok : buf_k[(p + 1) % 2],
+        last ? ov : buf_v[(p + 1) % 2], st, nullptr, ln, last ? de : st,
+        n_wide, tcum, twin, shift, nbits, h,
+        static_cast<unsigned long long*>(state) + p * (1 + max_scan_tiles),
+        max_tiles, max_scan_tiles, sms, s));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+namespace {
+
+// The keyed-by-row sort of one stream's windows (cbt_winsort_rows), K its
+// key type.
+template <typename K>
+int winsort_rows(K* key, uint32_t* val, const int64_t* bounds,
+                 int64_t n_rows, int64_t stream_len, int64_t stride, int bits,
+                 const int64_t* narrow_bound,
+                 int64_t max_wide, int64_t max_tiles, int64_t max_scan_tiles,
+                 unsigned long long* zeroed, int32_t* rows, int32_t* tile_win,
+                 int32_t* hist, int64_t* cums, int32_t* scratch_k,
+                 uint32_t* scratch_v, cudaStream_t s) {
+  if (n_rows <= 0) return 0;
+  const int sms = sm_count();
+  unsigned long long* counts = zeroed;
+  auto* wstart = reinterpret_cast<int64_t*>(zeroed + 4);
+  int64_t* wlen = wstart + max_wide;
+  int64_t* wbase = wlen + max_wide;
+  auto* state = reinterpret_cast<unsigned long long*>(wbase + max_wide);
+  const int64_t part_blocks = (n_rows + 255) / 256;
+  row_part_kernel<<<static_cast<unsigned>(
+                        part_blocks < 8LL * sms ? part_blocks : 8LL * sms),
+                    256, 0, s>>>(bounds, n_rows, stride, counts, rows, wstart,
+                                 wlen, wbase);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int e = launch_row_narrow<4, 4, K>(key, val, bounds, rows, counts,
+                                     narrow_bound[0], stride, bits, sms, s);
+  if (e != 0) return e;
+  e = launch_row_narrow<8, 16, K>(key, val, bounds, rows + n_rows,
+                                  counts + 1, narrow_bound[1], stride, bits,
+                                  sms, s);
+  if (e != 0) return e;
+  e = launch_row_narrow<16, 32, K>(key, val, bounds, rows + 2 * n_rows,
+                                   counts + 2, narrow_bound[2], stride, bits,
+                                   sms, s);
+  if (e != 0) return e;
+  if (max_wide <= 0 || max_tiles <= 0) return 0;
+  // windows past the count have no lanes: no tiles, no tail
+  int64_t* tcum = cums;
+  int64_t* ccum = cums + max_wide + 1;
+  wide_prep_kernel<<<1, kPrepThreads, 0, s>>>(wlen, wlen, max_wide, tcum,
+                                               ccum, tile_win, tile_win);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // in place: the stream, then scratch a and b in turn, then the stream
+  // again; at least two passes, so no pass reads what it writes
+  const int passes = num_passes(bits) > 2 ? num_passes(bits) : 2;
+  int32_t* buf_k[2] = {scratch_k, scratch_k + stream_len};
+  uint32_t* buf_v[2] = {scratch_v, scratch_v + stream_len};
+  for (int p = 0; p < passes; ++p) {
+    int shift, nbits;
+    pass_digit(bits, passes, p, &shift, &nbits);
+    unsigned long long* st = state + p * (1 + max_scan_tiles);
+    int32_t* dk = buf_k[p % 2];
+    uint32_t* dv = buf_v[p % 2];
+    const int32_t* sk = buf_k[(p + 1) % 2];
+    const uint32_t* sv = buf_v[(p + 1) % 2];
+    if (p == 0) {
+      e = wide_pass<K, int32_t, true, false>(
+          key, val, dk, dv, wstart, wbase, wlen, wstart, max_wide, tcum,
+          tile_win, shift, nbits, hist, st, max_tiles, max_scan_tiles, sms, s);
+    } else if (p + 1 == passes) {
+      e = wide_pass<int32_t, K, false, true>(
+          sk, sv, key, val, wstart, wbase, wlen, wstart, max_wide, tcum,
+          tile_win, shift, nbits, hist, st, max_tiles, max_scan_tiles, sms, s);
+    } else {
+      e = wide_pass<int32_t, int32_t, false, false>(
+          sk, sv, dk, dv, wstart, wbase, wlen, wstart, max_wide, tcum,
+          tile_win, shift, nbits, hist, st, max_tiles, max_scan_tiles, sms, s);
+    }
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Keyed by row: every row's window of a compacted expansion stream (keys
+// row * stride + column, the rows ascending, each row's products together)
+// sorted in place by column, stably, as a stable sort of the whole stream
+// orders it; the slots past the rows' products are left as they are.
+// key: int32 or int64 (key64) [stream_len]; val: 4-byte [stream_len];
+// bounds: int64[n_rows + 1], row r's products at [bounds[r], bounds[r + 1]);
+// narrow_bound0..2: bounds on the rows of 2-512, 513-4096 and 4097-16384
+// products; max_wide / max_tiles: bounds on the wider rows and on their
+// tiles; zeroed: uint64[4 + 3 * max_wide + passes * (1 + max_scan_tiles)],
+// zeros; rows: int32[3 * n_rows]; tile_win: int32[max_tiles]; hist:
+// int32[max_tiles * 256]; cums: int64[2 * (max_wide + 1)]; scratch_k /
+// scratch_v: int32 / uint32[2 * stream_len] (unused without wide rows).
+extern "C" int cbt_winsort_rows(
+    void* key, int32_t key64, void* val, const void* bounds, int64_t n_rows,
+    int64_t stream_len, int64_t stride, int32_t bits, int64_t narrow_bound0,
+    int64_t narrow_bound1, int64_t narrow_bound2, int64_t max_wide,
+    int64_t max_tiles,
+    int64_t max_scan_tiles, void* zeroed, void* rows, void* tile_win,
+    void* hist, void* cums, void* scratch_k, void* scratch_v, void* stream) {
+  const int64_t bound[3] = {narrow_bound0, narrow_bound1, narrow_bound2};
+  const auto* b = static_cast<const int64_t*>(bounds);
+  auto* z = static_cast<unsigned long long*>(zeroed);
+  auto* rw = static_cast<int32_t*>(rows);
+  auto* tw = static_cast<int32_t*>(tile_win);
+  auto* h = static_cast<int32_t*>(hist);
+  auto* c = static_cast<int64_t*>(cums);
+  auto* sk = static_cast<int32_t*>(scratch_k);
+  auto* sv = static_cast<uint32_t*>(scratch_v);
+  auto* v = static_cast<uint32_t*>(val);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (key64) {
+    return winsort_rows<int64_t>(static_cast<int64_t*>(key), v, b, n_rows,
+                                 stream_len, stride, bits, bound, max_wide,
+                                 max_tiles, max_scan_tiles, z, rw, tw, h, c,
+                                 sk, sv, s);
+  }
+  return winsort_rows<int32_t>(static_cast<int32_t*>(key), v, b, n_rows,
+                               stream_len, stride, bits, bound, max_wide,
+                               max_tiles, max_scan_tiles, z, rw, tw, h, c, sk,
+                               sv, s);
 }

@@ -8,7 +8,8 @@ launches of K9 that also pushed blocks into another process (each is
 counted under ``ring_shift`` too).  ``winsort_narrow`` counts the
 launches of the window sort's (K10) narrow kernel, one per width range
 that a call holds windows of, and ``winsort_wide`` the calls that ran its
-wide sort.  :func:`poison_allocator` makes a
+wide sort; ``winsort_rows`` the calls of its keyed-by-row form.
+:func:`poison_allocator` makes a
 kernel's unwritten output slots show in a check against the plain version.
 """
 
@@ -17,7 +18,8 @@ import torch
 LAUNCHES = {"expand_i32": 0, "expand_i64": 0, "expand_chunks_i32": 0,
             "compress_i32": 0, "compress_i64": 0,
             "ell_sum": 0, "ell_max": 0, "spmm_coo": 0, "ring_shift": 0,
-            "ring_shift_pod": 0, "winsort_narrow": 0, "winsort_wide": 0}
+            "ring_shift_pod": 0, "winsort_narrow": 0, "winsort_wide": 0,
+            "winsort_rows": 0}
 
 
 def reset_launches() -> None:

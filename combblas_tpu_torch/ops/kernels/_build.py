@@ -81,6 +81,12 @@ _SIGNATURES = {
     # stream
     "cbt_winsort_wide": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P, _P, _P, _P,
                          _P, _P, _I64, _I64, _P, _P, _I64, _P, _P, _P],
+    # key, key64, val, bounds, n_rows, stream_len, stride, bits, narrow
+    # bounds (3), max_wide, max_tiles, max_scan_tiles, zeroed, rows (int32
+    # lists), tile_win, hist, cums, scratch_k, scratch_v, stream
+    "cbt_winsort_rows": [_P, _I32, _P, _P, _I64, _I64, _I64, _I32, _I64,
+                         _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                         _P, _P],
 }
 
 _lib = None

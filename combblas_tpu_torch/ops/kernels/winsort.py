@@ -19,6 +19,16 @@ shared memory, one block a window (one launch per width range of
 pass spreads :data:`WINSORT_TILE`-product tiles of all of them over the
 card.  Only the key's low ``key_bits`` bits are sorted, in passes of at most
 8 bits, the 4-byte values moving with their keys.
+
+:func:`row_window_sort` is the same sort keyed by row, for the compacted
+expansion streams of K1 (packed int32 keys) and K3 (int64 keys) that the
+kernel routes of ``ops/spgemm.py`` sort: each row's products lie together
+in the stream, rows ascending (A's entries in row order, as ``SpCOO``
+keeps them), so a stable sort of each row's window by ``key - row *
+stride`` (its column) is the stable sort of the whole stream.  The windows
+come from the stream itself (:func:`row_bounds`), stay in place, one a row,
+and the stream is sorted in place: rows of one product and the sentinel
+tail past the products are not touched.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from combblas_tpu_torch.ops.kernels import LAUNCHES, _build
 from combblas_tpu_torch.ops.kernels.expand import KEY_SENTINEL
 
 __all__ = ["window_sort", "window_sort_plain", "key_bits", "regimes",
+           "row_window_sort", "row_bounds", "row_sort_shapes",
            "NARROW_MAX", "NARROW_CAPS", "WINSORT_TILE", "TAIL_CHUNK",
            "SCAN_TILE"]
 
@@ -201,3 +212,96 @@ def window_sort(colstream, valstream, table, *, classes: tuple,
             _build.check(lib, err, "winsort_wide")
             LAUNCHES["winsort_wide"] += 1
     return cat_k, cat_v
+
+
+# -- keyed by row ---------------------------------------------------------
+
+def row_sort_shapes(n_rows: int, stream_len: int) -> dict:
+    """The launch shapes of :func:`row_window_sort` for a stream of
+    ``stream_len`` slots over ``n_rows`` rows, from the host's sizes alone
+    (no sync): ``narrow``, bounds on the rows of 2 to 512, 513 to 4096 and
+    4097 to :data:`NARROW_MAX` live products (a row of more than ``lo``
+    takes ``lo + 1`` slots); ``wide``, on the wider rows; ``tiles``, on
+    their :data:`WINSORT_TILE` tiles (a row's last tile may be partial)."""
+    narrow = tuple(min(n_rows, stream_len // (lo + 1))
+                   for lo in (1,) + NARROW_CAPS[:-1])
+    wide = min(n_rows, stream_len // (NARROW_MAX + 1))
+    return dict(narrow=narrow, wide=wide,
+                tiles=stream_len // WINSORT_TILE + wide if wide else 0)
+
+
+def row_bounds(key, rows: int, stride: int):
+    """Each row's window of the stream: int64[rows + 1], row r's products
+    at [bounds[r], bounds[r + 1]).  bounds[r] is the first slot whose key
+    reaches ``r * stride``, by binary search: the stream need not be
+    sorted, only hold every key below ``r * stride`` (the rows before r)
+    ahead of the others, which rows in ascending order do."""
+    q = torch.arange(rows + 1, dtype=key.dtype, device=key.device) * stride
+    return torch.searchsorted(key, q)
+
+
+def row_window_sort(key, val, *, rows: int, stride: int, key_bits: int):
+    """Sort a compacted expansion stream in place, each row's window by
+    column (K10 keyed by row), and return it.
+
+    ``key``: int32 or int64 ``row * stride + column`` for rows below
+    ``rows`` and columns below ``2**key_bits``, each row's products
+    together, rows ascending, the slots past them at the key sentinel;
+    ``val`` moves with it.  The windows are :func:`row_bounds`'.  The
+    result equals ``torch.sort(key, stable=True)`` and ``val`` gathered by
+    its order, slot for slot, which is the plain route: ``ops/spgemm.py``
+    takes that library sort for CPU tensors and ``plain=True``.  CUDA
+    tensors only; it launches ``csrc/winsort.cu`` (4-byte values only): one
+    partition of the rows by width, the three narrow instances and, for
+    rows past :data:`NARROW_MAX`, the wide passes (at least two, through
+    stream-sized scratch), with the launch shapes of
+    :func:`row_sort_shapes`.  Nothing syncs with the host."""
+    dev = key.device
+    if key.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"keys must be int32 or int64, got {key.dtype}")
+    if key.dim() != 1 or val.shape != key.shape:
+        raise ValueError("key and val must be 1-D of one length")
+    if not (key.is_contiguous() and val.is_contiguous()):
+        raise ValueError("key and val must be contiguous")
+    if val.device != dev:
+        raise ValueError(f"val is on {val.device}, key on {dev}")
+    if not 1 <= key_bits <= 31:
+        raise ValueError(f"key_bits must be in [1, 31], got {key_bits}")
+    if rows * stride > torch.iinfo(key.dtype).max:
+        raise ValueError(f"{rows} rows of stride {stride} overflow "
+                         f"{key.dtype} keys")
+    if dev.type != "cuda":
+        raise ValueError(f"no window sort kernel for device {dev}")
+    if val.element_size() != 4:
+        raise TypeError(f"values must be 4 bytes, got {val.dtype}")
+    n = key.shape[0]
+    if n >= 2**31 or rows >= 2**31:
+        raise ValueError("the stream and the rows must be fewer than 2^31")
+    bounds = row_bounds(key, rows, stride)
+    shapes = row_sort_shapes(rows, n)
+    wide, tiles = shapes["wide"], shapes["tiles"]
+    passes = max(-(-key_bits // 8), 2)
+    scan_tiles = -(-tiles * _MAX_BINS // SCAN_TILE)
+    lib = _build.library()
+    zeroed = torch.zeros(4 + 3 * wide + passes * (1 + scan_tiles),
+                         dtype=torch.int64, device=dev)
+    lists = torch.empty(3 * rows, dtype=torch.int32, device=dev)
+    tile_win = torch.empty(tiles, dtype=torch.int32, device=dev)
+    hist = torch.empty(tiles * _MAX_BINS, dtype=torch.int32, device=dev)
+    cums = torch.empty(2 * (wide + 1), dtype=torch.int64, device=dev)
+    # scratch a, then b from the third pass on
+    lanes = (2 if passes > 2 else 1) * n if wide else 0
+    scratch_k = torch.empty(lanes, dtype=torch.int32, device=dev)
+    scratch_v = torch.empty(lanes, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cbt_winsort_rows(
+            key.data_ptr(), int(key.dtype == torch.int64), val.data_ptr(),
+            bounds.data_ptr(), rows, n, stride, key_bits,
+            *shapes["narrow"], wide, tiles, scan_tiles, zeroed.data_ptr(),
+            lists.data_ptr(), tile_win.data_ptr(), hist.data_ptr(),
+            cums.data_ptr(), scratch_k.data_ptr(), scratch_v.data_ptr(),
+            stream)
+    _build.check(lib, err, "winsort_rows")
+    LAUNCHES["winsort_rows"] += 1
+    return key, val

@@ -2,8 +2,11 @@
 ``combblas_tpu/ops/spgemm.py``).
 
 The ESC scheme (expand -> sort -> compress) throughout; the sort is
-``torch.sort(stable=True)`` where JAX used ``lax.sort``.  Routes, by the
-JAX names:
+``torch.sort(stable=True)`` where JAX used ``lax.sort``, except on the card,
+where a compacted stream (K1 or K3) is sorted one row's window at a time by
+the window sort's keyed-by-row form (K10,
+:func:`.kernels.winsort.row_window_sort`), to the same stream.  Routes, by
+the JAX names:
 
 - ``spgemm`` / ``spgemm_rowchunked``: plain PyTorch ESC for any value type
   (the JAX package's non-Pallas path); ``spgemm_dense``: densify, multiply,
@@ -42,6 +45,7 @@ from combblas_tpu_torch.ops.kernels.expand import (
 from combblas_tpu_torch.ops.kernels.expand import (
     _entry_counts as _products_per_entry,
 )
+from combblas_tpu_torch.ops.kernels.winsort import key_bits, row_window_sort
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
 from combblas_tpu_torch.utils.timers import span
 
@@ -330,8 +334,11 @@ def _expand_sort(a: SpCOO, b: SpCOO, sr: Semiring, *,
     """Expand A·B with keys ``row*(n+1)+col`` and sort the stream by key.
     ``wide``: int64 keys, compacted (K3).  Otherwise int32 keys, so
     ``(m+1)*(n+1) < 2^31``: compacted (K1) with ``stream_cap``, chunk-padded
-    (K5) over ``chunk_cap`` chunks without it.  Returns (key, val,
-    stride)."""
+    (K5) over ``chunk_cap`` chunks without it.  A compacted stream on the
+    card is sorted by rows' windows (:func:`row_window_sort`, which needs
+    A's live entries in row order, as ``SpCOO`` keeps them); K5's stream,
+    whose pads lie inside rows, CPU tensors and ``plain=True`` take
+    ``torch.sort``.  Returns (key, val, stride)."""
     check_sort_limit(stream_cap if stream_cap is not None
                      else chunk_cap * CH, "expansion stream sort")
     m, k = a.shape
@@ -356,8 +363,12 @@ def _expand_sort(a: SpCOO, b: SpCOO, sr: Semiring, *,
             key, val = expand_chunks(*args, stride=stride,
                                      chunk_cap=chunk_cap, plain=plain)
     with span("spgemm.sort", key):
-        key, order = torch.sort(key, stable=True)
-        val = val[order]
+        if stream_cap is not None and key.is_cuda and not plain:
+            key, val = row_window_sort(key, val, rows=m, stride=stride,
+                                       key_bits=key_bits(n))
+        else:
+            key, order = torch.sort(key, stable=True)
+            val = val[order]
     return key, val, stride
 
 

@@ -161,15 +161,26 @@ def _gather_blocks(row, col, val, nnz, row_off, col_off,
     (m, n, 0) pads.  Rows are sorted only within each block.  No host
     sync."""
     g, cap = row.shape
-    m, n = shape
-    dev = row.device
-    t = torch.arange(cap, device=dev)
+    t = torch.arange(cap, device=row.device)
     live = t[None, :] < nnz[:, None]
     start = torch.cumsum(nnz, 0) - nnz
-    dest = torch.where(live, start[:, None] + t[None, :], g * cap).reshape(-1)
+    dest = torch.where(live, start[:, None] + t[None, :], g * cap)
+    return _put_blocks(row, col, val, nnz, dest, row_off, col_off, shape)
+
+
+def _put_blocks(row, col, val, nnz, dest, row_off, col_off,
+                shape: Tuple[int, int]) -> SpCOO:
+    """The live entries of a (g, cap) stack of blocks scattered to ``dest``
+    ((g, cap) int64: each entry's slot in the result, ``g * cap`` for a
+    pad), shifted as :func:`_gather_blocks` shifts them, the other slots
+    (m, n, 0) pads."""
+    g, cap = row.shape
+    m, n = shape
+    dest = dest.reshape(-1)
 
     def put(x, fill, off=None):
-        out = torch.full((g * cap + 1,), fill, dtype=x.dtype, device=dev)
+        out = torch.full((g * cap + 1,), fill, dtype=x.dtype,
+                         device=x.device)
         if off is not None:
             x = x + off[:, None].to(x.dtype)
         out.scatter_(0, dest, x.reshape(-1))

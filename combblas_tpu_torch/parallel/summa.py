@@ -37,6 +37,7 @@ from combblas_tpu_torch.parallel import exchange
 from combblas_tpu_torch.parallel.dist import (
     DistSpMat,
     _gather_blocks,
+    _put_blocks,
     block_dims,
 )
 from combblas_tpu_torch.semiring import PLUS_TIMES, Semiring
@@ -49,12 +50,33 @@ IMPLS = ("xla", "pallas", "wide")
 
 def _panel_a(ar, ac, av, an, kb: int, mb: int) -> SpCOO:
     """A's row panel from the (g, cap) stacks of blocks A(i, s): one SpCOO
-    of shape (mb, g*kb) whose live entries are block 0's, then block 1's,
-    ..., block s's columns shifted by s*kb (the panel-global column).  The
-    expansion reads A in this entry order, as the JAX kernels do."""
-    g = ar.shape[0]
-    off = torch.arange(g, device=ar.device) * kb
-    return _gather_blocks(ar, ac, av, an, None, off, (mb, g * kb))
+    of shape (mb, g*kb), block s's columns shifted by s*kb (the
+    panel-global column), its live entries in row order and, inside a row,
+    block 0's, then block 1's, ...: the order a stable sort by row of the
+    blocks laid end to end gives (the JAX kernels read them end to end).
+    So the expansion stream holds each row's products together, as the
+    card's row-window sort needs, and the sorted stream is the same.  The
+    ``"xla"`` route reads the panel in this order too: a ``flops_cap``
+    below the panel's products keeps other products than the JAX package
+    keeps.  Each block's rows are sorted, its pads (row mb) last.  No host
+    sync."""
+    g, cap = ar.shape
+    dev = ar.device
+    rows = torch.arange(mb + 1, dtype=ar.dtype, device=dev)
+    rp = torch.searchsorted(ar.contiguous(),
+                            rows.expand(g, mb + 1).contiguous())
+    rp = torch.minimum(rp, an[:, None])          # each block's row pointer
+    cnt = rp[:, 1:] - rp[:, :-1]
+    per_row = cnt.sum(0)
+    # the panel slot of a block's first entry in row r, less its own slot
+    first = ((torch.cumsum(per_row, 0) - per_row)[None, :]
+             + torch.cumsum(cnt, 0) - cnt - rp[:, :-1])
+    t = torch.arange(cap, device=dev)
+    dest = torch.gather(first, 1, torch.clamp(ar.long(), max=mb - 1))
+    dest += t[None, :]
+    dest.masked_fill_(t[None, :] >= an[:, None], g * cap)
+    off = torch.arange(g, device=dev) * kb
+    return _put_blocks(ar, ac, av, an, dest, None, off, (mb, g * kb))
 
 
 def _panel_b(br, bc, bv, bn, kb: int, nb: int) -> SpCOO:

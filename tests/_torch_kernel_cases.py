@@ -173,3 +173,44 @@ def compress_caps(nnz: int) -> list:
     if nnz > 1:
         caps.append(nnz // 2)
     return caps
+
+
+# -- the row-window sort (K10 keyed by row) ------------------------------
+
+#: Row lengths of the keyed-by-row cases: rows in every width range of the
+#: narrow instances (2-512, 513-4096, 4097-16384) and past them, on both
+#: sides of each limit, empty rows and rows of one product; rows whose few
+#: columns repeat (stability inside a window and across wide tiles); wide
+#: rows of whole and partial 16384-slot tiles.
+ROW_SORT_CASES = {
+    "ranges": [0, 1, 2, 511, 512, 513, 4096, 4097, 16384, 16385, 40000, 0,
+               3],
+    "equal_cols": [600, 5000, 0, 20000, 70000, 1],
+    "tile_edges": [32768, 32769, 49152, 7, 16383],
+}
+
+
+def row_sort_case(name: str, key64: bool, key_bits: int, seed: int = 0,
+                  tail: int = 1000) -> dict:
+    """A compacted expansion stream of ``ROW_SORT_CASES[name]``'s rows:
+    keys ``row * stride + col`` (stride n + 1, columns below n, n needing
+    ``key_bits`` bits; three columns only in ``equal_cols``), each row's
+    products together, rows ascending, then ``tail`` sentinel slots;
+    values distinct (0 on the tail), so a run of equal keys shows its
+    order.  ``rows`` rows, and ``rowfl`` / ``row_start`` as
+    ``_row_flops_exact`` gives them, a pad row last."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(ROW_SORT_CASES[name] + [0], np.int64)
+    n = (1 << key_bits) - 3
+    hi = 3 if name == "equal_cols" else n
+    row = np.repeat(np.arange(lens.size, dtype=np.int64), lens)
+    col = rng.integers(0, hi, row.size)
+    kdt = np.int64 if key64 else np.int32
+    sent = SENT64 if key64 else SENT32
+    key = np.concatenate([row * (n + 1) + col,
+                          np.full(tail, sent, np.int64)]).astype(kdt)
+    val = np.concatenate([np.arange(row.size) + 0.5,
+                          np.zeros(tail)]).astype(np.float32)
+    return dict(key=key, val=val, rows=lens.size - 1, rowfl=lens,
+                row_start=np.cumsum(lens) - lens, stride=n + 1, n=n,
+                key_bits=key_bits)

@@ -501,6 +501,104 @@ def test_seg_step_takes_the_window_sort_kernel(cuda, monkeypatch):
         assert bool(g[2]) == bool(want[2]) is False
 
 
+@pytest.mark.parametrize("key_bits", [17, 20])
+@pytest.mark.parametrize("key64", [False, True])
+@pytest.mark.parametrize("case", sorted(cases.ROW_SORT_CASES))
+def test_row_window_sort_cases_match_library_sort(cuda, case, key64,
+                                                  key_bits):
+    """K10 keyed by row on hand-made K1 (int32) and K3 (int64) streams:
+    rows in every narrow width range and past it, empty rows, rows of one
+    product, repeated columns (stability across wide tiles) and the
+    sentinel tail.  The stream, sorted in place, equals ``torch.sort``
+    and the value gather slot for slot, in one call of the wrapper."""
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    d = cases.row_sort_case(case, key64, key_bits)
+    key = torch.from_numpy(d["key"]).to(cuda)
+    val = torch.from_numpy(d["val"]).to(cuda)
+    skey, order = torch.sort(key, stable=True)
+    want = (skey, val[order])
+    before = dict(LAUNCHES)
+    got = twin.row_window_sort(key, val, rows=d["rows"], stride=d["stride"],
+                               key_bits=key_bits)
+    torch.cuda.synchronize()
+    assert got[0] is key and got[1] is val
+    _same_buffers(got, want)
+    assert LAUNCHES["winsort_rows"] == before["winsort_rows"] + 1
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("graph", ["ssca12", "ssca14", "ragged"])
+def test_row_window_sort_matches_library_sort_on_slabs(cuda, graph, wide):
+    """K10 keyed by row on every slab's K1 / K3 stream of an A² slab plan
+    (SSCA R-MATs, and a power-law matrix with a hub row past the narrow
+    limit): equal to ``torch.sort`` and the value gather slot for slot."""
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.ops import spgemm as tsp
+    from combblas_tpu_torch.ops.kernels import winsort as twin
+
+    if graph == "ragged":
+        a = _ragged_coo(3, 4096, 4096, cuda)
+    else:
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        a = rmat_matrix(gen, int(graph[4:]), 8, symmetrize=True,
+                        remove_self_loops=True, probs=SSCA_PROBS)
+    bounds, span_cap, slab_nnz_cap, _ch, worst_fl = tsp._pallas_slab_plan(
+        a, a, 4, wide=wide)
+    bounds = torch.as_tensor(bounds.astype(np.int64), device=cuda)
+    b_rp = a.row_ptr()
+    n = a.shape[1]
+    fn = (texp.expand_chunks_compact_wide if wide
+          else texp.expand_chunks_compact)
+    for s in range(bounds.shape[0] - 1):
+        sub, _lo = tsp._slab_extract(a, n, bounds, s, span_cap=span_cap,
+                                     slab_nnz_cap=slab_nnz_cap)
+        key, val, _total = fn(sub.row, sub.col, sub.val, sub.mask(), b_rp,
+                              a.col, a.val, tsr.PLUS_TIMES, stride=n + 1,
+                              stream_cap=tsp.stream_capacity(worst_fl))
+        skey, order = torch.sort(key, stable=True)
+        want = (skey, val[order])
+        got = twin.row_window_sort(key, val, rows=span_cap, stride=n + 1,
+                                   key_bits=twin.key_bits(n))
+        torch.cuda.synchronize()
+        _same_buffers(got, want)
+
+
+@pytest.mark.parametrize("max_flops_cap", [1 << 22, 1 << 27])
+def test_spgemm_auto_slabs_take_the_row_window_sort(cuda, max_flops_cap):
+    """A scale-16 SSCA R-MAT's A² through ``spgemm_auto`` under a slab
+    plan, packed keys (K1) at the small cap and wide keys (K3) at the
+    large one: C equals the plain run's entry for entry, and every slab's
+    expansion sort launched the row-window sort; the plain run launches
+    none (it keeps ``torch.sort``)."""
+    from combblas_tpu_torch.gen.rmat import SSCA_PROBS, rmat_matrix
+    from combblas_tpu_torch.ops import spgemm as tsp
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    a = rmat_matrix(gen, 16, 8, symmetrize=True, remove_self_loops=True,
+                    probs=SSCA_PROBS)
+    plan = {}
+    before = dict(LAUNCHES)
+    c = tsp.spgemm_auto(a, a, max_flops_cap=max_flops_cap, plan=plan)
+    torch.cuda.synchronize()
+    assert plan["kind"] == "pallas_slabs"
+    assert plan["wide"] == (max_flops_cap > 1 << 22)
+    slabs = len(tsp._pallas_slab_plan(a, a, plan["num_slabs"],
+                                      wide=plan["wide"])[0]) - 1
+    tag = "i64" if plan["wide"] else "i32"
+    sorts = LAUNCHES["winsort_rows"] - before["winsort_rows"]
+    assert sorts > 0 and sorts % slabs == 0
+    assert sorts == LAUNCHES[f"expand_{tag}"] - before[f"expand_{tag}"]
+    rows_before = LAUNCHES["winsort_rows"]
+    want = tsp.spgemm_pallas_rowchunked(a, a, num_slabs=plan["num_slabs"],
+                                        out_capacity=plan["out_cap"],
+                                        wide=plan["wide"], plain=True)
+    assert LAUNCHES["winsort_rows"] == rows_before
+    assert int(c.nnz) == int(want.nnz) > 0
+    for g, w in ((c.row, want.row), (c.col, want.col), (c.val, want.val)):
+        assert torch.equal(g, w)
+
+
 def _ragged_coo(seed, m, n, dev):
     """A sparse (m, n) with power-law row degrees, one hub row, and a third
     of the rows empty (so degree-sorted groups at the tail are empty)."""
